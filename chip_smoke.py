@@ -6,13 +6,21 @@ Drives raftsql_tpu_torch on the card, phase by phase, and fails (non-zero
 exit, no result line) at the first phase that fails:
 
   1. environment: the card's name and power limit, torch and CUDA;
-  2. build: the CUDA quorum kernels from raftsql_tpu_torch/csrc/;
+  2. build: the CUDA quorum kernels from raftsql_tpu_torch/csrc/, with
+     ptxas's report of every kernel; the main path's instantiations
+     (P = 3) must have no stack frame and no spills;
   3. kernels: K1 and K2 against their plain PyTorch versions on the
-     card (exact equality; kernel and plain times by CUDA events);
+     card (exact equality) at 1 to 385 peers (the generic kernel on
+     both sides of the peer count past which it reads its rows from
+     device memory), with no, all and random leader rows, ragged and
+     misaligned inputs; kernel and plain times by CUDA events, the
+     kernel's device time by torch.profiler;
   4. the fused tick (the main path's device program) at G = 100,000,
      P = 3, W = 256, E = 32 with commit_rule="pallas": the launch
-     counts are zeroed just before and read just after; then a card run
-     and a CPU run of the same ticks at G = 8192 must be bit-identical;
+     counts are zeroed just before and read just after; one tick of
+     each kernel has its inputs copied, and K1 and K2 are then timed on
+     those tensors; then a card run and a CPU run of the same ticks at
+     G = 8192 must be bit-identical;
   5. the fused durable SQL server (build_fused_node + the aio HTTP
      plane): the reference curl recipe, concurrent acked PUTs, a close
      and a resume=True reopen that replays the WALs;
@@ -25,6 +33,7 @@ from __future__ import annotations
 import http.client
 import json
 import os
+import re
 import shutil
 import socket
 import statistics
@@ -83,9 +92,38 @@ def environment() -> str:
 
 # ---- phase 3 ---------------------------------------------------------------
 
-def kernel_case(seed, G, P, W, mask_kind=None, dev="cuda"):
+PTXAS_PROPS = re.compile(r"Function properties for (\S+)\s*\n\s*(\d+) bytes "
+                         r"stack frame, (\d+) bytes spill stores, (\d+) "
+                         r"bytes spill loads")
+
+
+def check_ptxas(text: str) -> None:
+    """Log ptxas's report for every kernel of the build, and fail unless
+    the main path's instantiations (P = 3 of K1 and K2) keep their rows
+    in registers: a 0-byte stack frame and no spills."""
+    for line in text.splitlines():
+        if "ptxas" in line or "bytes stack frame" in line:
+            log(f"ptxas: {line.strip()}")
+    props = {m.group(1): tuple(map(int, m.group(2, 3, 4)))
+             for m in PTXAS_PROPS.finditer(text)}
+    for masked, name in ((0, "K1"), (1, "K2")):
+        key = f"quorum_commitILb{masked}ELi3EE"
+        found = [v for k, v in props.items() if key in k]
+        if not found or any(found[0]):
+            raise AssertionError(f"{name} at P=3: stack/spill stores/spill "
+                                 f"loads {found or 'not in the ptxas log'}, "
+                                 f"want 0/0/0")
+        log(f"ptxas: {name} at P=3: {found[0][0]} bytes stack frame, "
+            f"{found[0][1]}/{found[0][2]} bytes spill stores/loads")
+
+
+def kernel_case(seed, G, P, W, mask_kind=None, dev="cuda", lead="rand",
+                offset=0):
     """Seeded inputs with the edge rows up front: cand 0, a non-leader,
-    commit >= cand, a stale-term ring, cand above log_len."""
+    commit >= cand, a stale-term ring, cand above log_len.  `lead`:
+    "rand" (75 % of rows lead), "none" or "all".  `offset` > 0 makes
+    every tensor a view that starts that many elements into its storage,
+    off a 16-byte boundary."""
     rng = np.random.default_rng(seed)
     log_len = rng.integers(0, 3 * W, G).astype(np.int32)
     match = (rng.random((G, P)) * (log_len[:, None] + 1)).astype(np.int32)
@@ -93,14 +131,25 @@ def kernel_case(seed, G, P, W, mask_kind=None, dev="cuda"):
     term = rng.integers(1, 4, G).astype(np.int32)
     log_term = rng.integers(0, 4, (G, W)).astype(np.int32)
     is_leader = rng.random(G) < 0.75
-    match[0] = 0
-    is_leader[1] = False
-    commit[2] = log_len[2]
-    log_term[3] = term[3] - 1
-    match[4] = log_len[4] + 7
-    is_leader[:5] = [True, False, True, True, True]
-    args = [torch.from_numpy(x).to(dev) for x in
-            (match, log_term, log_len, commit, term, is_leader)]
+    if G >= 5:
+        match[0] = 0
+        is_leader[1] = False
+        commit[2] = log_len[2]
+        log_term[3] = term[3] - 1
+        match[4] = log_len[4] + 7
+        is_leader[:5] = [True, False, True, True, True]
+    if lead != "rand":
+        is_leader[:] = lead == "all"
+
+    def put(x):
+        t = torch.from_numpy(x)
+        if not offset:
+            return t.to(dev)
+        flat = torch.zeros(t.numel() + offset, dtype=t.dtype, device=dev)
+        return flat[offset:].view(t.shape).copy_(t)
+
+    args = [put(x) for x in (match, log_term, log_len, commit, term,
+                             is_leader)]
     if mask_kind is None:
         return args, None
     full = np.ones((G, P), bool)
@@ -111,7 +160,7 @@ def kernel_case(seed, G, P, W, mask_kind=None, dev="cuda"):
           "empty": (np.where(np.arange(G)[:, None] % 3 == 0, False, v),
                     np.where(np.arange(G)[:, None] % 2 == 0, False, j))}
     tv, tj = vj[mask_kind]
-    return args, (torch.from_numpy(tv).to(dev), torch.from_numpy(tj).to(dev))
+    return args, (put(tv), put(tj))
 
 
 def time_ms(fn, reps=30):
@@ -131,89 +180,207 @@ def time_ms(fn, reps=30):
     return statistics.median(times)
 
 
-def kernel_device_us(fn, dev, reps=20) -> str:
+def kernel_device_us(fn, reps=20):
     """The kernel's own device time per launch, from torch.profiler (the
     CUDA-event time around one call also holds the wrapper's host work,
-    during which the card idles)."""
-    if dev.type != "cuda":
-        return "not measured"
+    during which the card idles); None where the trace has none."""
     from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     ev = [e for e in prof.key_averages()
-          if "quorum_commit_kernel" in e.key and _self_device_us(e) > 0]
+          if "quorum_commit" in e.key and _self_device_us(e) > 0]
     if not ev:
-        return "not measured"
-    return f"{sum(_self_device_us(e) for e in ev) / reps:.1f} us"
+        return None
+    return sum(_self_device_us(e) for e in ev) / reps
+
+
+def host_us(fn, calls=300) -> float:
+    """Host time per call over back-to-back calls (each call's device
+    work is shorter than its host work, so the host sets the pace)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def k1_host_parts(args, quorum) -> str:
+    """Where K1's wrapper spends its host time: the input checks, the
+    output allocation, and the ctypes call that launches the kernel; and
+    for scale, one eager torch op of the kind the tick is made of (a
+    `where` over the same [R] columns)."""
+    R, P = args[0].shape
+    W = args[1].shape[1]
+    lib = pq._loaded()
+    out = torch.empty_like(args[3])
+    ptrs = [a.data_ptr() for a in args] + [out.data_ptr()]
+    stream = torch.cuda.current_stream().cuda_stream
+    parts = {
+        "checks": lambda: pq._checked(args, W),
+        "allocation": lambda: torch.empty_like(args[3]),
+        "ctypes call + launch": lambda: lib.raftsql_quorum_commit(
+            *ptrs, R, P, W, quorum, stream),
+        "one eager torch.where": lambda: torch.where(args[5], args[3],
+                                                     args[2]),
+    }
+    return ", ".join(f"{k} {host_us(f):.1f} us" for k, f in parts.items())
+
+
+def _us(x) -> str:
+    return "not measured" if x is None else f"{x:.2f} us"
 
 
 def bound(args, masks, cand):
-    """The least time for the function on these inputs: each input read
-    once and the output written once — of the ring, only the one word
-    per row whose candidate is in range — against the card's memory
-    rate; and the P^2 compares per row against its 32-bit rate."""
+    """The least time for the function on these inputs, counting what
+    they need: every row reads is_leader and commit and writes out; a
+    leader row also reads its match row, log_len and term (K2: both mask
+    rows); the ring word only where the row leads, its candidate is in
+    [1, log_len] and above commit.  The P^2 compares of each leader row
+    against the card's 32-bit rate.  Returns (ms, "bytes"|"operations",
+    ms of the all-rows count: every row read as if it led, the ring
+    wherever the candidate is in range)."""
     match, log_term, log_len, commit, term, is_leader = args
-    G, P = match.shape
-    valid = int(((cand >= 1) & (cand <= log_len)).sum())
-    nbytes = G * (4 * P + 4 + 4 + 4 + 1) + 4 * valid + 4 * G
-    ops = G * P * P * (2 if masks is None else 4)
-    if masks is not None:
-        nbytes += 2 * G * P
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / INT_OPS_S
+    R, P = match.shape
+    per_leader = 4 * P + 8 + (2 * P if masks is not None else 0)
+    per_compare = 2 if masks is None else 4
+    in_range = (cand >= 1) & (cand <= log_len)
+    leaders = int(is_leader.sum())
+    ring = int((is_leader & in_range & (cand > commit)).sum())
+    t_bytes = (9 * R + per_leader * leaders + 4 * ring) / HBM_BYTES_S
+    t_ops = leaders * P * P * per_compare / INT_OPS_S
+    all_rows = max(((9 + per_leader) * R + 4 * int(in_range.sum()))
+                   / HBM_BYTES_S, R * P * P * per_compare / INT_OPS_S)
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+            "bytes" if t_bytes >= t_ops else "operations", all_rows * 1e3)
 
 
-def check_kernels(card: str, dev="cuda", G=100_000) -> dict:
-    results = {}
+def _calls(args, masks, P, size, mod=pq):
+    """(kernel, plain, cand) for one input set; `mod` is the wrapper
+    module to call (this package's, or a comparison build's)."""
+    W = args[1].shape[1]
+    if masks is None:
+        q = P // 2 + 1 if size is None else size
+        kern = lambda: mod.pallas_quorum_commit_index(  # noqa: E731
+            *args, quorum=q, window=W)
+        plain = lambda: pq.quorum_commit_index_plain(  # noqa: E731
+            *args, quorum=q, window=W)
+        return kern, plain, tq.quorum_match_index(args[0], q)
+    kw = dict(voters=masks[0], voters_joint=masks[1], window=W, size=size)
+    kern = lambda: mod.pallas_masked_quorum_commit_index(  # noqa: E731
+        *args, **kw)
+    plain = lambda: pq.masked_quorum_commit_index_plain(  # noqa: E731
+        *args, **kw)
+    cand = torch.minimum(
+        tq.masked_quorum_match_index(args[0], masks[0], size),
+        tq.masked_quorum_match_index(args[0], masks[1], size))
+    return kern, plain, cand
+
+
+def _equal(kern, plain, what) -> int:
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        bad = (got != want).nonzero()[:5].flatten().tolist()
+        raise AssertionError(f"{what}: kernel != plain at rows {bad}")
+    return int((got.long() - want.long()).abs().max()) if len(got) else 0
+
+
+def check_kernels(card: str, dev="cuda", G=100_000) -> None:
+    """K1 and K2 against their plain versions: seeded cases at G rows
+    (timed), the peer counts of both the unrolled and the generic
+    kernels, and the edge cases (untimed)."""
     W = 256
-    cases = [(G, P, None, None) for P in (3, 5, 15)]
-    cases += [(G, P, kind, size)
+    cases = [(G, P, None, None, "rand", 0) for P in (3, 5, 15)]
+    cases += [(G, P, kind, size, "rand", 0)
               for P in (3, 5, 15)
               for kind in ("full", "reduced", "joint", "empty")
               for size in (None, P - 1 if P > 3 else 2)]
-    # The shapes the main path hands the kernels: P x G = 300,000 rows.
-    main_rows = 3 * G
-    cases += [(main_rows, 3, None, None), (main_rows, 3, "full", None)]
-    for i, (rows, P, kind, size) in enumerate(cases):
-        args, masks = kernel_case(100 + i, rows, P, W, kind, dev)
-        if masks is None:
-            q = P // 2 + 1
-            name = "pallas_quorum_commit_index"
-            kern = lambda: pq.pallas_quorum_commit_index(  # noqa: E731
-                *args, quorum=q, window=W)
-            plain = lambda: pq.quorum_commit_index_plain(  # noqa: E731
-                *args, quorum=q, window=W)
-            cand = tq.quorum_match_index(args[0], q)
-        else:
-            name = "pallas_masked_quorum_commit_index"
-            kw = dict(voters=masks[0], voters_joint=masks[1], window=W,
-                      size=size)
-            kern = lambda: pq.pallas_masked_quorum_commit_index(  # noqa
-                *args, **kw)
-            plain = lambda: pq.masked_quorum_commit_index_plain(  # noqa
-                *args, **kw)
-            cand = torch.minimum(
-                tq.masked_quorum_match_index(args[0], masks[0], size),
-                tq.masked_quorum_match_index(args[0], masks[1], size))
-        got, want = kern(), plain()
-        if not torch.equal(got, want):
-            bad = (got != want).nonzero()[:5].flatten().tolist()
-            raise AssertionError(f"{name} G={rows} P={P} {kind} size={size}: "
-                                 f"kernel != plain at rows {bad}")
-        err = int((got.long() - want.long()).abs().max())
+    cases += [(G, P, kind, None, "rand", 0)
+              for P in (1, 2, 4, 7, 9, 32, 33, 64)
+              for kind in (None, "joint")]
+    # The fused tick's row count (P x G) with this generator's 75 %
+    # leaders: phase 4 times the kernels on the tick's own tensors.
+    cases += [(3 * G, 3, None, None, "rand", 0),
+              (3 * G, 3, "full", None, "rand", 0)]
+    edges = [(R, P, kind, size, lead, off)
+             for P in (3, 33) for R in (1, 31, 4099)
+             for lead in ("none", "all", "rand")
+             for kind, size in ((None, None), ("joint", None),
+                                ("full", P - 1))
+             for off in ((0, 1) if R == 4099 else (0,))]
+    # The generic kernel stages a warp's rows in the default 48 KB of
+    # shared memory up to P = 383 (K1) and 255 (K2) and reads them from
+    # device memory past that: both sides of both limits.
+    edges += [(4099, P, kind, size, lead, 0)
+              for P in (255, 256, 257, 383, 384, 385)
+              for lead in ("all", "rand")
+              for kind, size in ((None, None), ("joint", None),
+                                 ("full", P - 1))]
+    for i, (rows, P, kind, size, lead, off) in enumerate(cases + edges):
+        args, masks = kernel_case(100 + i, rows, P, W, kind, dev, lead, off)
+        kern, plain, cand = _calls(args, masks, P, size)
+        what = (f"{'K1' if masks is None else 'K2'} R={rows} P={P} W={W} "
+                f"masks={kind} size={size} leaders={lead} offset={off}")
+        _equal(kern, plain, what)
+        if i >= len(cases):
+            continue
         ms, plain_ms = time_ms(kern), time_ms(plain)
-        dev_us = kernel_device_us(kern, args[0].device)
-        bms, by = bound(args, masks, cand)
-        log(f"kernel {name} G={rows} P={P} W={W} masks={kind} size={size}: "
-            f"equal; {ms * 1e3:.1f} us per call (device {dev_us}; plain "
-            f"{plain_ms * 1e3:.1f} us, "
-            f"bound {bms * 1e3:.2f} us by {by} at 3.35 TB/s) on {card}")
-        if rows == main_rows:
-            results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                 bound_ms=bms, bound_by=by)
+        bms, by, _ = bound(args, masks, cand)
+        log(f"kernel {what}: equal; {ms * 1e3:.1f} us per call (device "
+            f"{_us(kernel_device_us(kern))}; plain {plain_ms * 1e3:.1f} "
+            f"us, bound {bms * 1e3:.2f} us by {by}) on {card}")
+    log(f"kernels: {len(edges)} edge cases equal (R in 1, 31, 4099; no, "
+        f"all and random leaders; misaligned views; P up to 385) on "
+        f"{card}")
+
+
+def main_path_kernels(card: str, captured: dict) -> dict:
+    """K1 and K2 on the tensors one fused tick at G = 100,000 handed them
+    (captured in phase 4): equality, per-call (CUDA events), host and
+    device time, the plain version, the bound, and what bounds the
+    kernel from below."""
+    results = {}
+    for name, (args, kw) in captured.items():
+        masks = (kw["voters"], kw["voters_joint"]) if "voters" in kw \
+            else None
+        P = args[0].shape[1]
+        size = kw.get("size") if masks is not None else kw["quorum"]
+        kern, plain, cand = _calls(args, masks, P, size)
+        err = _equal(kern, plain, f"{name} on the main path's tensors")
+        ms, plain_ms = time_ms(kern, reps=100), time_ms(plain)
+        dev_us = kernel_device_us(kern)
+        bms, by, all_rows_ms = bound(args, masks, cand)
+        leaders = int(args[5].sum())
+        log(f"main path {name}: R={args[0].shape[0]} P={P} "
+            f"W={args[1].shape[1]}, {leaders} leader rows; equal; "
+            f"{ms * 1e3:.1f} us per call (host {host_us(kern):.1f} us), "
+            f"device {_us(dev_us)}; plain {plain_ms * 1e3:.1f} us; bound "
+            f"{bms * 1e3:.2f} us by {by} (all-rows count "
+            f"{all_rows_ms * 1e3:.2f} us) on {card}")
+        # What holds it back: the same launch with no leader (every row
+        # reads is_leader and commit and writes out), one warp, and the
+        # wrapper's host work by part.
+        follow = list(args)
+        follow[5] = torch.zeros_like(args[5])
+        k_none = _calls(follow, masks, P, size)[0]
+        one = [a[:32] for a in args]
+        k_one = _calls(one, None if masks is None else
+                       tuple(m[:32] for m in masks), P, size)[0]
+        log(f"main path {name}: device {_us(kernel_device_us(k_none))} "
+            f"with no leader row, {_us(kernel_device_us(k_one))} for "
+            f"32 rows (one warp) on {card}")
+        if masks is None:
+            log(f"main path {name} host parts: "
+                f"{k1_host_parts(args, size)} on {card}")
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bms, bound_by=by)
     return results
 
 
@@ -282,6 +449,27 @@ def profile_ticks(cfg, st, ib, card, ticks=8):
     return st, ib
 
 
+def capture_tick(cfg, st, ib, name, captured):
+    """One tick with the step's call of the wrapper `name` spied on: a
+    copy of the tensors it was handed goes into captured[name]."""
+    real = getattr(pq, name)
+
+    def spy(*args, **kw):
+        captured[name] = ([a.clone() for a in args],
+                          {k: v.clone() if torch.is_tensor(v) else v
+                           for k, v in kw.items()})
+        return real(*args, **kw)
+
+    setattr(pq, name, spy)
+    try:
+        st, ib, _, _ = run_ticks(cfg, st, ib, 1, seed=6)
+    finally:
+        setattr(pq, name, real)
+    if name not in captured:
+        raise AssertionError(f"the tick never called {name}")
+    return st, ib
+
+
 def fused_tick(card: str, dev="cuda", G=100_000, g=8192) -> dict:
     P, W, E = 3, 256, 32
     cfg = RaftConfig(num_groups=G, num_peers=P, log_window=W,
@@ -303,10 +491,15 @@ def fused_tick(card: str, dev="cuda", G=100_000, g=8192) -> dict:
     if commits <= 0 or leaders < G:
         raise AssertionError("fused tick made no progress")
     st, ib = profile_ticks(cfg, st, ib, card)
+    captured = {}
+    k1 = "pallas_quorum_commit_index"
+    st, ib = capture_tick(cfg, st, ib, k1, captured)
     # The same tick with voter masks: Phase 7 runs K2.
     dcfg = RaftConfig(num_groups=G, num_peers=P, log_window=W,
                       max_entries_per_msg=E, commit_rule="pallas",
                       dynamic_membership=True)
+    k2 = "pallas_masked_quorum_commit_index"
+    st, ib = capture_tick(dcfg, st, ib, k2, captured)
     t0 = time.monotonic()
     st, ib, dcommits, _ = run_ticks(dcfg, st, ib, 64, seed=3)
     ddt = time.monotonic() - t0
@@ -338,7 +531,7 @@ def fused_tick(card: str, dev="cuda", G=100_000, g=8192) -> dict:
     log(f"card vs CPU at G={g}: 128 ticks bit-identical "
         f"({gcom} entries committed)")
     return {"ms_per_tick": dt / ticks * 1e3, "commits": commits,
-            "launches": launches}
+            "launches": launches, "captured": captured}
 
 
 # ---- phase 5 ---------------------------------------------------------------
@@ -464,10 +657,12 @@ def server(card: str, dev="cuda") -> None:
 
 def main() -> int:
     card = environment()
-    build_s = pq.build(verbose=True)
+    build_s = pq.build()
     log(f"build: csrc/quorum.cu in {build_s:.1f} s")
-    kern = check_kernels(card)
+    check_ptxas(pq.build_log())
+    check_kernels(card)
     tick = fused_tick(card)
+    kern = main_path_kernels(card, tick.pop("captured"))
     server(card)
     rows = []
     for name, r in kern.items():

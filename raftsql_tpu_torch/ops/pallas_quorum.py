@@ -7,10 +7,12 @@ source note there says what they compute and what bounds them):
   pallas_quorum_commit_index         K1, the static full-voter rule
   pallas_masked_quorum_commit_index  K2, the voter-mask (joint) rule
 
-The names stay those of the JAX package, so the step reads the same.
-Each wrapper takes its plain PyTorch version (`*_plain`, beside it) for
-tensors on the CPU and only then; a CUDA tensor launches the kernel or
-raises.  `launches` counts kernel launches per wrapper.
+The names stay those of the JAX package, so the step reads the same,
+and like the JAX kernels they take any peer count P.  Each wrapper
+takes its plain PyTorch version (`*_plain`, beside it) for tensors on
+the CPU and only then; a CUDA tensor is checked (device, dtype, shape,
+contiguity: one pass) and launches the kernel or raises.  `launches`
+counts kernel launches per wrapper.
 
 The kernels are compiled at first use with `nvcc` into build/kernels/
 (a shared library with a plain C interface, loaded with ctypes), keyed
@@ -29,18 +31,24 @@ from typing import Optional
 import torch
 
 I32 = torch.int32
-MAX_PEERS = 32
 _NEG = -(1 << 30)
+_MAX_ROWS = (1 << 31) - 1 - 256     # csrc/quorum.cu kMaxRows: int rows
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "quorum.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC"]
 
 launches = {"pallas_quorum_commit_index": 0,
             "pallas_masked_quorum_commit_index": 0}
 _lib: Optional[ctypes.CDLL] = None
+_log_path: Optional[str] = None
+
+# The kernels' inputs in their C order, with the dtype each must have.
+_NAMES = ("match", "log_term", "log_len", "commit", "term", "is_leader",
+          "voters", "voters_joint")
+_DTYPES = (I32, I32, I32, I32, I32, torch.bool, torch.bool, torch.bool)
 
 
 def reset_launches() -> None:
@@ -59,10 +67,12 @@ def _nvcc() -> str:
     return found
 
 
-def build(verbose: bool = False) -> float:
+def build() -> float:
     """Compile csrc/quorum.cu (if the build for this source is missing)
-    and load it; returns the seconds spent."""
-    global _lib
+    and load it; returns the seconds spent.  The compiler's report
+    (ptxas registers, stack frames and spills per kernel) is kept beside
+    the library: `build_log()`."""
+    global _lib, _log_path
     if _lib is not None:
         return 0.0
     t0 = time.monotonic()
@@ -71,69 +81,81 @@ def build(verbose: bool = False) -> float:
                                 ).hexdigest()[:16]
     os.makedirs(BUILD_DIR, exist_ok=True)
     so = os.path.join(BUILD_DIR, f"libquorum_{digest}.so")
+    log_path = so[:-3] + ".ptxas.txt"
     if not os.path.exists(so):
         tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
-        if verbose:
-            cmd.insert(1, "-Xptxas=-v")
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+                             capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
                                f"{res.stdout}\n{res.stderr}")
-        if verbose:
-            print(res.stdout + res.stderr, flush=True)
+        with open(log_path, "w") as f:
+            f.write(res.stdout + res.stderr)
         os.replace(tmp, so)
     lib = ctypes.CDLL(so)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.raftsql_quorum_commit.argtypes = [vp] * 7 + [ci] * 4 + [vp]
     lib.raftsql_quorum_commit.restype = ci
-    lib.raftsql_masked_quorum_commit.argtypes = [vp] * 9 + [ci] * 4 + [vp]
+    lib.raftsql_masked_quorum_commit.argtypes = [vp] * 9 + [ci] * 5 + [vp]
     lib.raftsql_masked_quorum_commit.restype = ci
     lib.raftsql_cuda_error_string.argtypes = [ci]
     lib.raftsql_cuda_error_string.restype = ctypes.c_char_p
-    _lib = lib
+    _lib, _log_path = lib, log_path
     return time.monotonic() - t0
 
 
-def _check(name, x, dtype, shape, dev):
+def build_log() -> str:
+    """The compiler's output for the loaded build (empty before it)."""
+    if _log_path is None or not os.path.exists(_log_path):
+        return ""
+    with open(_log_path) as f:
+        return f.read()
+
+
+def _loaded() -> ctypes.CDLL:
+    if _lib is None:
+        build()
+    return _lib
+
+
+def _checked(ts, window: int):
+    """Raise unless `ts` (in _NAMES order) are contiguous tensors of the
+    kernels' dtypes and shapes on one CUDA card; returns (R, P).  One
+    pass, one combined test a tensor: the message is built only for the
+    tensor that fails."""
+    match = ts[0]
+    if not match.is_cuda:
+        raise ValueError(f"quorum kernels run on cuda or cpu, not "
+                         f"{match.device}")
+    if match.dim() != 2:
+        raise ValueError(f"match: expected [R, P], got {tuple(match.shape)}")
+    if window < 1:
+        raise ValueError(f"window {window}: the ring needs a slot")
+    R, P = match.shape
+    if R > _MAX_ROWS:
+        raise ValueError(f"{R} rows: the kernels take at most {_MAX_ROWS}")
+    dev = match.get_device()
+    shapes = ((R, P), (R, window), (R,), (R,), (R,), (R,), (R, P), (R, P))
+    for x, dt, shape, name in zip(ts, _DTYPES, shapes, _NAMES):
+        if (x.dtype is not dt or x.get_device() != dev or x.shape != shape
+                or not x.is_contiguous()):
+            _refuse(name, x, dt, shape, match.device)
+    return R, P
+
+
+def _refuse(name, x, dtype, shape, dev):
+    if x.dtype is not dtype:
+        raise TypeError(f"{name}: dtype {x.dtype}, expected {dtype}")
     if x.device != dev:
         raise ValueError(f"{name}: on {x.device}, expected {dev}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name}: dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != shape:
+    if x.shape != shape:
         raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-
-
-def _launch_args(match, log_term, log_len, commit, term, is_leader, window,
-                 masks=()):
-    """Validate a CUDA call's inputs; returns (G, P, device)."""
-    dev = match.device
-    if dev.type != "cuda":
-        raise ValueError(f"quorum kernels run on cuda or cpu, not {dev}")
-    if match.dim() != 2:
-        raise ValueError(f"match: expected [G, P], got {tuple(match.shape)}")
-    G, P = match.shape
-    if not 1 <= P <= MAX_PEERS:
-        raise ValueError(f"P={P}: the kernels take 1..{MAX_PEERS} peers")
-    if log_term.shape[-1] != window:
-        raise ValueError(f"log_term width {log_term.shape[-1]} != "
-                         f"window {window}")
-    _check("match", match, I32, (G, P), dev)
-    for nm, m in masks:
-        _check(nm, m, torch.bool, (G, P), dev)
-    _check("log_term", log_term, I32, (G, window), dev)
-    for nm, x in (("log_len", log_len), ("commit", commit), ("term", term)):
-        _check(nm, x, I32, (G,), dev)
-    _check("is_leader", is_leader, torch.bool, (G,), dev)
-    return G, P, dev
+    raise ValueError(f"{name}: not contiguous")
 
 
 def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        msg = _lib.raftsql_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{what} launch failed: {msg} ({rc})")
+    msg = _lib.raftsql_cuda_error_string(rc).decode()
+    raise RuntimeError(f"{what} launch failed: {msg} ({rc})")
 
 
 # ---- K1: the static full-voter rule ----------------------------------------
@@ -160,20 +182,19 @@ def pallas_quorum_commit_index(match, log_term, log_len, commit, term,
                                is_leader, *, quorum: int, window: int):
     """K1 over [G, P] match, [G, W] ring and [G] columns (int32; is_leader
     bool) -> [G] int32.  CPU tensors take the plain version."""
-    if match.device.type == "cpu":
+    if match.is_cpu:
         return quorum_commit_index_plain(
             match, log_term, log_len, commit, term, is_leader,
             quorum=quorum, window=window)
-    G, P, dev = _launch_args(match, log_term, log_len, commit, term,
-                             is_leader, window)
-    build()
-    out = torch.empty((G,), dtype=I32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib.raftsql_quorum_commit(
-        match.data_ptr(), log_term.data_ptr(), log_len.data_ptr(),
-        commit.data_ptr(), term.data_ptr(), is_leader.data_ptr(),
-        out.data_ptr(), G, P, window, quorum, stream)
-    _raise_on(rc, "quorum_commit_kernel")
+    ts = (match, log_term, log_len, commit, term, is_leader)
+    R, P = _checked(ts, window)
+    lib = _loaded()
+    out = torch.empty_like(commit)
+    rc = lib.raftsql_quorum_commit(
+        *[x.data_ptr() for x in ts], out.data_ptr(), R, P, window, quorum,
+        torch._C._cuda_getCurrentRawStream(match.get_device()))
+    if rc:
+        _raise_on(rc, "K1 quorum_commit")
     launches["pallas_quorum_commit_index"] += 1
     return out
 
@@ -207,23 +228,22 @@ def pallas_masked_quorum_commit_index(match, log_term, log_len, commit,
                                       voters_joint, window: int, size=None):
     """K2: K1's shapes plus [G, P] bool `voters` / `voters_joint`; `size`
     is the flexible write quorum on full masks (None = majority)."""
-    if match.device.type == "cpu":
+    if match.is_cpu:
         return masked_quorum_commit_index_plain(
             match, log_term, log_len, commit, term, is_leader,
             voters=voters, voters_joint=voters_joint, window=window,
             size=size)
-    G, P, dev = _launch_args(match, log_term, log_len, commit, term,
-                             is_leader, window,
-                             masks=(("voters", voters),
-                                    ("voters_joint", voters_joint)))
-    build()
-    out = torch.empty((G,), dtype=I32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib.raftsql_masked_quorum_commit(
+    ts = (match, log_term, log_len, commit, term, is_leader, voters,
+          voters_joint)
+    R, P = _checked(ts, window)
+    lib = _loaded()
+    out = torch.empty_like(commit)
+    rc = lib.raftsql_masked_quorum_commit(
         match.data_ptr(), voters.data_ptr(), voters_joint.data_ptr(),
-        log_term.data_ptr(), log_len.data_ptr(), commit.data_ptr(),
-        term.data_ptr(), is_leader.data_ptr(), out.data_ptr(),
-        G, P, window, -1 if size is None else int(size), stream)
-    _raise_on(rc, "masked_quorum_commit_kernel")
+        *[x.data_ptr() for x in ts[1:6]], out.data_ptr(), R, P, window,
+        0 if size is None else int(size), size is not None,
+        torch._C._cuda_getCurrentRawStream(match.get_device()))
+    if rc:
+        _raise_on(rc, "K2 masked quorum_commit")
     launches["pallas_masked_quorum_commit_index"] += 1
     return out

@@ -27,28 +27,78 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("P", [1, 3, 5, 15, 32])
-def test_kernels_equal_plain(card, P):
-    rng = np.random.default_rng(P)
-    G, W = 4099, 64
-    log_len = rng.integers(0, 3 * W, G).astype(np.int32)
-    match = (rng.random((G, P)) * (log_len[:, None] + 1)).astype(np.int32)
-    args = [torch.from_numpy(x).to(card) for x in (
-        match, rng.integers(0, 4, (G, W)).astype(np.int32), log_len,
-        (rng.random(G) * (log_len + 1)).astype(np.int32),
-        rng.integers(1, 4, G).astype(np.int32), rng.random(G) < 0.8)]
+def _inputs(card, seed, R, P, W, lead="rand", offset=0):
+    """Seeded K1/K2 inputs on the card; `lead` is "rand" (80 % lead),
+    "none" or "all"; `offset` > 0 makes every tensor a contiguous view
+    that starts `offset` elements into its storage (a base that is not
+    16-byte aligned)."""
+    rng = np.random.default_rng(seed)
+    log_len = rng.integers(0, 3 * W, R).astype(np.int32)
+    match = (rng.random((R, P)) * (log_len[:, None] + 1)).astype(np.int32)
+    is_leader = {"rand": rng.random(R) < 0.8, "none": np.zeros(R, bool),
+                 "all": np.ones(R, bool)}[lead]
+    xs = [match, rng.integers(0, 4, (R, W)).astype(np.int32), log_len,
+          (rng.random(R) * (log_len + 1)).astype(np.int32),
+          rng.integers(0, 4, R).astype(np.int32), is_leader,
+          rng.random((R, P)) < 0.6, rng.random((R, P)) < 0.6]
+    out = []
+    for x in xs:
+        t = torch.from_numpy(x)
+        out.append(_offset_view(t, offset, card) if offset else t.to(card))
+    return out[:6], out[6], out[7]
+
+
+def _offset_view(t, offset, card):
+    flat = torch.zeros(t.numel() + offset, dtype=t.dtype, device=card)
+    view = flat[offset:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    return view
+
+
+def _equal_plain(args, v, j, P, W):
     q = P // 2 + 1
     got = pq.pallas_quorum_commit_index(*args, quorum=q, window=W)
     want = pq.quorum_commit_index_plain(*args, quorum=q, window=W)
     assert torch.equal(got, want)
-    v = torch.from_numpy(rng.random((G, P)) < 0.6).to(card)
-    j = torch.from_numpy(rng.random((G, P)) < 0.6).to(card)
-    for size in (None, P):
+    for size in (None, P, max(P - 1, 1)):
         got = pq.pallas_masked_quorum_commit_index(
             *args, voters=v, voters_joint=j, window=W, size=size)
         want = pq.masked_quorum_commit_index_plain(
             *args, voters=v, voters_joint=j, window=W, size=size)
         assert torch.equal(got, want)
+    full = torch.ones_like(v)
+    got = pq.pallas_masked_quorum_commit_index(
+        *args, voters=full, voters_joint=full, window=W)
+    assert torch.equal(got, pq.masked_quorum_commit_index_plain(
+        *args, voters=full, voters_joint=full, window=W))
+
+
+@pytest.mark.parametrize("P", [1, 2, 3, 4, 5, 7, 15, 32, 33, 64, 255, 256,
+                               257, 383, 384, 385])
+def test_kernels_equal_plain(card, P):
+    # 4099 rows: not a multiple of a block's rows.  The generic kernel
+    # stages a warp's rows in the default 48 KB of shared memory up to
+    # P = 383 (K1) and 255 (K2), and reads them from device memory past
+    # that: both sides of both limits.
+    args, v, j = _inputs(card, P, 4099, P, 64)
+    _equal_plain(args, v, j, P, 64)
+
+
+@pytest.mark.parametrize("lead", ["none", "all", "rand"])
+@pytest.mark.parametrize("R", [1, 31, 257])
+@pytest.mark.parametrize("P", [3, 33])
+def test_kernels_edge_rows(card, P, R, lead):
+    args, v, j = _inputs(card, 7 * R + P, R, P, 16, lead)
+    _equal_plain(args, v, j, P, 16)
+
+
+@pytest.mark.parametrize("P", [3, 5, 64])
+def test_kernels_misaligned_base(card, P):
+    """Views that start off a 16-byte boundary take the kernels' element
+    loads instead of the 16-byte ones."""
+    args, v, j = _inputs(card, P, 1000, P, 32, offset=1)
+    _equal_plain(args, v, j, P, 32)
 
 
 def test_wrapper_refuses_bad_inputs(card):
@@ -61,9 +111,16 @@ def test_wrapper_refuses_bad_inputs(card):
                                       quorum=2, window=16)
     with pytest.raises(ValueError):
         pq.pallas_quorum_commit_index(*args, quorum=2, window=32)
-    big = torch.zeros((8, 33), dtype=torch.int32, device=card)
     with pytest.raises(ValueError):
-        pq.pallas_quorum_commit_index(big, *args[1:], quorum=17, window=16)
+        strided = torch.zeros((3, 8), dtype=torch.int32, device=card).t()
+        pq.pallas_quorum_commit_index(strided, *args[1:], quorum=2,
+                                      window=16)
+    with pytest.raises(ValueError):
+        pq.pallas_quorum_commit_index(*args[:2], args[2].cpu(), *args[3:],
+                                      quorum=2, window=16)
+    # 33 peers: more than one 32-bit mask word (the generic kernel).
+    big, v, j = _inputs(card, 33, 8, 33, 16)
+    _equal_plain(big, v, j, 33, 16)
 
 
 def test_fused_tick_card_equals_cpu(card):

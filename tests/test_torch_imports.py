@@ -14,6 +14,8 @@ import raftsql_tpu_torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = sorted(m.name for m in pkgutil.walk_packages(
     raftsql_tpu_torch.__path__, "raftsql_tpu_torch."))
+# The scripts at the repo's root that drive the port on the card.
+SCRIPTS = ["chip_smoke", "chip_compare"]
 
 # One fresh interpreter imports the modules one by one and records, per
 # module, any jax / raftsql_tpu / triton module that appeared with it.
@@ -36,8 +38,8 @@ print(json.dumps(out))
 @pytest.fixture(scope="module")
 def probe():
     env = dict(os.environ, PYTHONPATH=ROOT)
-    r = subprocess.run([sys.executable, "-c", PROBE, *MODULES], env=env,
-                       capture_output=True, text=True, timeout=300)
+    r = subprocess.run([sys.executable, "-c", PROBE, *MODULES, *SCRIPTS],
+                       env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     got = json.loads(r.stdout.strip().splitlines()[-1])
     assert got["preloaded"] == [], got["preloaded"]
@@ -54,6 +56,6 @@ def test_module_list_covers_the_slice():
         assert f"raftsql_tpu_torch.{m}" in MODULES, m
 
 
-@pytest.mark.parametrize("mod", MODULES)
+@pytest.mark.parametrize("mod", MODULES + SCRIPTS)
 def test_imports_without_jax(probe, mod):
     assert probe[mod] == [], probe[mod]

@@ -76,7 +76,7 @@ def T(*xs):
 
 
 @pytest.mark.parametrize("seed", [0, 1])
-@pytest.mark.parametrize("P", [3, 5, 15])
+@pytest.mark.parametrize("P", [3, 5, 15, 33, 64])
 def test_k1_plain_matches_pallas_and_point_rule(seed, P):
     args = case(seed, 64, P)
     q = P // 2 + 1
@@ -96,7 +96,7 @@ def test_k1_plain_matches_pallas_and_point_rule(seed, P):
 
 @pytest.mark.parametrize("size", [None, "write"])
 @pytest.mark.parametrize("kind", ["full", "reduced", "joint", "empty"])
-@pytest.mark.parametrize("P", [3, 5, 15])
+@pytest.mark.parametrize("P", [3, 5, 15, 33, 64])
 def test_k2_plain_matches_masked_pallas(P, kind, size):
     seed = P * 7 + len(kind)
     args = case(seed, 64, P)
@@ -117,6 +117,49 @@ def test_k2_plain_matches_masked_pallas(P, kind, size):
     port_ref = tq.masked_quorum_commit_index(
         *T(*args), voters=tv, voters_joint=tj, window=W, size=sz)
     np.testing.assert_array_equal(port_ref.numpy(), want)
+
+
+def main_case(seed, G, P):
+    """Inputs built like the fused tick's Phase 7: R = P*G rows, row
+    p*G + g is peer p's view of group g, exactly one peer leads each
+    group, and a leader's own match column holds its log_len."""
+    rng = np.random.default_rng(seed)
+    lead_peer = rng.integers(0, P, G)
+    is_leader = (np.arange(P)[:, None] == lead_peer[None, :]).reshape(-1)
+    gterm = rng.integers(0, 4, G).astype(np.int32)
+    term = np.tile(gterm, P)
+    log_len = rng.integers(0, 3 * W, P * G).astype(np.int32)
+    commit = (rng.random(P * G) * (log_len + 1)).astype(np.int32)
+    match = (rng.random((P * G, P)) * (log_len[:, None] + 2)).astype(np.int32)
+    rows = np.arange(P * G)
+    match[rows, rows // G] = np.where(is_leader, log_len,
+                                      match[rows, rows // G])
+    log_term = np.maximum(term[:, None] - rng.integers(0, 2, (P * G, W)),
+                          0).astype(np.int32)
+    return match, log_term, log_len, commit, term, is_leader
+
+
+@pytest.mark.parametrize("P", [3, 5, 15, 33, 64])
+def test_k1_k2_main_path_shape(P):
+    """K1 and K2 (full and joint masks) on main-path-shaped inputs, the
+    port's wrappers against the JAX kernels in interpret mode."""
+    G = 12
+    args = main_case(P + 50, G, P)
+    assert args[5].sum() == G
+    q = P // 2 + 1
+    want = np.asarray(jpq.pallas_quorum_commit_index(
+        *J(*args), quorum=q, window=W, block_g=32, interpret=True))
+    got = tpq.pallas_quorum_commit_index(*T(*args), quorum=q, window=W)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want != args[3]).any()          # some leader advanced
+    full = np.ones((P * G, P), bool)
+    for v, j in ((full, full), masks(P, P * G, P, "joint")):
+        want = np.asarray(jpq.pallas_masked_quorum_commit_index(
+            *J(*args), voters=jnp.asarray(v), voters_joint=jnp.asarray(j),
+            window=W, block_g=32, interpret=True))
+        got = tpq.pallas_masked_quorum_commit_index(
+            *T(*args), voters=T(v)[0], voters_joint=T(j)[0], window=W)
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_k2_degenerate_configs():
