@@ -20,13 +20,26 @@ exit, no result line) at the first phase that fails:
      counts are zeroed just before and read just after; one tick of
      each kernel has its inputs copied, and K1 and K2 are then timed on
      those tensors; then a card run and a CPU run of the same ticks at
-     G = 8192 must be bit-identical;
+     G = 8192, each booted from the same seed, must be bit-identical;
+     then the device event ring's cost at G = 100,000 ([64, 3, 100000,
+     9] int32): the fused tick without and with a ring record per tick,
+     and the durable node's tick without and with enable_tracing;
   5. the fused durable SQL server (build_fused_node + the aio HTTP
      plane): the reference curl recipe, concurrent acked PUTs, a close
      and a resume=True reopen that replays the WALs;
-  6. the kernels line (JSON) and the result line.
+  6. the same server with tracing on (the CLI's --trace): the PUT load
+     again, GET /trace must pass validate_chrome_trace, and GET /events
+     must show tracing on, device rows, and one full propose-to-ack
+     span per acked PUT;
+  7. chaos: the default family at SEED=0 (240 ticks,
+     commit_rule="pallas") twice and the five fused families at seed 0
+     once each, through raftsql_tpu_torch.chaos.run; every schedule and
+     result digest must equal the JAX package's (CHAOS_DIGESTS), and K1
+     must launch during the default family's runs;
+  8. the kernels line (JSON) and the result line.
 
-It needs one card and writes only under build/ of its checkout.
+It needs one card and writes under build/ of its checkout (and the chaos
+runs' data dirs under $TMPDIR, removed after each run).
 """
 from __future__ import annotations
 
@@ -55,6 +68,18 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "build", "chip_smoke_data")
 HBM_BYTES_S = 3.35e12     # H100 SXM device memory (data sheet)
 INT_OPS_S = 67e12         # H100 SXM non-tensor 32-bit rate (data sheet)
+# (schedule digest, result digest) of each fused chaos family at seed 0:
+# the JAX package's FusedChaosRunner on the CPU under JAX 0.9.0, whose
+# threefry is partitionable (tests/test_torch_chaos.py holds the port
+# to a live JAX run and to these constants).
+CHAOS_DIGESTS = {
+    "default": ("622b22c59545816b", "3bcaa6784fc0a2d8"),
+    "asym": ("1450fc31d17ad885", "a8ebb9ca13ed9532"),
+    "skew": ("4b1508ca5ccc18d0", "74bb6ca5cda40817"),
+    "enospc": ("92bed49e35e5bdc5", "bb5164888fc9f234"),
+    "fsync_stall": ("a74066e3175df9f0", "e6e3ea9dd9aa0b2e"),
+    "compact": ("53ad340caa28b97e", "93a3ecaa989d1b05"),
+}
 REPLACES = {
     "pallas_quorum_commit_index":
         "raftsql_tpu/ops/pallas_quorum.py:72",
@@ -180,10 +205,12 @@ def time_ms(fn, reps=30):
     return statistics.median(times)
 
 
-def kernel_device_us(fn, reps=20):
-    """The kernel's own device time per launch, from torch.profiler (the
-    CUDA-event time around one call also holds the wrapper's host work,
-    during which the card idles); None where the trace has none."""
+def kernel_device_us(fn, reps=20, name="quorum_commit"):
+    """Device time per call of the kernels `fn` launches whose name holds
+    `name` (every kernel when None), from torch.profiler: the kernels'
+    own time (the CUDA-event time around one call also holds the
+    wrapper's host work, during which the card idles); None where the
+    trace has none."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -192,7 +219,7 @@ def kernel_device_us(fn, reps=20):
             fn()
         torch.cuda.synchronize()
     ev = [e for e in prof.key_averages()
-          if "quorum_commit" in e.key and _self_device_us(e) > 0]
+          if (name is None or name in e.key) and _self_device_us(e) > 0]
     if not ev:
         return None
     return sum(_self_device_us(e) for e in ev) / reps
@@ -390,9 +417,12 @@ def _np(tup):
     return convert.to_numpy(tup)
 
 
-def run_ticks(cfg, st, ib, ticks, seed, record=False):
+def run_ticks(cfg, st, ib, ticks, seed, record=False, ring=None):
     """`ticks` fused steps with seeded proposals; returns the state, the
-    inbox, the committed-entry count and (record) every packed info."""
+    inbox, the committed-entry count and (record) every packed info.
+    With `ring` (a DeviceEventRing) every tick is recorded into it, as
+    the host plane's tick does with tracing on (the apply cursor a zero
+    [P, G] array: this loop has no host plane)."""
     rng = np.random.default_rng(seed)
     dev = st.term.device
     # Every tick's proposals made in bulk and moved once: the loop times
@@ -401,8 +431,11 @@ def run_ticks(cfg, st, ib, ticks, seed, record=False):
         0, cfg.max_entries_per_msg + 1,
         (ticks, cfg.num_peers, cfg.num_groups)).astype(np.int32)).to(dev)
     infos, commit0 = [], int(st.commit[0].sum())
-    for prop in props:
+    applied = np.zeros((cfg.num_peers, cfg.num_groups), np.int64)
+    for t, prop in enumerate(props):
         st, ib, pinfo, _busy = cluster.cluster_step_host(cfg, st, ib, prop)
+        if ring is not None:
+            ring.record(t, pinfo, st.votes, ib.v_type, ib.a_type, applied)
         if record:
             infos.append(pinfo.cpu().numpy())
     if dev.type == "cuda":
@@ -510,13 +543,14 @@ def fused_tick(card: str, dev="cuda", G=100_000, g=8192) -> dict:
         raise AssertionError(f"a kernel of the path never ran: {launches}")
     del st, ib
 
-    # Card vs CPU: the same 128 ticks from the same state, bit for bit.
+    # Card vs CPU: the same 128 ticks, bit for bit, each side booted
+    # from the same seed (the boot draws are made on the host).
     scfg = RaftConfig(num_groups=g, num_peers=P, log_window=W,
                       max_entries_per_msg=E, commit_rule="pallas")
     cst = cluster.init_cluster_state(scfg, device="cpu")
     cib = cluster.empty_cluster_inbox(scfg, device="cpu")
-    gst = convert.peer_state_from_numpy(_np(cst), dev)
-    gib = convert.inbox_from_numpy(_np(cib), dev)
+    gst = cluster.init_cluster_state(scfg, device=dev)
+    gib = cluster.empty_cluster_inbox(scfg, device=dev)
     gst, gib, gcom, ginfo = run_ticks(scfg, gst, gib, 128, 4, record=True)
     cst, cib, ccom, cinfo = run_ticks(scfg, cst, cib, 128, 4, record=True)
     for t, (a, b) in enumerate(zip(ginfo, cinfo)):
@@ -534,12 +568,117 @@ def fused_tick(card: str, dev="cuda", G=100_000, g=8192) -> dict:
             "launches": launches, "captured": captured}
 
 
+def traced_tick(card: str, dev="cuda", G=100_000, ticks=64,
+                node_ticks=8) -> dict:
+    """The event ring's cost at G = 100,000.  First on phase 4's fused
+    tick: blocks of `ticks` ticks without and with a DeviceEventRing
+    record per tick (one full drain per traced block), in turns.  Then
+    on the durable node (FusedClusterNode: the fused tick plus the host
+    plane, idle after the elections) without and with enable_tracing,
+    in turns, `node_ticks` a block.  And the ring's slot write alone
+    (CUDA events) and one drain of the full ring."""
+    from raftsql_tpu_torch.obs.device_ring import (DeviceEventRing,
+                                                   _record_slot)
+    from raftsql_tpu_torch.runtime.fused import FusedClusterNode
+    cfg = RaftConfig(num_groups=G, num_peers=3, log_window=256,
+                     max_entries_per_msg=32, commit_rule="pallas")
+    P = cfg.num_peers
+    st = cluster.init_cluster_state(cfg, device=dev)
+    ib = cluster.empty_cluster_inbox(cfg, device=dev)
+    st, ib, _, _ = run_ticks(cfg, st, ib, 32, seed=1)     # elect leaders
+    ring = DeviceEventRing(P, G, device=dev)
+    loop = {"off": [], "on": []}
+    for i, mode in enumerate(("off", "on", "off", "on")):
+        t0 = time.monotonic()
+        st, ib, _, _ = run_ticks(cfg, st, ib, ticks, seed=10 + i,
+                                 ring=ring if mode == "on" else None)
+        loop[mode].append((time.monotonic() - t0) / ticks * 1e3)
+    if len(ring) != 2 * ticks or ring.drains != 2:
+        raise AssertionError(f"ring: {len(ring)} rows, {ring.drains} "
+                             f"drains after {2 * ticks} traced ticks")
+    app = torch.zeros((P, G), dtype=torch.int32, device=dev)
+    pinfo = cluster.cluster_step_host(
+        cfg, st, ib, torch.zeros((P, G), dtype=torch.int32,
+                                 device=dev))[2]
+    rec_ms = time_ms(lambda: _record_slot(
+        ring._ring, 0, 0, pinfo, st.votes, ib.v_type, ib.a_type, app))
+    rec_dev = kernel_device_us(lambda: _record_slot(
+        ring._ring, 0, 0, pinfo, st.votes, ib.v_type, ib.a_type, app),
+        name=None)
+    ring._slot = ring.depth
+    t0 = time.monotonic()
+    ring.drain()
+    drain_ms = (time.monotonic() - t0) * 1e3
+    mb = ring._ring.numel() * 4 / 1e6
+    fmt = lambda xs: ", ".join(f"{x:.2f}" for x in xs)  # noqa: E731
+    log(f"ring at G={G}: fused tick {statistics.mean(loop['off']):.2f} "
+        f"ms/tick without the ring ({fmt(loop['off'])}), "
+        f"{statistics.mean(loop['on']):.2f} with a record per tick "
+        f"({fmt(loop['on'])}), {ticks} ticks a block in turns; ring "
+        f"{list(ring._ring.shape)} int32 ({mb:.1f} MB): slot write "
+        f"{rec_ms * 1e3:.1f} us per call, {_us(rec_dev)} of device time, "
+        f"one full drain {drain_ms:.1f} ms on {card}")
+    del st, ib, ring, pinfo
+
+    d = os.path.join(ROOT, "build", "chip_smoke_ring")
+    shutil.rmtree(d, ignore_errors=True)
+    node = FusedClusterNode(cfg, d, device=dev)
+    try:
+        t0, n = time.monotonic(), 0
+        while (node._hints < 0).any() and n < 300:
+            node.tick()
+            n += 1
+        node.publish_flush()
+        if (node._hints < 0).any():
+            raise AssertionError(f"{G} groups not elected in {n} ticks")
+        log(f"traced node: {G} groups elected in {n} ticks "
+            f"({time.monotonic() - t0:.1f} s)")
+
+        def block():
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            for _ in range(node_ticks):
+                node.tick()
+            node.publish_flush()
+            torch.cuda.synchronize()
+            return (time.monotonic() - t0) / node_ticks * 1e3
+
+        m = node.metrics
+        m0 = (m.ticks, m.t_device_ms, m.t_wal_ms, m.t_publish_ms)
+        off = [block()]
+        node.enable_tracing()
+        saved = node.tracer, node.ring
+        on = [block()]
+        # In turns: the same node with the hooks detached, then again.
+        node.tracer = node.ring = None
+        off.append(block())
+        node.tracer, node.ring = saved
+        on.append(block())
+        node.ring.drain()
+        if len(node.ring) != 2 * node_ticks:
+            raise AssertionError(f"node ring holds {len(node.ring)} rows "
+                                 f"after {2 * node_ticks} traced ticks")
+        n = max(m.ticks - m0[0], 1)
+        log(f"traced node G={G}: {statistics.mean(off):.2f} ms/tick "
+            f"without enable_tracing ({fmt(off)}), "
+            f"{statistics.mean(on):.2f} with ({fmt(on)}), {node_ticks} "
+            f"ticks a block in turns; per tick over all blocks: device "
+            f"(dispatch + readback) {(m.t_device_ms - m0[1]) / n:.2f} ms, "
+            f"WAL + fsync {(m.t_wal_ms - m0[2]) / n:.2f} ms, publish "
+            f"{(m.t_publish_ms - m0[3]) / n:.2f} ms on {card}")
+        return {"loop": loop, "node_off": off, "node_on": on,
+                "record_ms": rec_ms, "drain_ms": drain_ms}
+    finally:
+        node.stop()
+        shutil.rmtree(d, ignore_errors=True)
+
+
 # ---- phase 5 ---------------------------------------------------------------
 
-def _req(port, method, body=b"", group=0):
+def _req(port, method, body=b"", group=0, path="/"):
     c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
     try:
-        c.request(method, "/", body=body,
+        c.request(method, path, body=body,
                   headers={"X-Raft-Group": str(group)})
         r = c.getresponse()
         return r.status, r.read()
@@ -555,15 +694,70 @@ def _free_port() -> int:
     return port
 
 
-def _serve(groups, dev):
+def _serve(groups, dev, trace=False):
     from raftsql_tpu_torch.api.aio import AioSQLServer
     from raftsql_tpu_torch.server.main import build_fused_node
     rdb = build_fused_node(groups=groups, peers=3, resume=True,
                            data_prefix=os.path.join(DATA, "raftsql"),
-                           commit_rule="pallas", device=dev)
+                           commit_rule="pallas", trace=trace, device=dev)
     srv = AioSQLServer(_free_port(), rdb, host="127.0.0.1")
     srv.start()
     return rdb, srv
+
+
+def put_load(rdb, port, groups, card, what, threads=16, per=25) -> list:
+    """`threads` clients PUT `per` unique rows each across the groups
+    (concurrently), then the row counts are read back; logs the per-tick
+    split and the propose->ack p50/p99.  Returns the acked (group,
+    query) pairs."""
+    def rows():
+        n = 0
+        for g in range(groups):
+            st, body = _req(port, "GET", b"SELECT count(*) FROM main.t", g)
+            expect(st, 200, f"count g{g}")
+            n += int(body.strip().strip(b"|"))
+        return n
+
+    rows0 = rows()
+    lat, errs, acked = [], [], []
+    mu = threading.Lock()
+
+    def client(i):
+        for k in range(per):
+            g = (i + k) % groups
+            q = f'INSERT INTO main.t (name) VALUES ("c{i}-{k}")'
+            t0 = time.monotonic()
+            s, b = _req(port, "PUT", q.encode(), g)
+            with mu:
+                lat.append(time.monotonic() - t0)
+                if s != 204:
+                    errs.append((s, b))
+                else:
+                    acked.append((g, q))
+
+    m = rdb.pipe.node.metrics
+    m0 = (m.ticks, m.t_device_ms, m.t_wal_ms, m.t_publish_ms,
+          time.monotonic())
+    ths = [threading.Thread(target=client, args=(i,))
+           for i in range(threads)]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join()
+    n = max(m.ticks - m0[0], 1)
+    log(f"{what} ticks during the PUTs: {n}, per tick: wall "
+        f"{(time.monotonic() - m0[4]) * 1e3 / n:.2f} ms, device "
+        f"(dispatch + readback) {(m.t_device_ms - m0[1]) / n:.2f} ms, "
+        f"WAL + fsync {(m.t_wal_ms - m0[2]) / n:.2f} ms, publish "
+        f"{(m.t_publish_ms - m0[3]) / n:.2f} ms")
+    expect(errs, [], f"{what}: concurrent PUTs")
+    expect(rows(), rows0 + threads * per, f"{what}: rows")
+    lat.sort()
+    p50 = lat[len(lat) // 2] * 1e3
+    p99 = lat[int(len(lat) * 0.99)] * 1e3
+    log(f"{what}: {len(lat)} PUTs from {threads} threads acked and read "
+        f"back; propose->ack p50 {p50:.2f} ms p99 {p99:.2f} ms on {card}")
+    return acked
 
 
 def server(card: str, dev="cuda") -> None:
@@ -585,48 +779,7 @@ def server(card: str, dev="cuda") -> None:
                    (200, b"|abc|\n"), f"SELECT g{g}")
         expect(_req(port, "POST", b"SELECT 1")[0], 405, "POST")
         expect(_req(port, "PUT", b"NOT SQL")[0], 400, "bad SQL")
-        lat, errs = [], []
-        mu = threading.Lock()
-
-        def client(i):
-            for k in range(25):
-                g = (i + k) % groups
-                t0 = time.monotonic()
-                s, b = _req(port, "PUT", f'INSERT INTO main.t (name) '
-                            f'VALUES ("c{i}-{k}")'.encode(), g)
-                with mu:
-                    lat.append(time.monotonic() - t0)
-                    if s != 204:
-                        errs.append((s, b))
-
-        m = rdb.pipe.node.metrics
-        m0 = (m.ticks, m.t_device_ms, m.t_wal_ms, m.t_publish_ms,
-              time.monotonic())
-        ths = [threading.Thread(target=client, args=(i,))
-               for i in range(16)]
-        for t in ths:
-            t.start()
-        for t in ths:
-            t.join()
-        n = max(m.ticks - m0[0], 1)
-        log(f"server ticks during the PUTs: {n}, per tick: wall "
-            f"{(time.monotonic() - m0[4]) * 1e3 / n:.2f} ms, device "
-            f"(dispatch + readback) {(m.t_device_ms - m0[1]) / n:.2f} ms, "
-            f"WAL + fsync {(m.t_wal_ms - m0[2]) / n:.2f} ms, publish "
-            f"{(m.t_publish_ms - m0[3]) / n:.2f} ms")
-        expect(errs, [], "concurrent PUTs")
-        rows = 0
-        for g in range(groups):
-            st, body = _req(port, "GET", b"SELECT count(*) FROM main.t", g)
-            expect(st, 200, f"count g{g}")
-            rows += int(body.strip().strip(b"|"))
-        expect(rows, groups + 16 * 25, "rows")
-        lat.sort()
-        p50 = lat[len(lat) // 2] * 1e3
-        p99 = lat[int(len(lat) * 0.99)] * 1e3
-        log(f"server: {len(lat)} PUTs from 16 threads acked and read "
-            f"back; propose->ack p50 {p50:.2f} ms p99 {p99:.2f} ms on "
-            f"{card}")
+        put_load(rdb, port, groups, card, "server")
     finally:
         srv.stop()
         err = rdb.close()
@@ -653,17 +806,119 @@ def server(card: str, dev="cuda") -> None:
     shutil.rmtree(DATA, ignore_errors=True)
 
 
+# ---- phase 6 ---------------------------------------------------------------
+
+def traced_server(card: str, dev="cuda") -> None:
+    """Phase 5's server with tracing on: the PUT load again, then GET
+    /trace (Perfetto schema) and GET /events (device rows and one full
+    propose-to-ack span per acked PUT)."""
+    from collections import Counter
+
+    from raftsql_tpu_torch.obs.export import validate_chrome_trace
+    groups = 8
+    shutil.rmtree(DATA, ignore_errors=True)
+    os.makedirs(DATA)
+    rdb, srv = _serve(groups, dev, trace=True)
+    try:
+        port = srv.port
+        create = "CREATE TABLE main.t (name text)"
+        for g in range(groups):
+            expect(_req(port, "PUT", create.encode(), g), (204, b""),
+                   f"traced CREATE g{g}")
+        acked = put_load(rdb, port, groups, card, "traced server")
+        acked += [(g, create) for g in range(groups)]
+        st, body = _req(port, "GET", path="/trace")
+        expect(st, 200, "GET /trace")
+        doc = json.loads(body)
+        validate_chrome_trace(doc)
+        n_ev = len(doc["traceEvents"])
+        st, body = _req(port, "GET", path="/events")
+        expect(st, 200, "GET /events")
+        ev = json.loads(body)
+        expect(ev["tracing"], True, "/events tracing")
+        if not ev["device"]:
+            raise AssertionError("/events: no device rows")
+        phases = {"propose", "append", "replicate", "commit", "apply",
+                  "ack"}
+        full = Counter((s["group"], s["key"]) for s in ev["host"]["spans"]
+                       if phases <= set(s["phases"]))
+        expect(full, Counter(acked), "one full span per acked PUT")
+        log(f"traced server: GET /trace valid ({n_ev} events), GET "
+            f"/events {len(ev['device'])} device rows, {len(acked)} full "
+            f"propose->ack spans for {len(acked)} acked PUTs")
+    finally:
+        srv.stop()
+        err = rdb.close()
+    expect(err, None, "traced close")
+    shutil.rmtree(DATA, ignore_errors=True)
+
+
+# ---- phase 7 ---------------------------------------------------------------
+
+def chaos(card: str, dev="cuda") -> dict:
+    """The seed-0 chaos digests on the card: the default family twice
+    with commit_rule="pallas" (K1's launch count zeroed just before and
+    read just after), then each fused family once; returns the wall
+    time of each run in seconds."""
+    from raftsql_tpu_torch.chaos import run as crun
+    from raftsql_tpu_torch.chaos.schedule import generate
+    k1 = "pallas_quorum_commit_index"
+    walls = {}
+    pq.reset_launches()                       # the chaos path starts here
+    for i in range(2):
+        t0 = time.monotonic()
+        r = crun.run_fused(generate(0, ticks=240), device=dev,
+                           commit_rule="pallas")
+        walls[f"default#{i + 1}"] = time.monotonic() - t0
+        got = (r["schedule_digest"], r["result_digest"])
+        log(f"chaos default run {i + 1}: schedule={got[0]} "
+            f"result={got[1]} ({r['committed_entries']} committed, "
+            f"{r['crashes']} crashes, {r['torn_writes']} torn, "
+            f"{r['fsync_faults']} fsync faults) "
+            f"{walls[f'default#{i + 1}']:.2f} s on {card}")
+        expect(got, CHAOS_DIGESTS["default"], "chaos default digests")
+    launches = pq.launches[k1]                # ... and ends here
+    if launches <= 0:
+        raise AssertionError("the chaos runs never launched K1")
+    log(f"chaos default: K1 launches {launches} over both runs")
+    for name, (gen, fired) in crun.family_specs().items():
+        t0 = time.monotonic()
+        r = crun.run_fused(gen(0), device=dev)
+        walls[name] = time.monotonic() - t0
+        got = (r["schedule_digest"], r["result_digest"])
+        log(f"chaos {name}: schedule={got[0]} result={got[1]} "
+            f"{walls[name]:.2f} s on {card}")
+        expect(got, CHAOS_DIGESTS[name], f"chaos {name} digests")
+        if not fired(r):
+            raise AssertionError(f"chaos {name}: its faults never fired")
+    return walls
+
+
 # ---- main ------------------------------------------------------------------
 
 def main() -> int:
+    t_start = time.monotonic()
+
+    def done(phase):
+        log(f"phase {phase} done at {time.monotonic() - t_start:.1f} s")
+
     card = environment()
     build_s = pq.build()
     log(f"build: csrc/quorum.cu in {build_s:.1f} s")
     check_ptxas(pq.build_log())
+    done("build")
     check_kernels(card)
+    done("kernels")
     tick = fused_tick(card)
     kern = main_path_kernels(card, tick.pop("captured"))
+    traced_tick(card)
+    done("fused tick")
     server(card)
+    done("server")
+    traced_server(card)
+    done("traced server")
+    chaos(card)
+    done("chaos")
     rows = []
     for name, r in kern.items():
         rows.append({"name": name, "route": "cuda",

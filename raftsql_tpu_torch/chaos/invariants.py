@@ -1,0 +1,262 @@
+"""Invariant checkers the fused chaos runner enforces during and after
+runs.
+
+Port of the part of raftsql_tpu/chaos/invariants.py the fused runner
+uses (pure numpy/Python, copied so the port imports nothing of the JAX
+package).  Four invariants (raft paper §5.4 + the durability contract):
+
+  * ELECTION SAFETY — at most one leader per (group, term), across the
+    whole run including restarts.
+  * COMMIT MONOTONICITY — a peer's durably-observed commit index never
+    regresses, including across crash/restart (observations are taken
+    only after the tick's fsync barrier, so every observed value is
+    durable).
+  * LOG MATCHING — survivors agree entry-for-entry (term and payload)
+    on the overlap of their committed prefixes.
+  * DURABILITY — every entry ever published to the apply plane (i.e.
+    acked to a client) reappears, byte-identical, in the post-restart
+    replay.
+
+plus a single-register-per-key LINEARIZABILITY check over the KV
+plane's completed PUT/GET history.  Violations raise
+`InvariantViolation` (an AssertionError so pytest reports them as
+failures, not errors).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+
+class InvariantViolation(AssertionError):
+    pass
+
+
+class ElectionSafety:
+    """At most one leader per (group, term) for the run's lifetime."""
+
+    def __init__(self, leader_code: int = 2):
+        self._leader_code = leader_code
+        self._leader_of_term: Dict[Tuple[int, int], int] = {}
+        self.observations = 0
+
+    def observe(self, tick: int, roles: np.ndarray,
+                terms: np.ndarray) -> None:
+        """roles/terms are [P, G] snapshots (one peer's row may be
+        masked with role -1 for a dead node)."""
+        self.observations += 1
+        lead_p, lead_g = np.nonzero(roles == self._leader_code)
+        for p, g in zip(lead_p.tolist(), lead_g.tolist()):
+            key = (g, int(terms[p, g]))
+            prev = self._leader_of_term.setdefault(key, p)
+            if prev != p:
+                raise InvariantViolation(
+                    f"t={tick} g={g}: two leaders ({prev}, {p}) "
+                    f"in term {key[1]}")
+
+
+class CommitMonotonic:
+    """Durably-observed commit indexes never regress."""
+
+    def __init__(self, peers: int, groups: int):
+        self._hi = np.zeros((peers, groups), np.int64)
+
+    def observe(self, tick: int, commits: np.ndarray) -> None:
+        if (commits < self._hi).any():
+            p, g = np.nonzero(commits < self._hi)
+            p, g = int(p[0]), int(g[0])
+            raise InvariantViolation(
+                f"t={tick} p={p} g={g}: commit regressed "
+                f"{self._hi[p, g]} -> {commits[p, g]}")
+        np.maximum(self._hi, commits, out=self._hi)
+
+
+def check_log_matching(tick: int, commits: np.ndarray, plogs) -> None:
+    """Survivors' committed prefixes agree entry-for-entry.
+
+    commits: [P, G] committed indexes; plogs: per-peer payload logs
+    (storage/log.py — `slice_columns(g, start, n) -> (terms, datas)`).
+    Compares every pair's overlap ABOVE both peers' compaction floors:
+    compacting scenarios (the compact/InstallSnapshot families) drop
+    prefixes at different rates per peer, so the comparable region of a
+    pair is (max(floor_a, floor_b), min(commit_a, commit_b)].  Entries
+    below a peer's floor were already audited while they were live —
+    the floor only ever covers published (committed) entries.
+    """
+    P, G = commits.shape
+    for g in range(G):
+        ref_p: Optional[int] = None
+        ref_c = 0
+        for p in range(P):
+            c = int(commits[p, g])
+            if c <= 0:
+                continue
+            if plogs[p].length(g) < c:
+                raise InvariantViolation(
+                    f"t={tick} p={p} g={g}: payload log shorter than "
+                    f"commit ({plogs[p].length(g)} < {c})")
+            if ref_p is None:
+                ref_p, ref_c = p, c
+                continue
+            lo = max(plogs[p].start(g), plogs[ref_p].start(g))
+            n = min(c, ref_c) - lo
+            if n > 0:
+                terms, datas = plogs[p].slice_columns(g, lo + 1, n)
+                rterms, rdatas = plogs[ref_p].slice_columns(g, lo + 1, n)
+                if list(terms) != list(rterms) \
+                        or list(datas) != list(rdatas):
+                    raise InvariantViolation(
+                        f"t={tick} g={g}: committed prefixes diverge "
+                        f"between p{ref_p} and p{p}")
+            if c > ref_c:
+                ref_p, ref_c = p, c
+
+
+class DurabilityLedger:
+    """Every published (client-visible) entry must survive restart."""
+
+    def __init__(self):
+        self._committed: Dict[Tuple[int, int], bytes] = {}
+
+    def record(self, group: int, index: int, payload: bytes) -> None:
+        prev = self._committed.setdefault((group, index), payload)
+        if prev != payload:
+            raise InvariantViolation(
+                f"g{group} i{index}: committed entry changed content "
+                f"({prev!r} -> {payload!r})")
+
+    def __len__(self) -> int:
+        return len(self._committed)
+
+    def verify_replay(self, replayed: Dict[Tuple[int, int], bytes],
+                      context: str = "",
+                      floors: Optional[np.ndarray] = None) -> None:
+        """`replayed` maps (group, index) -> payload from the restart's
+        replay stream; it must be a superset of everything recorded
+        ABOVE the replaying peer's compaction floors (`floors[g]`,
+        optional): a compacted prefix legitimately does not replay — its
+        entries live on in the state-machine snapshot the compaction was
+        gated on, which the runner carries forward separately."""
+        for (g, i), payload in self._committed.items():
+            if floors is not None and i <= int(floors[g]):
+                continue
+            got = replayed.get((g, i))
+            if got is None:
+                raise InvariantViolation(
+                    f"{context}: committed entry g{g} i{i} "
+                    f"({payload!r}) lost across restart")
+            if got != payload:
+                raise InvariantViolation(
+                    f"{context}: committed entry g{g} i{i} changed "
+                    f"across restart ({payload!r} -> {got!r})")
+
+
+class RegisterLinearizability:
+    """Per-key register linearizability over completed PUT/GET history.
+
+    PUT values are globally unique (the runners guarantee it), so a
+    read names exactly the write it observed and the real-time
+    precedence check is direct — no state-space search:
+
+      a GET returning write w's value is legal iff
+        * w was invoked before the GET's response (no reading the
+          future), and
+        * w does not STRICTLY PRECEDE (w.resp <= w2.inv) any write w2
+          on the key that completed before the GET was invoked — such
+          a w2 must linearize after w and before the GET, making w
+          stale.
+
+    The initial value "" is legal only while no write on the key has
+    completed before the GET's invocation.  Incomplete writes (e.g.
+    proposals lost in a crash, which may still commit after a restart)
+    may linearize anywhere after their invocation or never — exactly
+    the window these rules grant.  Overlapping writes to one key may
+    legally complete in either order (leader failover reorders
+    re-routed proposal queues), which is why precedence, not issue
+    order, is the test.  This is the standard necessary-condition
+    per-op check (cf. Jepsen's register checkers); it does not search
+    for a single total order across reads.
+    """
+
+    def __init__(self):
+        import threading
+        # One lock serializes the logical clock and every history
+        # mutation: the process-plane read nemesis drives this checker
+        # from concurrent client threads, where an unlocked clock
+        # could order two racing ops identically and mask (or invent)
+        # a precedence edge.  Single-threaded runners pay one
+        # uncontended acquire per op.
+        self._mu = threading.Lock()
+        self._clock = 0
+        self._writes: Dict[str, list] = {}   # value -> [key, inv, resp]
+        # key -> [(inv, resp), ...] of COMPLETED writes.
+        self._completed: Dict[str, List[Tuple[int, int]]] = {}
+        self.reads_checked = 0
+        # Per read MODE accounting (lease/read_index/session/follower/
+        # linear/...): the nemesis report proves every family actually
+        # exercised the invariant.
+        self.reads_by_mode: Dict[str, int] = {}
+
+    def _tick(self) -> int:
+        self._clock += 1
+        return self._clock
+
+    # -- write lifecycle -----------------------------------------------
+
+    def begin_write(self, key: str, value: str) -> None:
+        with self._mu:
+            if value in self._writes:
+                raise ValueError(
+                    f"write values must be unique: {value!r}")
+            self._writes[value] = [key, self._tick(), None]
+
+    def end_write(self, value: str) -> None:
+        with self._mu:
+            w = self._writes.get(value)
+            if w is None or w[2] is not None:
+                return                   # unknown or already completed
+            w[2] = self._tick()
+            self._completed.setdefault(w[0], []).append((w[1], w[2]))
+
+    # -- read lifecycle ------------------------------------------------
+
+    def begin_read(self, key: str, mode: str = "linear"
+                   ) -> Tuple[str, int, str]:
+        with self._mu:
+            return key, self._tick(), mode
+
+    def end_read(self, handle, value: str) -> None:
+        key, inv, mode = (handle if len(handle) == 3
+                          else (*handle, "linear"))
+        with self._mu:
+            resp = self._tick()
+            self.reads_checked += 1
+            self.reads_by_mode[mode] = self.reads_by_mode.get(mode,
+                                                              0) + 1
+            completed = self._completed.get(key, ())
+            if value == "":
+                for (i2, r2) in completed:
+                    if r2 <= inv:
+                        raise InvariantViolation(
+                            f"{mode} read({key!r}) returned the "
+                            f"initial value after a write completed "
+                            f"before it")
+                return
+            w = self._writes.get(value)
+            if w is None or w[0] != key:
+                raise InvariantViolation(
+                    f"{mode} read({key!r}) returned a value never "
+                    f"written to that key: {value!r}")
+            _, w_inv, w_resp = w
+            if w_inv > resp:
+                raise InvariantViolation(
+                    f"{mode} read({key!r}) returned {value!r} invoked "
+                    f"after the read's response")
+            if w_resp is not None:
+                for (i2, r2) in completed:
+                    if r2 <= inv and w_resp <= i2:
+                        raise InvariantViolation(
+                            f"{mode} read({key!r}) returned STALE "
+                            f"value {value!r}: a later write "
+                            f"completed before the read began")

@@ -1,10 +1,10 @@
 """Carry device state between the JAX package and the port as numpy.
 
-The port draws its initial state with a torch.Generator, not JAX's
-threefry, so a parity run boots both sides from ONE state: the JAX
-package's, converted leaf by leaf.  Dicts are keyed by the JAX field
-names; `rng` crosses as its two uint32 key words (held as int32 bit
-patterns in the port).
+Boot states need no conversion (the port draws the JAX package's
+threefry draws from the same seed); this carries any other state across
+leaf by leaf: a JAX state mid-run into the port, or a port state between
+devices.  Dicts are keyed by the JAX field names; `rng` crosses as its
+two uint32 key words (held as int32 bit patterns in the port).
 """
 from __future__ import annotations
 

@@ -21,6 +21,7 @@ import torch
 
 from raftsql_tpu_torch.config import (FOLLOWER, NO_LEADER, NO_VOTE, NO_XFER,
                                       RaftConfig)
+from raftsql_tpu_torch.core import threefry
 
 I32 = torch.int32
 B = torch.bool
@@ -113,30 +114,23 @@ class StepInfo(NamedTuple):
     timer_margin: torch.Tensor  # []
 
 
-def _generator(seed: int, self_id: int) -> torch.Generator:
-    """CPU generator seeded from (seed, self_id): the same draws land on
-    every device, so a CUDA run and a CPU run boot identically."""
-    g = torch.Generator(device="cpu")
-    g.manual_seed(((int(seed) & 0xFFFFFFFF) << 32) | (int(self_id)
-                                                      & 0xFFFFFFFF))
-    return g
-
-
 def init_peer_state(cfg: RaftConfig, self_id: int, seed: int | None = None,
                     device="cuda") -> PeerState:
     """Fresh boot state (empty log, term 0, follower everywhere), with
     election timeouts drawn per group in [election_ticks,
     2*election_ticks) and two key words for the jitter hash.  The draws
-    come from a torch.Generator, not JAX's threefry: parity tests carry
-    the JAX package's initial state across (convert.py) instead."""
+    are the JAX package's threefry draws (core/threefry.py), made on
+    the host: fold_in(PRNGKey(seed), self_id), split, randint — so a
+    node booted with `seed` here equals the JAX package's node booted
+    with `seed`, on any device."""
     dev = resolve_device(device)
     g, p, w = cfg.num_groups, cfg.num_peers, cfg.log_window
     seed = cfg.seed if seed is None else seed
-    gen = _generator(seed, self_id)
-    timeout = torch.randint(cfg.election_ticks, 2 * cfg.election_ticks,
-                            (g,), generator=gen, dtype=I32)
-    rng = torch.randint(-2 ** 31, 2 ** 31, (2,), generator=gen,
-                        dtype=torch.int64).to(I32)
+    key = threefry.fold_in(threefry.prng_key(seed), self_id)
+    key, sub = threefry.split(key)
+    timeout = torch.from_numpy(threefry.randint(
+        sub, (g,), cfg.election_ticks, 2 * cfg.election_ticks))
+    rng = torch.from_numpy(key.view(np.int32).copy())
     voters = torch.as_tensor(initial_voter_row(cfg)).expand(g, p)
     z = lambda *s: torch.zeros(s, dtype=I32, device=dev)  # noqa: E731
     full = lambda s, v: torch.full(s, v, dtype=I32, device=dev)  # noqa: E731

@@ -998,10 +998,31 @@ class RaftDB:
         engine's spans/phases plus each worker's pid-tagged request
         segment (runtime/ring.py RingServer points
         `trace_segments_dir` at the ring directory the workers flush
-        into).  The port has no obs plane yet."""
-        raise NotImplementedError(
-            "GET /trace needs the obs plane, not ported yet (ROADMAP "
-            "Queue 1 item 10: obs)")
+        into).  Always a valid (possibly empty) document — tracing off
+        just yields no span events."""
+        from raftsql_tpu_torch.obs.export import (chrome_trace,
+                                                  collect_segments)
+        node = self.pipe.node
+        tracer = self._node_tracer()
+        ring = getattr(node, "ring", None)
+        prof = getattr(node, "prof", None)
+        if ring is not None:
+            ring.drain()
+        seg_dir = getattr(self, "trace_segments_dir", None)
+        segs = collect_segments(seg_dir) if seg_dir else None
+        # One time axis for every track family: the tracer's epoch when
+        # tracing is on, else the profiler's.
+        base = tracer.t0 if tracer is not None else (
+            prof.epoch if prof is not None else 0.0)
+        # Cap the counter window: a long-lived ring (keep=4096 ticks)
+        # would emit ~20 counter events per tick per (peer, group) —
+        # the last 1024 ticks keep the document loadable.
+        return chrome_trace(
+            tracer.snapshot() if tracer is not None else None,
+            ring.rows(last=1024) if ring is not None else None,
+            phase_events=prof.events() if prof is not None else None,
+            process_segments=segs,
+            base_monotonic=base)
 
     def events_doc(self, last: int = 256) -> dict:
         """Raw observability state (GET /events): the device ring's

@@ -1,13 +1,14 @@
 """ClusterHostPlane — the durable host phase of the fused runtime.
 
 Copy of raftsql_tpu/runtime/hostplane.py for the PyTorch port.  Only the
-device call sites differ: the boot stack (tensors on `device`, or a
-caller-given initial PeerState) and the per-dispatch readback (ONE
-device-to-host copy, into pinned memory on CUDA).  The planes this port
-has not reached yet raise NotImplementedError at their entry points:
+device call sites differ: the boot stack (tensors on `device`), the
+per-dispatch readback (ONE device-to-host copy, into pinned memory on
+CUDA) and the device event ring (obs/device_ring.py, on `device`).  The
+planes this port has not reached yet raise NotImplementedError at their
+entry points:
 membership apply-at-commit and leadership transfer (ROADMAP Queue 1
-item 7), tracing/obs (item 10) and the native payload log
-(RAFTSQL_FUSED_NATIVE_PLOG, item 9).
+item 7) and the native payload log (RAFTSQL_FUSED_NATIVE_PLOG, item
+9).
 
 runtime/fused.py (one chip) and the JAX package's runtime/mesh.py (a
 device mesh) run the same per-tick contract (reference raft.go:227-235: wal.Save →
@@ -133,12 +134,9 @@ class ClusterHostPlane:
     def __init__(self, cfg: RaftConfig, data_dir: str,
                  seed: Optional[int] = None,
                  group_commit: Optional[bool] = None,
-                 device="cuda",
-                 initial_state: Optional[PeerState] = None):
+                 device="cuda"):
         """`device`: where the consensus state lives and steps (CUDA by
-        default; raises if it is missing).  `initial_state`: a stacked
-        PeerState to boot from instead of init_cluster_state's draws —
-        used only on a fresh data dir (a replayed WAL always wins)."""
+        default; raises if it is missing)."""
         P, G = cfg.num_peers, cfg.num_groups
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -250,6 +248,12 @@ class ClusterHostPlane:
         # only then does staging pay the per-entry deadline strip
         # (queue entries become (payload, deadline_step) pairs).
         self._deadlines_live = False  # raftlint: guarded-by=_prop_lock
+        # Observability (raftsql_tpu_torch/obs/, OFF by default): a
+        # host-plane span tracer and the on-device event ring.  Every
+        # hook below is gated on these being non-None, so the disabled
+        # tick pays one attribute test.
+        self.tracer = None
+        self.ring = None
         # Dynamic membership is not ported yet (enable_membership
         # raises); None keeps the static tick, as in the JAX package.
         self.membership = None
@@ -374,9 +378,6 @@ class ClusterHostPlane:
             if self._wal_exists(d):
                 self._wal_repair_epochs(d, self._epoch_no)
 
-        # Decided before the loop: under group commit the first peer's
-        # fresh WAL makes the shared log "exist" for the peers after it.
-        fresh = not any(self._wal_exists(d) for d in self.dirs)
         states = []
         for p in range(P):
             d = self.dirs[p]
@@ -391,9 +392,7 @@ class ClusterHostPlane:
             # nil on commitC, raft.go:131-132).
             self._commit_qs[p].put(None)
         dev = self.device
-        if fresh and initial_state is not None:
-            self.states = PeerState(*[x.to(dev) for x in initial_state])
-        elif all(s is None for s in states):
+        if all(s is None for s in states):
             self.states = init_cluster_state(cfg, seed, dev)
         else:
             per_peer = [s if s is not None
@@ -540,7 +539,20 @@ class ClusterHostPlane:
 
     def enable_tracing(self, ring_depth: int = 64,
                        keep: int = 4096) -> None:
-        raise _not_ported("tracing (the obs plane)", "item 10")
+        """Turn on both observability planes (raftsql_tpu_torch/obs/):
+        the host span tracer and the event ring on the node's device.
+        Safe to call before the tick loop starts; idempotent."""
+        from raftsql_tpu_torch.obs.device_ring import DeviceEventRing
+        from raftsql_tpu_torch.obs.spans import SpanTracer
+        if self.tracer is None:
+            self.tracer = SpanTracer()
+        if self.ring is None:
+            self.ring = DeviceEventRing(self.cfg.num_peers,
+                                        self.cfg.num_groups,
+                                        depth=ring_depth, keep=keep,
+                                        device=self.device)
+        for w in self.wals:
+            w.obs = self.tracer
 
     # -- not ported yet: membership and leadership transfer -------------
 
@@ -569,6 +581,10 @@ class ClusterHostPlane:
         strips it and sheds entries already past it BEFORE any WAL
         cost.  With no overload controller attached and no deadline,
         this path is byte-identical to the pre-overload code."""
+        if self.tracer is not None:
+            for d in payloads:
+                self.tracer.begin(group,
+                                  d.decode("utf-8", "replace"))
         ov = self.overload
         if deadline_step is not None:
             payloads = [(d, int(deadline_step)) for d in payloads]
@@ -932,6 +948,17 @@ class ClusterHostPlane:
             self.metrics.faults_skew_ticks += int(
                 np.abs(np.asarray(ti, np.int64) - 1).sum())
         pinfo_dev, busy_dev = self._device_step(prop_n, ti)
+        if self.ring is not None:
+            # Device-plane event ring: a few small launches over tensors
+            # already resident (tracing-on cost only); the ring stays on
+            # the device and drains to the host in batches.  A
+            # multi-step dispatch records its final step — the ring is
+            # tick-indexed at dispatch granularity, like the runtime.
+            self.ring.record(self._tick_no,
+                             pinfo_dev if self._steps == 1
+                             else pinfo_dev[-1],
+                             self.states.votes, self.inboxes.v_type,
+                             self.inboxes.a_type, self._applied)
         t1 = _t.monotonic()
         if prof_on:
             prof.record("dispatch", self._tick_no, tb, t1 - tb)
@@ -1184,8 +1211,9 @@ class ClusterHostPlane:
         tick that read this pinfo: the pops must settle before the next
         tick's _build_prop_n snapshot (offer counts and re-routes read
         queue lengths), whether the heavy durable write runs inline or
-        stashed into the next dispatch window.  The proposals counter
-        rides the pop here too, in step order."""
+        stashed into the next dispatch window.  Side effects that ride
+        the pop (tracer append stamps, the proposals counter) happen
+        here too, in step order."""
         P = self.cfg.num_peers
         out = []
         for p in range(P):
@@ -1212,6 +1240,7 @@ class ClusterHostPlane:
             ags = np.nonzero(acc > 0)[0]
             if ags.size:
                 props_p = self._props[p]
+                traced = [] if self.tracer is not None else None
                 ov = self.overload
                 strip = self._deadlines_live
                 with self._prop_lock:   # pops race client-thread extends
@@ -1235,10 +1264,18 @@ class ClusterHostPlane:
                         r_start.append(b0)
                         r_count.append(n)
                         r_term.append(tm)
+                        if traced is not None:
+                            traced.append((g, b0, batch))
                 self.metrics.proposals += int(acc[ags].sum())
                 # Per-group traffic: the accepted counts are already in
                 # hand per group — one vectorized add, no new walks.
                 self.traffic.add_propose(ags, acc[ags])
+                if traced:
+                    # Append stamp + index binding, outside the lock.
+                    for g, b0, batch in traced:
+                        self.tracer.note_append(
+                            g, b0, [d.decode("utf-8", "replace")
+                                    for d in batch])
             out.append((r_g, r_start, r_count, r_term, w_d))
         return out
 
@@ -1283,6 +1320,13 @@ class ClusterHostPlane:
             m_start.extend(sub[:, _C["app_start"]].tolist())
             m_count.extend(sub[:, _C["app_n"]].tolist())
             m_newlen.extend(sub[:, _C["new_log_len"]].tolist())
+
+        if self.tracer is not None and m_peer:
+            # Replicate stamp: the mirrored range is landing in a
+            # follower's log this step (first stamp wins per index).
+            for g, st, c in zip(m_g, m_start, m_count):
+                if c:
+                    self.tracer.note_replicate(g, st + c - 1)
 
         if self.witness_peers and m_peer:
             # Witnesses never lead, so every entry they persist arrives
@@ -1407,6 +1451,10 @@ class ClusterHostPlane:
                 ready = gsel[commit[gsel] > self._applied[p][gsel]]
             if not ready.size:
                 continue
+            if p == 0 and self.tracer is not None:
+                # Quorum/commit stamp on the client-facing stream.
+                for g, c in zip(ready.tolist(), commit[ready].tolist()):
+                    self.tracer.note_commit(g, int(c))
             if (self.publish_peers is not None
                     and p not in self.publish_peers) \
                     or p in self.witness_peers:

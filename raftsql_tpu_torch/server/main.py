@@ -9,7 +9,7 @@ fused co-located cluster underneath, stepping on `--device` (CUDA by
 default; a missing card is an error, never a silent CPU fallback).  The
 other deployments of the JAX package (the multi-process cluster, --mesh,
 --pod) and the planes not ported yet (--workers, --placement,
---reshard, --replica-listen, --trace) exit with an error naming them.
+--reshard, --replica-listen) exit with an error naming them.
 """
 from __future__ import annotations
 
@@ -40,13 +40,16 @@ def build_fused_node(groups: int = 1, peers: int = 3,
                      election_quorum: int | None = None,
                      witnesses: tuple = (),
                      commit_rule: str = "point",
+                     trace: bool = False,
                      device="cuda") -> RaftDB:
     """The --fused single-process deployment: all P peers of every group
     co-located in this process, consensus advanced by one fused cluster
     step per tick on `device` (runtime/fused.py), per-peer WALs on disk
     (one group-committed log by default), SQLite applied from peer 0's
     commit stream.  `commit_rule` picks the Phase-7 commit advance
-    ("pallas" runs the CUDA quorum kernels)."""
+    ("pallas" runs the CUDA quorum kernels).  `trace` turns on the obs
+    plane (span tracer + device event ring) behind GET /trace and GET
+    /events."""
     from raftsql_tpu_torch.runtime.fused import FusedClusterNode, FusedPipe
 
     if lease_ticks:
@@ -68,6 +71,8 @@ def build_fused_node(groups: int = 1, peers: int = 3,
                      commit_rule=commit_rule)
     node = FusedClusterNode(cfg, f"{data_prefix}-fused",
                             group_commit=wal_group_commit, device=device)
+    if trace:
+        node.enable_tracing()
     node.start(interval_s=max(tick, 0.0005))
     pipe = FusedPipe(node)
 
@@ -140,7 +145,6 @@ _NOT_PORTED = {
     "placement": "--placement (ROADMAP Queue 1 item 7)",
     "reshard": "--reshard (ROADMAP Queue 1 item 14)",
     "replica_listen": "--replica-listen (ROADMAP Queue 1 item 14)",
-    "trace": "--trace (ROADMAP Queue 1 item 10)",
 }
 
 
@@ -184,7 +188,12 @@ def main(argv=None) -> None:
     ap.add_argument("--reshard", action="store_true", help="not ported")
     ap.add_argument("--replica-listen", type=int, default=0,
                     help="not ported")
-    ap.add_argument("--trace", action="store_true", help="not ported")
+    ap.add_argument("--trace", action="store_true",
+                    help="enable the observability planes "
+                         "(raftsql_tpu_torch/obs/): per-proposal "
+                         "lifecycle spans + the on-device event ring, "
+                         "exported at GET /trace (Perfetto) and GET "
+                         "/events")
     ap.add_argument("--wal-group-commit", choices=("on", "off"),
                     default="on",
                     help="coalesce every peer's per-tick WAL records "
@@ -243,6 +252,7 @@ def main(argv=None) -> None:
                            write_quorum=args.write_quorum,
                            election_quorum=args.election_quorum,
                            witnesses=tuple(args.witness),
+                           trace=args.trace,
                            device=args.device)
     _watch_fatal(rdb)
     if args.overload_cap or args.overload_group_cap \

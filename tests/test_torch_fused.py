@@ -1,9 +1,9 @@
 """The port's durable fused runtime beside the JAX package's.
 
-Both FusedClusterNodes boot from the JAX package's initial state (the
-port's through `initial_state=`, carried across with convert.py), run
-CPU ticks in lockstep and take the same proposals.  The committed
-stream of every peer, the hard-state mirror, the leader hints and the
+Both FusedClusterNodes boot from the same seed (the port draws the JAX
+package's threefry draws, so the two initial states are equal leaf for
+leaf), run CPU ticks in lockstep and take the same proposals.  The
+committed stream of every peer, the hard-state mirror, the leader hints and the
 publish cursors must be equal; the WAL files the two write must be the
 same bytes and replay through the JAX package's storage/wal.py; and the
 port's node must replay its own WAL after a restart.
@@ -15,11 +15,9 @@ import pytest
 import torch
 
 from raftsql_tpu.config import RaftConfig as JConfig
-from raftsql_tpu.core import cluster as jcl
 from raftsql_tpu.runtime.db import _expand_commit_item as j_expand
 from raftsql_tpu.runtime.fused import FusedClusterNode as JNode
 from raftsql_tpu.storage.wal import WAL as JWAL
-from raftsql_tpu_torch import convert
 from raftsql_tpu_torch.config import RaftConfig as TConfig
 from raftsql_tpu_torch.runtime.db import _expand_commit_item as t_expand
 from raftsql_tpu_torch.runtime.fused import FusedClusterNode as TNode
@@ -49,12 +47,15 @@ def drain(node, peer, expand):
 
 def pair(tmp_path, group_commit=False, **kw):
     jcfg, tcfg = JConfig(**cfg_kw(**kw)), TConfig(**cfg_kw(**kw))
-    st = {k: np.asarray(v)
-          for k, v in jcl.init_cluster_state(jcfg)._asdict().items()}
-    jn = JNode(jcfg, str(tmp_path / "jax"), group_commit=group_commit)
+    jn = JNode(jcfg, str(tmp_path / "jax"), group_commit=group_commit,
+               seed=7)
     tn = TNode(tcfg, str(tmp_path / "torch"), group_commit=group_commit,
-               device="cpu",
-               initial_state=convert.peer_state_from_numpy(st, "cpu"))
+               seed=7, device="cpu")
+    for name in jn.states._fields:
+        a = np.asarray(getattr(jn.states, name))
+        b = getattr(tn.states, name).numpy()
+        np.testing.assert_array_equal(
+            b.view(np.uint32) if name == "rng" else b, a, err_msg=name)
     return jn, tn
 
 
@@ -141,9 +142,11 @@ def test_fused_node_restart_replays(tmp_path):
 def test_unported_planes_raise(tmp_path):
     cfg = TConfig(**cfg_kw())
     tn = TNode(cfg, str(tmp_path / "t"), device="cpu")
-    for call in (tn.enable_tracing, tn.enable_membership,
+    for call in (tn.enable_membership,
                  lambda: tn.transfer_leadership(0, 1),
                  lambda: tn.member_change(0, "add", 1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+    tn.enable_tracing()                 # the obs plane is ported
+    assert tn.tracer is not None and tn.ring is not None
     tn.stop()

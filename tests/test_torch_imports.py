@@ -52,7 +52,10 @@ def test_module_list_covers_the_slice():
               "core.cluster", "ops.dense", "ops.quorum", "ops.commit_scan",
               "ops.pallas_quorum", "runtime.hostplane", "runtime.fused",
               "runtime.db", "storage.wal", "api.aio", "api.http",
-              "server.main"):
+              "server.main", "core.threefry", "transport.faults",
+              "obs.device_ring", "obs.spans", "obs.export", "obs.flight",
+              "chaos.invariants", "chaos.schedule", "chaos.scenarios",
+              "chaos.run"):
         assert f"raftsql_tpu_torch.{m}" in MODULES, m
 
 

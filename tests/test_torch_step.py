@@ -1,9 +1,8 @@
 """The port's fused cluster tick against the JAX package, tick by tick.
 
-Both sides boot from ONE state — the JAX package's init_cluster_state,
-carried across with raftsql_tpu_torch/convert.py (the port draws its own
-initial timeouts and key words with a torch.Generator, not threefry) —
-and take the same seeded proposals every tick.  Every leaf of the state,
+Both sides boot from the same seed (the port draws the JAX package's
+threefry draws, so the boot states are equal leaf for leaf) and take
+the same seeded proposals every tick.  Every leaf of the state,
 every leaf of the delivered inbox, the packed [P, G, 16] info and the
 busy bit must be equal on every tick: consensus state is int32/bool, so
 the tolerance is zero.
@@ -34,8 +33,10 @@ def boot(**kw):
     args.update(kw)
     jcfg, tcfg = JConfig(**args), TConfig(**args)
     js, ji = jcl.init_cluster_state(jcfg), jcl.empty_cluster_inbox(jcfg)
-    ts = convert.peer_state_from_numpy(np_tree(js), "cpu")
-    ti = convert.inbox_from_numpy(np_tree(ji), "cpu")
+    ts = tcl.init_cluster_state(tcfg, device="cpu")
+    ti = tcl.empty_cluster_inbox(tcfg, device="cpu")
+    assert_tree_equal(js, ts, "boot state")
+    assert_tree_equal(ji, ti, "boot inbox")
     return jcfg, tcfg, js, ji, ts, ti
 
 
