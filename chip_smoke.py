@@ -24,19 +24,39 @@ exit, no result line) at the first phase that fails:
      then the device event ring's cost at G = 100,000 ([64, 3, 100000,
      9] int32): the fused tick without and with a ring record per tick,
      and the durable node's tick without and with enable_tracing;
-  5. the fused durable SQL server (build_fused_node + the aio HTTP
+  5. the membership and transfer planes at G = 100,000 on 4 slots
+     (voters {0,1,2}, a spare slot 3, durable FusedClusterNode,
+     commit_rule="pallas"): after the elections slot 0 is replaced by
+     slot 3 (add_learner, promote, remove through joint consensus) on 64
+     groups while leadership moves on 64 others; every touched group
+     must end on its expected config or leader and every other group on
+     {0,1,2}; K2 must launch on every tick after enable_membership, and
+     on one tick with joint masks live its inputs are copied: K2 is held
+     against its plain version and timed on them (R = 400,000, P = 4);
+  6. the fused durable SQL server (build_fused_node + the aio HTTP
      plane): the reference curl recipe, concurrent acked PUTs, a close
      and a resume=True reopen that replays the WALs;
-  6. the same server with tracing on (the CLI's --trace): the PUT load
+  7. the same server with tracing on (the CLI's --trace): the PUT load
      again, GET /trace must pass validate_chrome_trace, and GET /events
      must show tracing on, device rows, and one full propose-to-ack
      span per acked PUT;
-  7. chaos: the default family at SEED=0 (240 ticks,
-     commit_rule="pallas") twice and the five fused families at seed 0
-     once each, through raftsql_tpu_torch.chaos.run; every schedule and
-     result digest must equal the JAX package's (CHAOS_DIGESTS), and K1
-     must launch during the default family's runs;
-  8. the kernels line (JSON) and the result line.
+  8. the server with placement (the CLI's --placement): POST /transfer
+     answers 200 and moves the leader, 400 for a transfer in flight, a
+     target that already leads and (a second start with --witness 2) a
+     witness target; skewed PUT load with placement off and on, in
+     turns: placement must complete a transfer, every acked PUT is read
+     back, p50/p99 of each;
+  9. chaos: the default family at SEED=0 (240 ticks,
+     commit_rule="pallas") twice, the five fused families once each, and
+     the reads, quorum and transfers families twice each
+     (commit_rule="pallas"), through raftsql_tpu_torch.chaos.run; every
+     schedule and result digest must equal the JAX package's
+     (CHAOS_DIGESTS), and K1 must launch in the default's and the
+     nemesis families' runs; then the falsification pairs of the three
+     gauntlets (the broken lease bound, the unsafe transfer kernel,
+     quorum arms A and B) must be caught and their controls pass;
+ 10. the kernels line (JSON: K1 as phase 4 measured it, K2 on phase 5's
+     joint masks, launches summed over the paths) and the result line.
 
 It needs one card and writes under build/ of its checkout (and the chaos
 runs' data dirs under $TMPDIR, removed after each run).
@@ -68,10 +88,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "build", "chip_smoke_data")
 HBM_BYTES_S = 3.35e12     # H100 SXM device memory (data sheet)
 INT_OPS_S = 67e12         # H100 SXM non-tensor 32-bit rate (data sheet)
-# (schedule digest, result digest) of each fused chaos family at seed 0:
-# the JAX package's FusedChaosRunner on the CPU under JAX 0.9.0, whose
-# threefry is partitionable (tests/test_torch_chaos.py holds the port
-# to a live JAX run and to these constants).
+# (schedule digest, result digest) of each fused chaos family at seed 0,
+# as its runner reports them (a nemesis plan's runner reports the digest
+# of the schedule it projects the plan into): the JAX package's runners
+# on the CPU under JAX 0.9.0, whose threefry is partitionable
+# (tests/test_torch_chaos.py and test_torch_chaos_nemesis.py hold the
+# port to a live JAX run and to these constants).
 CHAOS_DIGESTS = {
     "default": ("622b22c59545816b", "3bcaa6784fc0a2d8"),
     "asym": ("1450fc31d17ad885", "a8ebb9ca13ed9532"),
@@ -79,6 +101,9 @@ CHAOS_DIGESTS = {
     "enospc": ("92bed49e35e5bdc5", "bb5164888fc9f234"),
     "fsync_stall": ("a74066e3175df9f0", "e6e3ea9dd9aa0b2e"),
     "compact": ("53ad340caa28b97e", "93a3ecaa989d1b05"),
+    "reads": ("1e788605c763474d", "078b010d4d28b49f"),
+    "quorum": ("238cad39f96aea26", "ea8cfbc0d6779d40"),
+    "transfers": ("c82c989e600de20b", "cfd7db527bd7f45e"),
 }
 REPLACES = {
     "pallas_quorum_commit_index":
@@ -214,15 +239,19 @@ def kernel_device_us(fn, reps=20, name="quorum_commit"):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if (name is None or name in e.key) and _self_device_us(e) > 0]
-    if not ev:
-        return None
-    return sum(_self_device_us(e) for e in ev) / reps
+    # A profiling session now and then records no kernel on this card
+    # (seen once in a few sessions): the trace is taken again, up to
+    # three times, before the time is reported as not measured.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if (name is None or name in e.key) and _self_device_us(e) > 0]
+        if ev:
+            return sum(_self_device_us(e) for e in ev) / reps
+    return None
 
 
 def host_us(fn, calls=300) -> float:
@@ -675,6 +704,139 @@ def traced_tick(card: str, dev="cuda", G=100_000, ticks=64,
 
 # ---- phase 5 ---------------------------------------------------------------
 
+def membership_node(card: str, dev="cuda", G=100_000, n=64) -> dict:
+    """The membership and transfer planes at the bench headline's width:
+    a durable FusedClusterNode of G groups on 4 slots, voters {0,1,2}
+    and a live spare slot 3 (the JAX package's node-replacement layout),
+    commit_rule="pallas".  After the elections, slot 0 is replaced by
+    slot 3 (add_learner 3, promote 3, remove 0, each change through
+    joint consensus where it moves a vote) on `n` groups spread over the
+    range, while leadership moves on `n` other groups.  K2 must launch
+    on every tick after enable_membership (and K1 on none); on one tick
+    with joint masks live its inputs are copied, for the kernel-vs-plain
+    check and timing on them."""
+    from raftsql_tpu_torch.chaos.scenarios import _drain_fused_q
+    from raftsql_tpu_torch.membership import MembershipError
+    from raftsql_tpu_torch.runtime.fused import FusedClusterNode
+    cfg = RaftConfig(num_groups=G, num_peers=4, log_window=256,
+                     max_entries_per_msg=32, commit_rule="pallas",
+                     initial_voters=(0, 1, 2))
+    k1, k2 = "pallas_quorum_commit_index", \
+        "pallas_masked_quorum_commit_index"
+    d = os.path.join(ROOT, "build", "chip_smoke_members")
+    shutil.rmtree(d, ignore_errors=True)
+    node = FusedClusterNode(cfg, d, device=dev)
+    node.publish_peers = {0}
+    captured, real = {}, pq.pallas_masked_quorum_commit_index
+
+    def spy(*args, **kw):
+        mm = node.membership
+        if k2 not in captured and mm is not None and mm.joint_groups:
+            captured[k2] = ([a.clone() for a in args],
+                            {k: v.clone() if torch.is_tensor(v) else v
+                             for k, v in kw.items()})
+        return real(*args, **kw)
+
+    ticks = [0]
+
+    def tick():
+        node.tick()
+        node.publish_flush()
+        _drain_fused_q(node.commit_q(0))
+        ticks[0] += 1
+
+    try:
+        pq.reset_launches()                  # this path starts here
+        t0 = time.monotonic()
+        node.enable_membership()
+        t_enable = time.monotonic() - t0
+        pq.pallas_masked_quorum_commit_index = spy
+        t0 = time.monotonic()
+        while (node._hints < 0).any() and ticks[0] < 300:
+            tick()
+        if (node._hints < 0).any():
+            raise AssertionError(f"{G} groups not elected in {ticks[0]} "
+                                 f"ticks")
+        t_elect, n_elect = time.monotonic() - t0, ticks[0]
+        mm = node.membership
+        step = G // n
+        repl = [i * step for i in range(n)]
+        xfer = {}
+        for i in range(n):
+            g = i * step + step // 2
+            lead = node.leader_of(g)
+            xfer[g] = next(p for p in (0, 1, 2) if p != lead)
+            node.transfer_leadership(g, xfer[g])
+        # add_learner 3 -> promote 3 -> remove 0, one change in flight
+        # per group: each is issued once the previous one has applied.
+        ops = (("add_learner", 3), ("promote", 3), ("remove", 0))
+        ready = (lambda c: True, lambda c: c.learners == 0b1000,
+                 lambda c: c.voters == 0b1111)
+        stage = dict.fromkeys(repl, 0)
+        t0, m0 = time.monotonic(), ticks[0]
+        while ticks[0] - m0 < 400:
+            for g in repl:
+                c = mm.config(g)
+                k = stage[g]
+                if k < 3 and not c.is_joint and ready[k](c):
+                    try:
+                        node.member_change(g, *ops[k])
+                        stage[g] += 1
+                    except MembershipError:
+                        pass                 # still in flight: next tick
+            done = (all(k == 3 and mm.config(g).voters == 0b1110
+                        and not mm.config(g).is_joint
+                        for g, k in stage.items())
+                    and all(node.leader_of(g) == t for g, t in xfer.items())
+                    and not node.transferring_groups())
+            if done:
+                break
+            tick()
+        t_ops, n_ops = time.monotonic() - t0, ticks[0] - m0
+        pq.pallas_masked_quorum_commit_index = real
+        launches = dict(pq.launches)         # ... and ends here
+        if not done:
+            raise AssertionError(
+                f"membership ops unfinished after {n_ops} ticks: stages "
+                f"{sorted(set(stage.values()))}, transfers in flight "
+                f"{len(node.transferring_groups())}")
+        doc = node.members_doc()["groups"]
+        for g in range(G):
+            want = [1, 2, 3] if g in stage else [0, 1, 2]
+            if doc[str(g)]["voters"] != want or doc[str(g)]["joint"]:
+                raise AssertionError(f"g{g}: config {doc[str(g)]}, want "
+                                     f"voters {want}")
+        for g, t in xfer.items():
+            expect(doc[str(g)]["leader"], t + 1, f"g{g} leader")
+        outcomes = [e["outcome"] for e in node.transfers_doc()["recent"]]
+        expect(outcomes.count("completed"), n, "completed transfers")
+        expect(launches, {k1: 0, k2: ticks[0]},
+               "K2 on every tick after enable_membership, K1 on none")
+        if k2 not in captured:
+            raise AssertionError("no tick ran K2 with joint masks live")
+        v, j = captured[k2][1]["voters"], captured[k2][1]["voters_joint"]
+        joint_rows = int((v != j).any(1).sum())
+        if not joint_rows:
+            raise AssertionError("captured K2 masks are not joint")
+        log(f"membership node G={G} P=4 W=256 E=32 pallas: "
+            f"enable_membership {t_enable:.1f} s; elected in {n_elect} "
+            f"ticks ({t_elect / n_elect * 1e3:.2f} ms/tick); {n} "
+            f"replacements (slot 0 -> 3) and {n} transfers finished in "
+            f"{n_ops} ticks ({t_ops / max(n_ops, 1) * 1e3:.2f} ms/tick, "
+            f"{t_ops:.1f} s); {node.metrics.conf_changes_applied} conf "
+            f"changes applied; K2 launches {launches[k2]} on "
+            f"{ticks[0]} ticks, K1 {launches[k1]}; K2 inputs copied on a "
+            f"tick with {joint_rows} joint rows on {card}")
+        return {"launches": launches, "captured": captured,
+                "ms_per_tick": t_ops / max(n_ops, 1) * 1e3}
+    finally:
+        pq.pallas_masked_quorum_commit_index = real
+        node.stop()
+        shutil.rmtree(d, ignore_errors=True)
+
+
+# ---- phase 6 ---------------------------------------------------------------
+
 def _req(port, method, body=b"", group=0, path="/"):
     c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
     try:
@@ -694,22 +856,25 @@ def _free_port() -> int:
     return port
 
 
-def _serve(groups, dev, trace=False):
+def _serve(groups, dev, trace=False, witnesses=()):
     from raftsql_tpu_torch.api.aio import AioSQLServer
     from raftsql_tpu_torch.server.main import build_fused_node
     rdb = build_fused_node(groups=groups, peers=3, resume=True,
                            data_prefix=os.path.join(DATA, "raftsql"),
-                           commit_rule="pallas", trace=trace, device=dev)
+                           commit_rule="pallas", trace=trace,
+                           witnesses=witnesses, device=dev)
     srv = AioSQLServer(_free_port(), rdb, host="127.0.0.1")
     srv.start()
     return rdb, srv
 
 
-def put_load(rdb, port, groups, card, what, threads=16, per=25) -> list:
-    """`threads` clients PUT `per` unique rows each across the groups
-    (concurrently), then the row counts are read back; logs the per-tick
-    split and the propose->ack p50/p99.  Returns the acked (group,
-    query) pairs."""
+def put_load(rdb, port, groups, card, what, threads=16, per=25,
+             on=None) -> tuple:
+    """`threads` clients PUT `per` unique rows each across the groups `on`
+    (default all; concurrently), then the row counts of every group are
+    read back; logs the per-tick split and the propose->ack p50/p99.
+    Returns (the acked (group, query) pairs, p50 ms, p99 ms)."""
+    on = list(range(groups)) if on is None else list(on)
     def rows():
         n = 0
         for g in range(groups):
@@ -724,8 +889,8 @@ def put_load(rdb, port, groups, card, what, threads=16, per=25) -> list:
 
     def client(i):
         for k in range(per):
-            g = (i + k) % groups
-            q = f'INSERT INTO main.t (name) VALUES ("c{i}-{k}")'
+            g = on[(i + k) % len(on)]
+            q = f'INSERT INTO main.t (name) VALUES ("{what}-c{i}-{k}")'
             t0 = time.monotonic()
             s, b = _req(port, "PUT", q.encode(), g)
             with mu:
@@ -757,10 +922,10 @@ def put_load(rdb, port, groups, card, what, threads=16, per=25) -> list:
     p99 = lat[int(len(lat) * 0.99)] * 1e3
     log(f"{what}: {len(lat)} PUTs from {threads} threads acked and read "
         f"back; propose->ack p50 {p50:.2f} ms p99 {p99:.2f} ms on {card}")
-    return acked
+    return acked, p50, p99
 
 
-def server(card: str, dev="cuda") -> None:
+def server(card: str, dev="cuda") -> int:
     groups = 8
     shutil.rmtree(DATA, ignore_errors=True)
     os.makedirs(DATA)
@@ -804,9 +969,10 @@ def server(card: str, dev="cuda") -> None:
     log(f"server: reopen replayed the WALs, rows intact; K1 launches "
         f"{grew} during the phase")
     shutil.rmtree(DATA, ignore_errors=True)
+    return grew
 
 
-# ---- phase 6 ---------------------------------------------------------------
+# ---- phase 7 ---------------------------------------------------------------
 
 def traced_server(card: str, dev="cuda") -> None:
     """Phase 5's server with tracing on: the PUT load again, then GET
@@ -825,7 +991,7 @@ def traced_server(card: str, dev="cuda") -> None:
         for g in range(groups):
             expect(_req(port, "PUT", create.encode(), g), (204, b""),
                    f"traced CREATE g{g}")
-        acked = put_load(rdb, port, groups, card, "traced server")
+        acked, _, _ = put_load(rdb, port, groups, card, "traced server")
         acked += [(g, create) for g in range(groups)]
         st, body = _req(port, "GET", path="/trace")
         expect(st, 200, "GET /trace")
@@ -853,17 +1019,139 @@ def traced_server(card: str, dev="cuda") -> None:
     shutil.rmtree(DATA, ignore_errors=True)
 
 
-# ---- phase 7 ---------------------------------------------------------------
+# ---- phase 8 ---------------------------------------------------------------
+
+def _transfer(port, group, target):
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        c.request("POST", "/transfer", body=json.dumps(
+            {"group": group, "target": target}).encode())
+        r = c.getresponse()
+        return r.status, r.read()
+    finally:
+        c.close()
+
+
+def _until(pred, what, timeout_s=60.0):
+    t0 = time.monotonic()
+    while not pred():
+        if time.monotonic() - t0 > timeout_s:
+            raise AssertionError(f"{what}: not within {timeout_s} s")
+        time.sleep(0.01)
+
+
+def placement_server(card: str, dev="cuda", groups=8) -> dict:
+    """The --fused --placement server (8 groups x 3 peers, aio): POST
+    /transfer moves a leader (200) and refuses a transfer in flight, a
+    target that already leads and, on a second short start with --witness
+    2, a witness target (400).  Then skewed PUT load (every write on the
+    groups one peer leads) with placement off and on, in turns on the same
+    server: placement must complete a transfer, and every acked PUT is
+    read back."""
+    from raftsql_tpu_torch.server.main import attach_placement
+    shutil.rmtree(DATA, ignore_errors=True)
+    os.makedirs(DATA)
+    k1 = "pallas_quorum_commit_index"
+    base = pq.launches[k1]                    # this path starts here
+    rdb, srv = _serve(groups, dev)
+    node, pc, lat = rdb.pipe.node, None, {}
+    try:
+        port = srv.port
+        for g in range(groups):
+            expect(_req(port, "PUT", b"CREATE TABLE main.t (name text)",
+                        g), (204, b""), f"CREATE g{g}")
+        lead = node.leader_of(0)
+        target = (lead + 1) % 3
+        st, body = _transfer(port, 0, target)
+        expect(st, 200, f"POST /transfer: {body!r}")
+        st, body = _transfer(port, 0, (lead + 2) % 3)
+        expect((st, b"in flight" in body), (400, True), "transfer in flight")
+        _until(lambda: node.leader_of(0) == target
+               and not node.transferring_groups(), "transfer to a follower")
+        st, body = _transfer(port, 0, target)
+        expect((st, b"already leads" in body), (400, True),
+               "transfer to the leader")
+        log(f"placement server: POST /transfer moved group 0 from peer "
+            f"{lead + 1} to {target + 1} (200); in-flight and "
+            f"already-leads requests refused (400)")
+        acked = []
+        for i, mode in enumerate(("off", "on", "on", "off")):
+            if mode == "on" and pc is None:
+                pc = attach_placement(rdb, interval_s=0.2)
+            elif mode == "off" and pc is not None:
+                pc.stop()
+                pc = rdb.placement = None
+            leads = [node.leader_of(g) for g in range(groups)]
+            hot = max(range(3), key=leads.count)
+            on = [g for g in range(groups) if leads[g] == hot]
+            done0 = node.metrics.transfers_completed
+            a, p50, p99 = put_load(rdb, port, groups, card,
+                                   f"placement {mode} (run {i + 1})",
+                                   on=on)
+            acked += a
+            lat.setdefault(mode, []).append((p50, p99))
+            if mode == "on":
+                _until(lambda: node.metrics.transfers_completed > done0,
+                       "placement never completed a transfer")
+                log(f"placement on: {pc.issued} transfers issued, "
+                    f"{node.metrics.transfers_completed - done0} completed "
+                    f"during the load on peer {hot + 1}'s {len(on)} "
+                    f"groups; metrics {rdb.metrics()['placement']}")
+        for g in range(groups):
+            st, body = _req(port, "GET", b"SELECT name FROM main.t", g)
+            expect(st, 200, f"read back g{g}")
+            got = set(body.decode().split("\n"))
+            for q in (q for (ag, q) in acked if ag == g):
+                name = q.rsplit('"', 2)[1]
+                if f"|{name}|" not in got:
+                    raise AssertionError(f"acked PUT {q!r} on g{g} lost")
+        log(f"placement server: {len(acked)} acked PUTs read back; "
+            f"p50/p99 ms with placement off "
+            f"{[(round(a, 2), round(b, 2)) for a, b in lat['off']]}, on "
+            f"{[(round(a, 2), round(b, 2)) for a, b in lat['on']]} on "
+            f"{card}")
+    finally:
+        if pc is not None:
+            pc.stop()
+        srv.stop()
+        err = rdb.close()
+    expect(err, None, "placement close")
+    lat["launches"] = pq.launches[k1] - base  # ... and ends here
+    if lat["launches"] <= 0:
+        raise AssertionError("the placement server never launched K1")
+    shutil.rmtree(DATA, ignore_errors=True)
+    os.makedirs(DATA)
+    rdb, srv = _serve(2, dev, witnesses=(2,))
+    try:
+        node = rdb.pipe.node
+        _until(lambda: (node._hints >= 0).all(), "witness cluster elected")
+        st, body = _transfer(srv.port, 0, 2)
+        expect((st, b"witness" in body), (400, True), "witness target")
+        log("placement server --witness 2: transfer to the witness slot "
+            "refused (400)")
+    finally:
+        srv.stop()
+        err = rdb.close()
+    expect(err, None, "witness close")
+    shutil.rmtree(DATA, ignore_errors=True)
+    return lat
+
+
+# ---- phase 9 ---------------------------------------------------------------
 
 def chaos(card: str, dev="cuda") -> dict:
     """The seed-0 chaos digests on the card: the default family twice
-    with commit_rule="pallas" (K1's launch count zeroed just before and
-    read just after), then each fused family once; returns the wall
-    time of each run in seconds."""
+    with commit_rule="pallas", then each fused family once, then the
+    read, quorum and transfer nemesis families twice each with
+    commit_rule="pallas" (K1's launch count zeroed just before those
+    runs and read just after, twice: the default's and the nemesis
+    families'), then the falsification pairs of those three gauntlets,
+    which must be caught.  Returns the wall time of each run in seconds
+    and the K1 launches of each path."""
     from raftsql_tpu_torch.chaos import run as crun
     from raftsql_tpu_torch.chaos.schedule import generate
     k1 = "pallas_quorum_commit_index"
-    walls = {}
+    walls, launches = {}, {}
     pq.reset_launches()                       # the chaos path starts here
     for i in range(2):
         t0 = time.monotonic()
@@ -877,11 +1165,15 @@ def chaos(card: str, dev="cuda") -> dict:
             f"{r['fsync_faults']} fsync faults) "
             f"{walls[f'default#{i + 1}']:.2f} s on {card}")
         expect(got, CHAOS_DIGESTS["default"], "chaos default digests")
-    launches = pq.launches[k1]                # ... and ends here
-    if launches <= 0:
+    launches["default"] = pq.launches[k1]     # ... and ends here
+    if launches["default"] <= 0:
         raise AssertionError("the chaos runs never launched K1")
-    log(f"chaos default: K1 launches {launches} over both runs")
-    for name, (gen, fired) in crun.family_specs().items():
+    log(f"chaos default: K1 launches {launches['default']} over both runs")
+    nemesis = ("reads", "quorum", "transfers")
+    specs = crun.family_specs()
+    for name, (gen, fired) in specs.items():
+        if name in nemesis:
+            continue
         t0 = time.monotonic()
         r = crun.run_fused(gen(0), device=dev)
         walls[name] = time.monotonic() - t0
@@ -891,7 +1183,38 @@ def chaos(card: str, dev="cuda") -> dict:
         expect(got, CHAOS_DIGESTS[name], f"chaos {name} digests")
         if not fired(r):
             raise AssertionError(f"chaos {name}: its faults never fired")
-    return walls
+    pq.reset_launches()                       # the nemesis path starts here
+    for name in nemesis:
+        gen, fired = specs[name]
+        for i in range(2):
+            t0 = time.monotonic()
+            r = crun.run_fused(gen(0), device=dev, commit_rule="pallas")
+            walls[f"{name}#{i + 1}"] = time.monotonic() - t0
+            got = (r["schedule_digest"], r["result_digest"])
+            log(f"chaos {name} run {i + 1}: schedule={got[0]} "
+                f"result={got[1]} {walls[f'{name}#{i + 1}']:.2f} s on "
+                f"{card}")
+            expect(got, CHAOS_DIGESTS[name], f"chaos {name} digests")
+            if not fired(r):
+                raise AssertionError(f"chaos {name}: its faults never "
+                                     f"fired ({r})")
+    launches["nemesis"] = pq.launches[k1]     # ... and ends here
+    if launches["nemesis"] <= 0:
+        raise AssertionError("the nemesis families never launched K1")
+    log(f"chaos nemesis families: K1 launches {launches['nemesis']} over "
+        f"six runs")
+    for name in nemesis:
+        t0 = time.monotonic()
+        ok = crun.run_falsification(name, 0, device=dev,
+                                    commit_rule="pallas")
+        walls[f"{name} falsification"] = time.monotonic() - t0
+        if not ok:
+            raise AssertionError(f"chaos {name}: a falsification arm was "
+                                 f"not caught or its control failed")
+        log(f"chaos {name} falsification: every broken arm caught, every "
+            f"control passed, {walls[f'{name} falsification']:.2f} s on "
+            f"{card}")
+    return {"walls": walls, "launches": launches}
 
 
 # ---- main ------------------------------------------------------------------
@@ -913,18 +1236,34 @@ def main() -> int:
     kern = main_path_kernels(card, tick.pop("captured"))
     traced_tick(card)
     done("fused tick")
-    server(card)
+    mem = membership_node(card)
+    # K2's row is its joint-consensus path: R = 400,000, P = 4 (the
+    # generic kernel), C_old,new masks live.
+    kern.update(main_path_kernels(card, mem.pop("captured")))
+    done("membership node")
+    k1_server = server(card)
     done("server")
     traced_server(card)
     done("traced server")
-    chaos(card)
+    place = placement_server(card)
+    done("placement server")
+    ch = chaos(card)
     done("chaos")
+    k1, k2 = "pallas_quorum_commit_index", \
+        "pallas_masked_quorum_commit_index"
+    launches = {
+        k1: (tick["launches"][k1] + k1_server + place["launches"]
+             + ch["launches"]["default"] + ch["launches"]["nemesis"]),
+        k2: tick["launches"][k2] + mem["launches"][k2]}
+    log(f"launches by path: fused tick {tick['launches']}, membership "
+        f"node {mem['launches']}, server K1 {k1_server}, placement "
+        f"server K1 {place['launches']}, chaos K1 {ch['launches']}")
     rows = []
     for name, r in kern.items():
         rows.append({"name": name, "route": "cuda",
                      "source": "raftsql_tpu_torch/csrc/quorum.cu",
                      "replaces": REPLACES[name],
-                     "launches": tick["launches"][name],
+                     "launches": launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None})

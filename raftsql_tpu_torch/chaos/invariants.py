@@ -18,7 +18,10 @@ package).  Four invariants (raft paper §5.4 + the durability contract):
     replay.
 
 plus a single-register-per-key LINEARIZABILITY check over the KV
-plane's completed PUT/GET history.  Violations raise
+plane's completed PUT/GET history, SESSION CONSISTENCY for watermark
+reads (the read nemesis), TRANSFER AVAILABILITY (the transfer nemesis)
+and REMOVED-QUORUM SAFETY (the membership plane's own invariant; its
+lockstep runner comes with the distributed runtime).  Violations raise
 `InvariantViolation` (an AssertionError so pytest reports them as
 failures, not errors).
 """
@@ -152,6 +155,118 @@ class DurabilityLedger:
                     f"across restart ({payload!r} -> {got!r})")
 
 
+class RemovedQuorumSafety:
+    """NO QUORUM FROM A REMOVED MAJORITY (dynamic membership,
+    raftsql_tpu_torch/membership/): every observed leader must be a voter of
+    its OWN node's active configuration.  Leadership requires a quorum
+    of vote grants; grantors only grant to peers they believe are
+    voters (core/step.py voter_src gate) and tallies count only voters
+    (mask-weighted quorum) — so once a removal has applied at a
+    majority, the removed peers can never again assemble a quorum, and
+    a leader observed outside its own config means exactly that
+    property broke.  Additionally, once EVERY live node's applied
+    config excludes a peer from group g, that peer must never be
+    observed leading g at any later tick (covers a stale-config node
+    trying to lead on the strength of other removed peers)."""
+
+    def __init__(self, leader_code: int = 2):
+        self._leader_code = leader_code
+        # (group) -> set of peers fully removed (excluded by every live
+        # node's applied config at some earlier observation).
+        self._fully_removed: Dict[int, set] = {}
+        self.observations = 0
+
+    def observe(self, tick: int, roles: np.ndarray, voter_of,
+                live_configs) -> None:
+        """roles: [P, G] (dead rows < 0).  voter_of(p, g) -> bool: is p
+        a voter (either joint mask) of NODE p's own applied config.
+        live_configs: iterable of per-node (voters|joint) bitmask
+        getters `fn(g) -> int` for live nodes (used for the
+        fully-removed tracking)."""
+        self.observations += 1
+        P, G = roles.shape
+        lead_p, lead_g = np.nonzero(roles == self._leader_code)
+        for p, g in zip(lead_p.tolist(), lead_g.tolist()):
+            if not voter_of(p, g):
+                raise InvariantViolation(
+                    f"t={tick} g={g}: peer {p} leads but is not a "
+                    f"voter of its own applied configuration")
+            if p in self._fully_removed.get(g, ()):
+                raise InvariantViolation(
+                    f"t={tick} g={g}: REMOVED peer {p} regained "
+                    f"leadership — a removed majority formed a quorum")
+        fns = list(live_configs)
+        if not fns:
+            return
+        for g in range(G):
+            masks = [fn(g) for fn in fns]
+            excluded = {p for p in range(P)
+                        if all(not (m >> p & 1) for m in masks)}
+            if excluded:
+                self._fully_removed.setdefault(g, set()).update(excluded)
+
+
+class SessionConsistency:
+    """Read-your-writes / monotonic reads for WATERMARK-carrying reads
+    (the session/follower read modes): a read presenting watermark `w`
+    on key k must return a committed write to k at log index >= the
+    newest committed write to k at-or-below w — i.e. at least as fresh
+    as everything the watermark covers.  Weaker than linearizability
+    (a session read may legally miss writes committed after w), which
+    is exactly why these modes get their own checker instead of the
+    register rule.
+
+    The committed write history arrives via note_commit(group, index,
+    key, value) from whatever apply stream the runner trusts (unique
+    values, like the register checker).  Thread-safe.
+    """
+
+    def __init__(self):
+        import threading
+        self._mu = threading.Lock()
+        # key -> sorted-ish list of (global_order, value); value -> ord.
+        self._by_key: Dict[Tuple[int, str], List[Tuple[int, str]]] = {}
+        self._ord: Dict[str, Tuple[int, int]] = {}  # value -> (g, idx)
+        self.reads_checked = 0
+
+    def note_commit(self, group: int, index: int, key: str,
+                    value: str) -> None:
+        with self._mu:
+            self._by_key.setdefault((group, key), []).append(
+                (index, value))
+            self._ord[value] = (group, index)
+
+    def check_read(self, group: int, key: str, watermark: int,
+                   value: str, mode: str = "session") -> None:
+        """`value` came back from a read of `key` carrying `watermark`
+        (a commit index of `group`)."""
+        with self._mu:
+            self.reads_checked += 1
+            hist = self._by_key.get((group, key), ())
+            floor = 0
+            floor_val = None
+            for (idx, v) in hist:
+                if idx <= watermark and idx > floor:
+                    floor, floor_val = idx, v
+            if floor_val is None:
+                return               # watermark predates every write
+            if value == "":
+                raise InvariantViolation(
+                    f"{mode} read(g{group} {key!r}, wm={watermark}) "
+                    f"returned the initial value but {floor_val!r} "
+                    f"committed at index {floor} <= wm")
+            got = self._ord.get(value)
+            if got is None or got[0] != group:
+                raise InvariantViolation(
+                    f"{mode} read(g{group} {key!r}) returned a value "
+                    f"never committed to that key: {value!r}")
+            if got[1] < floor:
+                raise InvariantViolation(
+                    f"{mode} read(g{group} {key!r}, wm={watermark}) "
+                    f"returned STALE {value!r} (index {got[1]}) — "
+                    f"{floor_val!r} committed at {floor} <= wm")
+
+
 class RegisterLinearizability:
     """Per-key register linearizability over completed PUT/GET history.
 
@@ -260,3 +375,111 @@ class RegisterLinearizability:
                             f"{mode} read({key!r}) returned STALE "
                             f"value {value!r}: a later write "
                             f"completed before the read began")
+
+
+class TransferAvailability:
+    """No availability loss during graceful leadership transfer.
+    Every violation message carries the TRANSFER-AVAILABILITY
+    token so the falsification harness can match on it precisely.
+
+    Checks, per issued transfer:
+      * the latch RESOLVES (completed or aborted) within the engine
+        deadline plus a two-election-cycle settling margin — a stuck
+        latch is a permanently closed group;
+      * `must_complete` transfers (the directed falsification probe)
+        must end `completed` with stall <= max_stall_ticks — the
+        broken unsafe kernel deterministically ABORTS here because the
+        behind target cannot win the election it was handed;
+      * a transfer resolving in fault-free air must be followed by a
+        committed probe write within probe_ticks (aborted transfers
+        leave the group SERVING, not just unlatched).
+
+    The runner feeds outcomes from the host's transfer event log and
+    calls check(t) every tick; crashes wipe pending state (the latch
+    dies with the process — a transfer outstanding at crash time is
+    void, not violated)."""
+
+    def __init__(self, election_ticks: int, deadline_ticks: int,
+                 max_stall_ticks: int, probe_ticks: int):
+        self.election_ticks = election_ticks
+        self.deadline_ticks = deadline_ticks
+        self.max_stall_ticks = max_stall_ticks
+        self.probe_ticks = probe_ticks
+        # group -> (issue_tick, must_complete)
+        self._pending: Dict[int, Tuple[int, bool]] = {}
+        # probe value -> (deadline_tick, group)
+        self._probes: Dict[str, Tuple[int, int]] = {}
+        self.completed = 0
+        self.aborted = 0
+        self.max_stall = 0
+        self.probes_confirmed = 0
+
+    # -- transfer lifecycle --------------------------------------------
+
+    def note_issued(self, tick: int, group: int,
+                    must_complete: bool) -> None:
+        self._pending[group] = (tick, must_complete)
+
+    def note_outcome(self, tick: int, group: int, outcome: str,
+                     stall_ticks: int) -> None:
+        issued = self._pending.pop(group, None)
+        self.max_stall = max(self.max_stall, int(stall_ticks))
+        if outcome == "completed":
+            self.completed += 1
+        else:
+            self.aborted += 1
+        if issued is None:
+            return
+        _t0, must = issued
+        if must and outcome != "completed":
+            raise InvariantViolation(
+                f"TRANSFER-AVAILABILITY: directed transfer of group "
+                f"{group} was required to complete but ended "
+                f"{outcome!r} after {stall_ticks} ticks — the engine "
+                f"deposed a leader without getting its successor "
+                f"elected")
+        if must and stall_ticks > self.max_stall_ticks:
+            raise InvariantViolation(
+                f"TRANSFER-AVAILABILITY: directed transfer of group "
+                f"{group} stalled proposals for {stall_ticks} ticks "
+                f"(bound {self.max_stall_ticks})")
+
+    def note_crash(self) -> None:
+        # Latches (and any not-yet-committed probe) die with the
+        # process; outstanding transfers are void, not violated.
+        self._pending.clear()
+        self._probes.clear()
+
+    # -- serving probes ------------------------------------------------
+
+    def arm_probe(self, tick: int, group: int, value: str) -> None:
+        self._probes[value] = (tick + self.probe_ticks, group)
+
+    def probe_committed(self, value: str) -> None:
+        if self._probes.pop(value, None) is not None:
+            self.probes_confirmed += 1
+
+    # -- per-tick / end-of-run checks ----------------------------------
+
+    def check(self, tick: int) -> None:
+        limit = self.deadline_ticks + 2 * self.election_ticks
+        for group, (t0, _must) in self._pending.items():
+            if tick - t0 > limit:
+                raise InvariantViolation(
+                    f"TRANSFER-AVAILABILITY: transfer of group {group} "
+                    f"issued at tick {t0} still unresolved at tick "
+                    f"{tick} (engine deadline {self.deadline_ticks})")
+        for value, (dl, group) in self._probes.items():
+            if tick > dl:
+                raise InvariantViolation(
+                    f"TRANSFER-AVAILABILITY: post-transfer probe write "
+                    f"{value!r} on group {group} did not commit within "
+                    f"{self.probe_ticks} ticks — the group stopped "
+                    f"serving after its transfer resolved")
+
+    def final_check(self, tick: int) -> None:
+        for group, (t0, _must) in self._pending.items():
+            raise InvariantViolation(
+                f"TRANSFER-AVAILABILITY: transfer of group {group} "
+                f"issued at tick {t0} never resolved by end of run "
+                f"({tick} ticks)")

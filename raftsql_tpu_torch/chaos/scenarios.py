@@ -1,8 +1,13 @@
-"""The fused chaos runner: drive the port's FusedClusterNode through a
+"""The fused chaos runners: drive the port's FusedClusterNode through a
 seeded `ChaosSchedule`, injecting faults at every seam, checking
 invariants every tick.
 
-Port of the fused plane of raftsql_tpu/chaos/scenarios.py.  Fully
+Port of the fused plane of raftsql_tpu/chaos/scenarios.py:
+`FusedChaosRunner` and the three nemesis runners built on it —
+`ReadNemesisRunner` (every read mode under skew, partitions and
+crashes), `QuorumChaosRunner` (flexible quorums and a witness peer) and
+`TransferChaosRunner` (graceful leadership transfers under the same
+faults).  Each takes `device` and `commit_rule`.  Fully
 deterministic: one thread drives `tick()` manually, fault masks are
 numpy draws from the runner's seeded generator (copied to the inbox's
 device, never drawn by torch), crashes are simulated in-process, and
@@ -158,7 +163,8 @@ class FusedChaosRunner:
     KEYS = 8
     LOG_MATCH_EVERY = 16
     # Which peers' commit queues the engine materializes (peer 0 is the
-    # client apply plane).
+    # client apply plane).  ReadNemesisRunner sets None (= all): its
+    # per-peer read serving state needs every peer's stream.
     PUBLISH_PEERS: Optional[set] = {0}
 
     def __init__(self, schedule: ChaosSchedule, data_dir: str,
@@ -226,6 +232,7 @@ class FusedChaosRunner:
                         if d:
                             replayed[(g, base + 1 + off)] = d
                             order.append((g, base + 1 + off, d))
+            self._boot_peer_drained(p, batches)
         # Compaction floors: the replay legitimately starts above them
         # (compact() only ever drops published entries — the publish
         # cursor gates the floor).
@@ -251,6 +258,11 @@ class FusedChaosRunner:
         self._applied = node._applied[0].copy()
         node.metrics.faults_crashes = self.report["crashes"]
         return node
+
+    def _boot_peer_drained(self, p: int, batches) -> None:
+        """Subclass seam: peer p's replay stream was just drained at
+        (re)boot — ReadNemesisRunner rebuilds its per-peer read state
+        here."""
 
     def _crash_restart(self, tick: int, power_loss: bool = False,
                        tear_peer: int = -1) -> None:
@@ -295,7 +307,9 @@ class FusedChaosRunner:
                     (f"k{k}", g, target, self.lin.begin_read(f"k{k}")))
 
     def _drain_tick(self) -> None:
-        """Consume the client (peer 0) commit stream after a tick."""
+        """Consume the client (peer 0) commit stream after a tick —
+        ReadNemesisRunner overrides to drain every peer into its
+        per-peer read state too."""
         for (g, base, datas) in _drain_fused_q(self.node.commit_q(0)):
             for off, d in enumerate(datas):
                 if d:
@@ -371,7 +385,7 @@ class FusedChaosRunner:
     def _observe(self, t: int) -> None:
         node = self.node
         roles = node.roles()
-        terms = node.states.term.cpu().numpy()
+        terms = node.states.term.to("cpu", copy=True).numpy()
         self.safety.observe(t, roles, terms)
         commits = node._hard[:, :, 2]
         self.monotonic.observe(t, commits)
@@ -515,3 +529,505 @@ class FusedChaosRunner:
             "safety_observations": self.safety.observations,
             **self.report,
         }
+
+
+class ReadNemesisRunner(FusedChaosRunner):
+    """The read-linearizability nemesis (fused plane): every read mode
+    of the lease read plane — lease, ReadIndex, session, follower —
+    races the write stream while clock skew, leader-targeted
+    partitions, asymmetric cuts, and crashes land.
+
+    Serving model (what a real multi-process deployment would do,
+    simulated honestly): every peer's commit stream is drained into a
+    PER-PEER KV (`publish_peers = None`), and a read served "at peer
+    p" resolves against peer p's applied state — NOT the global truth.
+    A partitioned stale leader therefore really can serve an old
+    value, and only the lease bound stands between that and a
+    linearizability violation:
+
+      * LEASE reads are issued at EVERY peer whose device lease
+        (core/step.py Phase 8b) currently covers now + max_clock_skew
+        — including a deposed leader that does not know it yet.  Under
+        a correctly sized bound (lease_ticks + max_clock_skew <=
+        election_ticks / max_skew_rate) the real-time register
+        invariant must never fire; the falsification plan
+        (schedule.py falsification_plan) oversizes the lease under 4x
+        skew and the invariant MUST fire — proving the harness detects
+        a broken bound, not just chaos.
+      * READINDEX reads ride the base runner's read_index workload.
+      * SESSION reads present the watermark of the client's last
+        completed write and resolve at a RANDOM peer once its apply
+        passes the watermark — checked by SessionConsistency
+        (read-your-writes), which unlike the register rule permits
+        legally-stale-but-watermark-fresh answers.
+      * FOLLOWER reads use the serving peer's own commit index as the
+        watermark (the replicated read-index watermark).
+
+    Fully deterministic: same seeded draws as the base runner, digest
+    compared across runs by `python -m raftsql_tpu_torch.chaos.run
+    --reads`.
+    """
+
+    PUBLISH_PEERS: Optional[set] = None       # drain every peer
+
+    def __init__(self, plan, data_dir: str, device="cuda",
+                 commit_rule: Optional[str] = None):
+        from raftsql_tpu_torch.chaos.invariants import SessionConsistency
+        from raftsql_tpu_torch.chaos.schedule import ChaosSchedule as _CS
+        sched = _CS(seed=plan.seed, ticks=plan.ticks,
+                    partitions=plan.partitions,
+                    asym_partitions=plan.asym_partitions,
+                    skews=plan.skews, crashes=plan.crashes,
+                    prop_rate=plan.prop_rate,
+                    read_rate=plan.read_index_rate)
+        cfg = RaftConfig(num_groups=plan.groups, num_peers=plan.peers,
+                         log_window=64, max_entries_per_msg=4,
+                         election_ticks=plan.election_ticks,
+                         heartbeat_ticks=1, tick_interval_s=0.0,
+                         lease_ticks=plan.lease_ticks,
+                         max_clock_skew=plan.max_clock_skew,
+                         # Quorum-geometry plans (QuorumNemesisPlan)
+                         # carry these; ReadNemesisPlan does not, and
+                         # the defaults leave the config on the static
+                         # full-voter fast path.
+                         write_quorum=getattr(plan, "write_quorum",
+                                              None),
+                         election_quorum=getattr(plan,
+                                                 "election_quorum",
+                                                 None),
+                         witnesses=getattr(plan, "witnesses",
+                                           None) or None,
+                         unsafe_quorum_geometry=getattr(
+                             plan, "unsafe_geometry", False),
+                         unsafe_witness_lease=getattr(
+                             plan, "broken_witness_lease", False))
+        super().__init__(sched, data_dir, cfg=cfg, device=device,
+                         commit_rule=commit_rule)
+        self.plan = plan
+        P, G = plan.peers, plan.groups
+        self._pkv: List[Dict[str, str]] = [dict() for _ in range(P)]
+        self._papplied = np.zeros((P, G), np.int64)
+        self.session = SessionConsistency()
+        # (peer, key, group, target_commit, register handle)
+        self._pending_lease: List[tuple] = []
+        # (peer, key, group, watermark, mode)
+        self._pending_session: List[tuple] = []
+        # key -> (group, watermark) of its last COMPLETED write — the
+        # session a client would carry (X-Raft-Session).
+        self._last_wm: Dict[str, Tuple[int, int]] = {}
+        self.report.update({
+            "lease_reads": 0, "session_reads": 0, "follower_reads": 0,
+            "lease_peers_leased": 0,
+        })
+
+    # -- per-peer apply plane -------------------------------------------
+
+    def _note_peer_apply(self, p: int, g: int, idx: int,
+                         payload: bytes) -> None:
+        parts = payload.decode("utf-8").split(" ")
+        if len(parts) == 3 and parts[0] == "SET":
+            self._pkv[p][parts[1]] = parts[2]
+            # Committed-history feed for the session checker (first
+            # peer to surface an index wins; log matching keeps every
+            # later copy identical).
+            self.session.note_commit(g, idx, parts[1], parts[2])
+
+    def _boot_peer_drained(self, p: int, batches) -> None:
+        self._pkv[p] = {}
+        for (g, base, datas) in batches:
+            for off, d in enumerate(datas):
+                if d:
+                    self._note_peer_apply(p, g, base + 1 + off, d)
+
+    def _boot(self, first: bool):
+        # In-flight per-peer reads die with the process, like the base
+        # runner's pending ReadIndex reads.
+        self._pending_lease.clear()
+        self._pending_session.clear()
+        node = super()._boot(first)
+        self._papplied = node._applied.copy()
+        return node
+
+    def _drain_tick(self) -> None:
+        node = self.node
+        for p in range(self.cfg.num_peers):
+            for (g, base, datas) in _drain_fused_q(node.commit_q(p)):
+                for off, d in enumerate(datas):
+                    if not d:
+                        continue
+                    idx = base + 1 + off
+                    if p == 0:
+                        self._apply(g, idx, d)
+                    self._note_peer_apply(p, g, idx, d)
+        self._applied = np.maximum(self._applied, node._applied[0])
+        self._papplied = np.maximum(self._papplied, node._applied)
+
+    def _apply(self, g: int, idx: int, payload: bytes) -> None:
+        super()._apply(g, idx, payload)
+        parts = payload.decode("utf-8").split(" ")
+        if len(parts) == 3 and parts[0] == "SET":
+            # The write just COMPLETED (client apply = ack): its
+            # watermark is what a session client would carry forward.
+            self._last_wm[parts[1]] = (g, idx)
+
+    # -- workload --------------------------------------------------------
+
+    def _issue(self, rng: np.random.Generator) -> None:
+        super()._issue(rng)          # writes + ReadIndex reads
+        plan = self.plan
+        cfg = self.cfg
+        P = cfg.num_peers
+        node = self.node
+        if rng.random() < plan.lease_read_rate:
+            k = int(rng.integers(0, self.KEYS))
+            g = k % cfg.num_groups
+            key = f"k{k}"
+            lc = node._lease_col
+            if lc is not None and cfg.lease_ticks > 0:
+                now = node._device_steps
+                leased = [p for p in range(P)
+                          if int(lc[p, g]) > 0
+                          and now + cfg.max_clock_skew < int(lc[p, g])]
+                self.report["lease_peers_leased"] += len(leased)
+                for p in leased:
+                    # The lease read a real deployment would serve AT
+                    # PEER p: target = p's commit, answer = p's state.
+                    target = int(node._hard[p, g, 2])
+                    self.report["lease_reads"] += 1
+                    self._pending_lease.append(
+                        (p, key, g, target,
+                         self.lin.begin_read(key, mode="lease")))
+        if rng.random() < plan.session_read_rate and self._last_wm:
+            keys = sorted(self._last_wm)
+            key = keys[int(rng.integers(0, len(keys)))]
+            g, wm = self._last_wm[key]
+            p = int(rng.integers(0, P))
+            self.report["session_reads"] += 1
+            self._pending_session.append((p, key, g, wm, "session"))
+        if rng.random() < plan.follower_read_rate:
+            k = int(rng.integers(0, self.KEYS))
+            g = k % cfg.num_groups
+            p = int(rng.integers(0, P))
+            # Replicated read-index watermark: the serving peer's own
+            # commit index at request arrival.
+            wm = int(node._hard[p, g, 2])
+            self.report["follower_reads"] += 1
+            self._pending_session.append((p, f"k{k}", g, wm,
+                                          "follower"))
+
+    def _resolve_reads(self) -> None:
+        super()._resolve_reads()     # base ReadIndex reads
+        still: List[tuple] = []
+        for (p, key, g, target, handle) in self._pending_lease:
+            if self._papplied[p][g] >= target:
+                self.lin.end_read(handle, self._pkv[p].get(key, ""))
+            else:
+                still.append((p, key, g, target, handle))
+        self._pending_lease = still
+        still = []
+        for (p, key, g, wm, mode) in self._pending_session:
+            if self._papplied[p][g] >= wm:
+                self.session.check_read(g, key, wm,
+                                        self._pkv[p].get(key, ""),
+                                        mode=mode)
+            else:
+                still.append((p, key, g, wm, mode))
+        self._pending_session = still
+
+    def _report(self) -> dict:
+        r = super()._report()
+        r["plan_digest"] = self.plan.digest()
+        r["session_reads_checked"] = self.session.reads_checked
+        r["reads_by_mode"] = dict(sorted(
+            self.lin.reads_by_mode.items()))
+        return r
+
+
+class QuorumChaosRunner(ReadNemesisRunner):
+    """The quorum-geometry nemesis (fused plane): flexible
+    write/election quorums and witness peers (config.py quorum
+    geometry) under the read-nemesis workload and fault families.
+    Extends ReadNemesisRunner with three quorum-specific checks:
+
+      * CROSS-PEER commit consistency: every peer's publish stream
+        feeds one shared DurabilityLedger keyed (group, index).  Under
+        an intersecting geometry (W + E > N) two peers can never
+        surface different payloads for one slot — raft's committed-
+        entry uniqueness.  The W=1 falsification plan
+        (schedule.py falsification_quorum_plan) makes a partitioned
+        pinned leader solo-commit acked writes the majority side then
+        rewrites; the divergence MUST be caught (this ledger's
+        changed-content check, or log matching / commit monotonicity
+        if they observe the split first).
+      * WITNESS serving audit: a witness's publish stream must stay
+        EMPTY (runtime/hostplane.py advances its cursor without
+        publishing — it has no apply plane); any payload surfacing
+        from a witness is counted in `witness_publishes` and failed by
+        the run driver.  The report carries `wal_streams` (every peer
+        fsyncs a WAL) vs `apply_streams` (only non-witness peers apply
+        — the fsync stream the witness economy saves) and the
+        witness's replicated-append count (`witness_appends`, summed
+        across crash/restart generations).
+      * LEADER PINNING: plans may pin group 0's leadership onto a
+        named peer before the fault windows open
+        (QuorumNemesisPlan.pin_leader_tick), so directed falsification
+        windows can name fixed peer ids.  The stale-lease witness arm
+        (schedule.py falsification_witness_plan) relies on it:
+        unsafe_witness_lease lets the witness grant a prevote inside
+        the deposed leader's live lease, and the resulting stale lease
+        read MUST be caught by the register invariant — while the
+        honest witness under the SAME schedule must pass.
+
+    Fully deterministic like its bases: digests compared across runs
+    by `python -m raftsql_tpu_torch.chaos.run --quorum`.
+    """
+
+    def __init__(self, plan, data_dir: str, device="cuda",
+                 commit_rule: Optional[str] = None):
+        from raftsql_tpu_torch.chaos.invariants import DurabilityLedger
+        super().__init__(plan, data_dir, device=device,
+                         commit_rule=commit_rule)
+        self._witness_set = frozenset(plan.witnesses)
+        # Cross-peer commit view: (group, index) -> payload, fed from
+        # EVERY peer's stream (the base ledger only sees peer 0's).
+        self._xview = DurabilityLedger()
+        # witness_appends survives _crash_restart: bank the dying
+        # node's counter before each reboot.
+        self._wit_banked = 0
+        self._pin_done = False
+        self.report.update({
+            "wal_streams": plan.peers,
+            "apply_streams": plan.peers - len(self._witness_set),
+            "witness_publishes": 0,
+            "pin_transfers": 0,
+        })
+
+    def _note_peer_apply(self, p: int, g: int, idx: int,
+                         payload: bytes) -> None:
+        if p in self._witness_set:
+            self.report["witness_publishes"] += 1
+        self._xview.record(g, idx, payload)
+        super()._note_peer_apply(p, g, idx, payload)
+
+    def _crash_restart(self, tick: int, power_loss: bool = False,
+                       tear_peer: int = -1):
+        if self.node is not None:
+            self._wit_banked += int(self.node.metrics.witness_appends)
+        super()._crash_restart(tick, power_loss=power_loss,
+                               tear_peer=tear_peer)
+
+    def _apply_faults(self, t: int, rng: np.random.Generator) -> None:
+        from raftsql_tpu_torch.runtime.node import TransferRefused
+        plan = self.plan
+        pt = plan.pin_leader_tick
+        if pt >= 0 and pt <= t < pt + 16 and not self._pin_done:
+            tgt = plan.pin_leader_peer
+            lead = self.node.leader_of(0)
+            if lead == tgt:
+                self._pin_done = True
+            elif lead >= 0:
+                try:
+                    self.node.transfer_leadership(0, tgt)
+                    self.report["pin_transfers"] += 1
+                except TransferRefused:
+                    pass         # mid-election / in flight: next tick
+        super()._apply_faults(t, rng)
+
+    def _report(self) -> dict:
+        r = super()._report()
+        wit = self._wit_banked
+        if self.node is not None:
+            wit += int(self.node.metrics.witness_appends)
+        r["witness_appends"] = wit
+        r["cross_peer_slots"] = len(self._xview)
+        return r
+
+
+class TransferChaosRunner(FusedChaosRunner):
+    """The transfer-under-nemesis family (fused plane): graceful
+    leadership transfers (runtime/hostplane.py transfer_leadership →
+    core/step.py TimeoutNow kernel) race drops, leader-targeted
+    partitions, one-directional cuts, clock skew, and crash+restart
+    while the acked-PUT workload keeps running — checked by the
+    TransferAvailability invariant on top of the standing election-
+    safety / durability / linearizability checks:
+
+      * every accepted transfer RESOLVES (completed or aborted) within
+        the engine deadline plus a two-election settling margin;
+      * a transfer resolving in fault-free air is followed by a probe
+        write that must commit within probe_ticks — aborted transfers
+        leave the group SERVING, not just unlatched;
+      * `must_complete` transfers (falsification_transfer_plan) must
+        end `completed`: the deliberately broken kernel
+        (cfg.unsafe_transfer — abdicate before the target caught up,
+        the §3.10 mistake) hands the election to a peer that cannot
+        win it, leadership settles elsewhere, the host records an
+        ABORT, and the invariant fires — proving the harness catches
+        the broken kernel, not chaos in general.
+
+    Transfer requests are retried each tick while the engine refuses
+    them (no leader during a partition, latch already in flight …);
+    a request refused for XFER_RETRY_TICKS straight is dropped and
+    counted — refusals are load-shedding, not failures.  Fully
+    deterministic: same seeded draws as the base runner, digests
+    compared across runs by `python -m raftsql_tpu_torch.chaos.run
+    --transfers`."""
+
+    XFER_RETRY_TICKS = 60
+
+    def __init__(self, plan, data_dir: str, device="cuda",
+                 commit_rule: Optional[str] = None):
+        from raftsql_tpu_torch.chaos.invariants import TransferAvailability
+        from raftsql_tpu_torch.chaos.schedule import ChaosSchedule as _CS
+        sched = _CS(seed=plan.seed, ticks=plan.ticks,
+                    drops=plan.drops, partitions=plan.partitions,
+                    asym_partitions=plan.asym_partitions,
+                    skews=plan.skews, crashes=plan.crashes,
+                    prop_rate=plan.prop_rate, read_rate=plan.read_rate)
+        cfg = RaftConfig(num_groups=plan.groups, num_peers=plan.peers,
+                         log_window=64, max_entries_per_msg=4,
+                         election_ticks=plan.election_ticks,
+                         heartbeat_ticks=1, tick_interval_s=0.0,
+                         unsafe_transfer=plan.unsafe_transfer)
+        super().__init__(sched, data_dir, cfg=cfg, device=device,
+                         commit_rule=commit_rule)
+        self.plan = plan
+        self.avail = TransferAvailability(
+            election_ticks=plan.election_ticks,
+            deadline_ticks=plan.deadline_ticks,
+            max_stall_ticks=plan.max_stall_ticks,
+            probe_ticks=plan.probe_ticks)
+        # Plan events still waiting to be accepted by the engine.
+        self._xfer_todo = list(plan.transfers)
+        self._seen_events = 0       # consumed prefix of _xfer_events
+        self.report.update({
+            "transfers_requested": 0, "transfers_completed": 0,
+            "transfers_aborted": 0, "transfer_refusals": 0,
+            "transfer_drops": 0, "transfer_probes": 0,
+            "transfer_probes_confirmed": 0, "max_transfer_stall": 0,
+        })
+
+    # -- transfer issuance ----------------------------------------------
+
+    def _resolve_event(self, ev) -> Optional[Tuple[int, int]]:
+        """(group, target) for a plan event, or None to retry later.
+        target -1 = the leader's successor slot; XFER_LAGGER = the peer
+        the first partition window isolated (known once the window has
+        opened); group -1 = lowest group led by someone other than the
+        resolved target."""
+        from raftsql_tpu_torch.chaos.schedule import XFER_LAGGER
+        node = self.node
+        target = ev.target
+        if target == XFER_LAGGER:
+            lag = self._part_peer.get(0)
+            if lag is None:
+                return None          # window not open yet: retry
+            target = lag
+        group = ev.group
+        if group < 0:
+            for g in range(self.cfg.num_groups):
+                lead = node.leader_of(g)
+                if lead >= 0 and lead != target:
+                    group = g
+                    break
+            else:
+                return None          # leaderless everywhere: retry
+        if target < 0:               # successor slot
+            lead = node.leader_of(group)
+            if lead < 0:
+                return None
+            target = (lead + 1) % self.cfg.num_peers
+        return group, target
+
+    def _drive_transfers(self, t: int) -> None:
+        from raftsql_tpu_torch.runtime.node import TransferRefused
+        keep = []
+        for ev in self._xfer_todo:
+            if ev.tick > t:
+                keep.append(ev)
+                continue
+            if t - ev.tick > self.XFER_RETRY_TICKS:
+                self.report["transfer_drops"] += 1
+                continue
+            resolved = self._resolve_event(ev)
+            if resolved is None:
+                keep.append(ev)
+                continue
+            group, target = resolved
+            try:
+                self.node.transfer_leadership(
+                    group, target,
+                    deadline_ticks=self.plan.deadline_ticks)
+            except TransferRefused:
+                self.report["transfer_refusals"] += 1
+                keep.append(ev)
+                continue
+            self.report["transfers_requested"] += 1
+            self.avail.note_issued(t, group, ev.must_complete)
+        self._xfer_todo = keep
+
+    def _apply_faults(self, t: int, rng: np.random.Generator) -> None:
+        super()._apply_faults(t, rng)
+        self._drive_transfers(t)
+
+    # -- outcome absorption + serving probes ----------------------------
+
+    def _quiet(self, t0: int, t1: int) -> bool:
+        """No scheduled fault overlaps [t0, t1) — a probe armed here
+        has clean air to commit in."""
+        if t1 >= self.sched.ticks:
+            return False
+        for w in (self.sched.drops + self.sched.delays
+                  + self.sched.partitions + self.sched.asym_partitions
+                  + self.sched.skews):
+            if w.start < t1 and t0 < w.end:
+                return False
+        return all(not t0 <= ev.tick < t1 for ev in self.sched.crashes)
+
+    def _apply(self, g: int, idx: int, payload: bytes) -> None:
+        super()._apply(g, idx, payload)
+        parts = payload.decode("utf-8").split(" ")
+        if len(parts) == 3 and parts[0] == "SET":
+            self.avail.probe_committed(parts[2])
+
+    def _crash_restart(self, tick: int, power_loss: bool = False,
+                       tear_peer: int = -1) -> None:
+        # Latches and the outcome log die with the process: outstanding
+        # transfers are void, and the new node's event log starts empty.
+        self.avail.note_crash()
+        self._seen_events = 0
+        super()._crash_restart(tick, power_loss, tear_peer)
+
+    def _observe(self, t: int) -> None:
+        super()._observe(t)
+        events = list(self.node._xfer_events)
+        for e in events[self._seen_events:]:
+            self.avail.note_outcome(t, e["group"], e["outcome"],
+                                    e["stall_ticks"])
+            if e["outcome"] == "completed":
+                self.report["transfers_completed"] += 1
+            else:
+                self.report["transfers_aborted"] += 1
+            # Post-resolution serving probe: only in clean air — under
+            # an active fault window a slow commit is the fault's
+            # doing, not the transfer's.
+            g = e["group"]
+            if self._quiet(t, t + self.plan.probe_ticks + 1):
+                value = f"v{self._wseq}"
+                self._wseq += 1
+                self.lin.begin_write(f"k{g}", value)
+                self.node.propose_many(g, [f"SET k{g} {value}".encode()])
+                self.avail.arm_probe(t, g, value)
+                self.report["transfer_probes"] += 1
+        self._seen_events = len(events)
+        self.report["max_transfer_stall"] = self.avail.max_stall
+        self.report["transfer_probes_confirmed"] = \
+            self.avail.probes_confirmed
+        self.avail.check(t)
+        if t == self.sched.ticks - 1:
+            self.avail.final_check(t)
+
+    def _report(self) -> dict:
+        r = super()._report()
+        r["plan_digest"] = self.plan.digest()
+        return r

@@ -3,8 +3,9 @@ chaos runner.
 
 Port of the fused-plane part of raftsql_tpu/chaos/schedule.py (pure
 numpy, copied so the port imports nothing of the JAX package): the
-window and fault dataclasses, `ChaosSchedule`, `generate(seed)` and the
-fused family generators.  Every schedule derives from one integer seed
+window and fault dataclasses, `ChaosSchedule`, `generate(seed)`, the
+fused family generators, and the read, transfer and quorum nemesis plans
+with their falsification plans.  Every schedule derives from one integer seed
 via `numpy.random.default_rng`, and `digest()` hashes the canonical
 JSON form with sha256 — the same bytes as the JAX package's, so a port
 schedule hashes to the reference's for the same seed.
@@ -338,3 +339,446 @@ def generate_compact(seed: int, ticks: int = 200,
                          torn_writes=torn,
                          compact_every=int(rng.integers(6, 12)),
                          compact_keep=1, prop_rate=0.9, read_rate=0.3)
+
+
+@dataclasses.dataclass(frozen=True)
+class ReadNemesisPlan:
+    """Scripted read-plane attack (fused plane, chaos/scenarios.py
+    ReadNemesisRunner): writes race lease / ReadIndex / session /
+    follower reads while clock skew, partitions, leader kills and
+    crashes land — checked by the real-time read-linearizability and
+    session-consistency invariants.
+
+    A SEPARATE plan class on purpose: extending ChaosSchedule would
+    change the asdict() digest of every existing family.  The runner
+    projects the fault fields into a ChaosSchedule internally so fault
+    application shares the proven code paths.
+
+    `lease_ticks`/`max_clock_skew` configure the engine's lease bound;
+    `max_skew_rate` caps the per-peer timer rates the skew windows
+    draw.  The SAFE sizing contract (config.py lease_ticks) is
+    lease_ticks + max_clock_skew <= election_ticks / max_skew_rate;
+    `broken_lease=True` deliberately violates it (the falsification
+    plan — the invariant must then CATCH a stale lease read)."""
+    seed: int
+    ticks: int
+    peers: int = 3
+    groups: int = 4
+    election_ticks: int = 16
+    lease_ticks: int = 6
+    max_clock_skew: int = 1
+    max_skew_rate: int = 2
+    broken_lease: bool = False
+    skews: Tuple[SkewWindow, ...] = ()
+    partitions: Tuple[PartitionWindow, ...] = ()
+    asym_partitions: Tuple[AsymPartitionWindow, ...] = ()
+    crashes: Tuple[CrashEvent, ...] = ()
+    prop_rate: float = 0.8
+    lease_read_rate: float = 0.8
+    read_index_rate: float = 0.5
+    session_read_rate: float = 0.5
+    follower_read_rate: float = 0.5
+
+    def describe(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def digest(self) -> str:
+        blob = json.dumps(self.describe(), sort_keys=True,
+                          separators=(",", ":")).encode()
+        return hashlib.sha256(blob).hexdigest()[:16]
+
+
+# TransferEvent.target sentinel: resolved at issue time to the peer the
+# plan's FIRST partition window isolated (the "lagging" peer — behind by
+# a whole window of appends).  The directed falsification plan uses it
+# to aim a transfer at a provably-behind target.
+XFER_LAGGER = -3
+
+
+@dataclasses.dataclass(frozen=True)
+class TransferEvent:
+    """Graceful leadership transfer requested at `tick` (retried each
+    tick until the engine accepts it or the retry budget runs out).
+    `group` -1 = any group currently led by someone other than the
+    resolved target; `target` -1 = the leader's successor slot
+    ((leader + 1) % peers), XFER_LAGGER = the first partition window's
+    isolated peer.  `must_complete` marks the directed falsification
+    probe: the transfer MUST end `completed` within the plan's
+    max_stall_ticks — the §3.10-broken kernel (unsafe_transfer) deposes
+    the old leader before the target caught up, the behind target can
+    never win the election, and the transfer ABORTS instead."""
+    tick: int
+    group: int = -1
+    target: int = -1
+    must_complete: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class TransferNemesisPlan:
+    """Scripted transfer-under-nemesis attack (fused plane,
+    chaos/scenarios.py TransferChaosRunner): graceful leadership
+    transfers race the existing nemesis arsenal — drops, partitions
+    (leader-targeted kills), one-directional cuts, clock skew, and
+    crash+restart — under live acked-PUT load, checked by the
+    TransferAvailability invariant (bounded per-transfer proposal
+    stall, aborted transfers re-open the group) on top of the standing
+    election-safety / durability / linearizability invariants.
+
+    A SEPARATE plan class on purpose (ReadNemesisPlan precedent):
+    extending ChaosSchedule would change the asdict() digest of every
+    existing family.  The runner projects the fault fields into a
+    ChaosSchedule internally so fault application shares the proven
+    code paths.
+
+    `unsafe_transfer=True` compiles the deliberately broken transfer
+    kernel (config.py unsafe_transfer: no catch-up gate, instant
+    abdication) — the falsification plan the harness must CATCH."""
+    seed: int
+    ticks: int
+    peers: int = 3
+    groups: int = 4
+    transfers: Tuple[TransferEvent, ...] = ()
+    drops: Tuple[DropWindow, ...] = ()
+    partitions: Tuple[PartitionWindow, ...] = ()
+    asym_partitions: Tuple[AsymPartitionWindow, ...] = ()
+    skews: Tuple[SkewWindow, ...] = ()
+    crashes: Tuple[CrashEvent, ...] = ()
+    election_ticks: int = 10
+    # Engine-side per-transfer deadline (device steps): past it the host
+    # clears the latch and the group resumes under the old leader.
+    deadline_ticks: int = 40
+    # Directed stall bound for must_complete transfers (falsification).
+    max_stall_ticks: int = 60
+    # A probe write proposed when a transfer resolves inside a
+    # fault-free window must commit within this many ticks (the
+    # "group keeps serving" leg of the availability invariant).
+    probe_ticks: int = 30
+    unsafe_transfer: bool = False
+    prop_rate: float = 0.7
+    read_rate: float = 0.25
+
+    def describe(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def digest(self) -> str:
+        blob = json.dumps(self.describe(), sort_keys=True,
+                          separators=(",", ":")).encode()
+        return hashlib.sha256(blob).hexdigest()[:16]
+
+
+def generate_transfers(seed: int, ticks: int = 260,
+                       peers: int = 3) -> TransferNemesisPlan:
+    """The transfer-under-nemesis family: graceful transfers land
+    before, inside, and after each fault window — a leader-targeted
+    partition (the fused plane's leader kill), a one-directional cut, a
+    drop window, a clock-skew window, and a whole-process crash — while
+    the acked-PUT workload keeps running.  At least two transfers fall
+    in fault-free air so their serving probes actually assert."""
+    rng = np.random.default_rng(seed ^ 0x7AFE)
+    warmup = 40
+    groups = 4
+    # Fault windows in the middle third-ish of the run.
+    p0 = int(rng.integers(warmup + 20, ticks // 3))
+    part = PartitionWindow(p0, p0 + int(rng.integers(20, 30)),
+                           LEADER_TARGET)
+    a0 = int(rng.integers(ticks // 3 + 10, ticks // 2))
+    asym = AsymPartitionWindow(a0, a0 + int(rng.integers(15, 25)),
+                               LEADER_TARGET, int(rng.integers(0, peers)))
+    d0 = int(rng.integers(ticks // 2, int(ticks * 0.62)))
+    drop = DropWindow(d0, d0 + int(rng.integers(15, 25)),
+                      float(rng.uniform(0.08, 0.2)))
+    incs = [1] * peers
+    incs[int(rng.integers(0, peers))] = 2
+    s0 = int(rng.integers(int(ticks * 0.62), int(ticks * 0.72)))
+    skew = SkewWindow(s0, s0 + int(rng.integers(12, 20)), tuple(incs))
+    crash = CrashEvent(int(rng.integers(int(ticks * 0.72),
+                                        int(ticks * 0.8))))
+    # Transfers: two in the clean warmup air, one inside each fault
+    # window (racing it), two in the post-crash tail.
+    evs = [
+        TransferEvent(warmup, int(rng.integers(0, groups))),
+        TransferEvent(warmup + 8, int(rng.integers(0, groups))),
+        TransferEvent(part.start + 5, int(rng.integers(0, groups))),
+        TransferEvent(asym.start + 4, int(rng.integers(0, groups))),
+        TransferEvent(drop.start + 4, int(rng.integers(0, groups))),
+        TransferEvent(skew.start + 3, int(rng.integers(0, groups))),
+        TransferEvent(crash.tick + 12, int(rng.integers(0, groups))),
+        TransferEvent(crash.tick + 24, int(rng.integers(0, groups))),
+    ]
+    return TransferNemesisPlan(
+        seed=seed, ticks=max(ticks, crash.tick + 70), peers=peers,
+        groups=groups, transfers=tuple(evs), drops=(drop,),
+        partitions=(part,), asym_partitions=(asym,), skews=(skew,),
+        crashes=(crash,))
+
+
+def falsification_transfer_plan(seed: int = 0,
+                                broken: bool = True
+                                ) -> TransferNemesisPlan:
+    """DIRECTED transfer-falsification scenario: a long leader-targeted
+    partition leaves one peer a full window of appends behind; after
+    the heal, a must_complete transfer aims a group at exactly that
+    lagging peer.  The CORRECT kernel (thesis §3.10) holds the
+    TimeoutNow until the target's match_index catches up, then the
+    target wins immediately — the transfer COMPLETES well inside
+    max_stall_ticks.  broken=True compiles the unsafe kernel (no
+    catch-up gate, instant abdication): the behind target calls an
+    election it cannot win (log restriction), the group goes leaderless
+    until a third peer times out, and the transfer ABORTS — the
+    TransferAvailability invariant MUST fire on the same schedule,
+    proving the harness detects the §3.10 mistake, not chaos in
+    general."""
+    # The transfer fires AT the heal tick: the lagger is still a full
+    # window of appends behind (replication closes the gap at
+    # max_entries_per_msg per tick, so waiting even a handful of ticks
+    # would hand the broken kernel an already-caught-up target and
+    # nothing to falsify).
+    part = PartitionWindow(40, 100, LEADER_TARGET)
+    xfer = TransferEvent(100, group=-1, target=XFER_LAGGER,
+                         must_complete=True)
+    return TransferNemesisPlan(
+        seed=seed, ticks=200, peers=3, groups=2,
+        transfers=(xfer,), partitions=(part,),
+        election_ticks=10, deadline_ticks=80, max_stall_ticks=60,
+        probe_ticks=40, unsafe_transfer=broken,
+        prop_rate=1.0, read_rate=0.2)
+
+
+def generate_reads(seed: int, ticks: int = 240,
+                   peers: int = 3) -> ReadNemesisPlan:
+    """The read-linearizability nemesis family: two skew windows at
+    rates within the configured bound, a leader-targeted full
+    partition, a one-directional leader cut, and a crash — all while
+    every read mode races the write stream.  Lease bound sized SAFELY
+    (election 16, rate cap 2, lease 6 + skew 1 < 16/2): under this
+    schedule a lease read must NEVER be stale, and the run asserts the
+    invariant checked every family."""
+    rng = np.random.default_rng(seed ^ 0x4EAD)
+    warmup = 40
+    rate = 2
+
+    def draw_incs() -> Tuple[int, ...]:
+        incs = [1] * peers
+        fast = int(rng.integers(0, peers))
+        incs[fast] = rate
+        if rng.random() < 0.5:
+            incs[int((fast + 1) % peers)] = 0    # a stalled clock too
+        return tuple(incs)
+
+    s0 = int(rng.integers(warmup, warmup + ticks // 4))
+    w0 = SkewWindow(s0, s0 + int(rng.integers(25, 40)), draw_incs())
+    s1 = int(rng.integers(ticks // 2, int(ticks * 0.75)))
+    w1 = SkewWindow(s1, s1 + int(rng.integers(25, 40)), draw_incs())
+    p0 = int(rng.integers(warmup, ticks // 3))
+    part = PartitionWindow(p0, p0 + int(rng.integers(25, 40)),
+                           LEADER_TARGET)
+    a0 = int(rng.integers(ticks // 3, int(ticks * 0.7)))
+    asym = AsymPartitionWindow(a0, a0 + int(rng.integers(20, 35)),
+                               LEADER_TARGET,
+                               int(rng.integers(0, peers)))
+    crash = CrashEvent(int(rng.integers(int(ticks * 0.55),
+                                        int(ticks * 0.85))))
+    return ReadNemesisPlan(seed=seed, ticks=ticks, peers=peers,
+                           election_ticks=16, lease_ticks=6,
+                           max_clock_skew=1, max_skew_rate=rate,
+                           skews=(w0, w1), partitions=(part,),
+                           asym_partitions=(asym,), crashes=(crash,))
+
+
+def falsification_plan(seed: int = 0,
+                       broken: bool = True) -> ReadNemesisPlan:
+    """DIRECTED lease-falsification scenario: both followers run their
+    clocks at 4x through a long leader partition, so a new leader is
+    elected (election_ticks/4 of ITS clock) while the old one still
+    sits inside a mis-sized lease.  broken=True sizes the lease at
+    election_ticks (legal only for rate <= ~1) — the stale window is
+    real and the read-linearizability invariant MUST fire.
+    broken=False sizes it to the actual rate (16/4 - margin) — the
+    same schedule must pass, which proves the harness is sensitive to
+    exactly the bound and not just to chaos in general."""
+    # All clocks at 4x (the lease is measured in device steps, so the
+    # leader's own rate is irrelevant — what matters is how fast the
+    # FOLLOWERS' election timers run); the partition resolves to
+    # whoever leads group 0 when it opens.
+    skew = SkewWindow(40, 160, (4, 4, 4))
+    part = PartitionWindow(50, 160, LEADER_TARGET)
+    return ReadNemesisPlan(
+        seed=seed, ticks=200, peers=3, groups=2,
+        election_ticks=16,
+        # Broken: the lease outlives the whole election dance the 4x
+        # clocks run behind the partition (sized like an operator who
+        # tuned for no skew at all); correct: within election/rate.
+        lease_ticks=100 if broken else 3,
+        max_clock_skew=0, max_skew_rate=4,
+        broken_lease=broken,
+        skews=(skew,), partitions=(part,),
+        prop_rate=1.0, lease_read_rate=1.0,
+        read_index_rate=0.4, session_read_rate=0.4,
+        follower_read_rate=0.4)
+
+
+@dataclasses.dataclass(frozen=True)
+class QuorumNemesisPlan:
+    """Scripted quorum-geometry attack (fused plane, chaos/scenarios.py
+    QuorumChaosRunner): flexible write/election quorums and witness
+    peers under the read-nemesis workload — acked PUTs race lease and
+    ReadIndex reads while partitions, asymmetric cuts, clock skew and
+    crash+restart land.
+
+    A SEPARATE plan class on purpose (same rule as ReadNemesisPlan):
+    extending an existing plan would change the asdict() digest of
+    every committed family.  The runner projects the fault fields into
+    a ChaosSchedule internally and forwards the geometry fields into
+    RaftConfig (write_quorum / election_quorum / witnesses /
+    unsafe_quorum_geometry / unsafe_witness_lease).
+
+    `pin_leader_tick` >= 0 pins group 0's leadership onto
+    `pin_leader_peer` (transfer_leadership, retried for a few ticks)
+    before the fault windows open — the directed falsification plans
+    need to know WHO the partitioned leader is so the windows can be
+    written against fixed peer ids instead of LEADER_TARGET."""
+    seed: int
+    ticks: int
+    peers: int = 3
+    groups: int = 2
+    election_ticks: int = 16
+    lease_ticks: int = 6
+    max_clock_skew: int = 1
+    max_skew_rate: int = 2
+    write_quorum: "int | None" = None
+    election_quorum: "int | None" = None
+    witnesses: Tuple[int, ...] = ()
+    unsafe_geometry: bool = False
+    broken_witness_lease: bool = False
+    pin_leader_tick: int = -1
+    pin_leader_peer: int = 0
+    skews: Tuple[SkewWindow, ...] = ()
+    partitions: Tuple[PartitionWindow, ...] = ()
+    asym_partitions: Tuple[AsymPartitionWindow, ...] = ()
+    crashes: Tuple[CrashEvent, ...] = ()
+    prop_rate: float = 0.8
+    lease_read_rate: float = 0.8
+    read_index_rate: float = 0.4
+    # Session/follower reads resolve at a RANDOM peer in the read
+    # nemesis; a witness peer has no apply state to answer from, so the
+    # quorum family keeps these modes off by default.
+    session_read_rate: float = 0.0
+    follower_read_rate: float = 0.0
+
+    def describe(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def digest(self) -> str:
+        blob = json.dumps(self.describe(), sort_keys=True,
+                          separators=(",", ":")).encode()
+        return hashlib.sha256(blob).hexdigest()[:16]
+
+
+def generate_quorum(seed: int, ticks: int = 240) -> QuorumNemesisPlan:
+    """The quorum-geometry nemesis family: a 2-voter + 1-witness
+    cluster (the last peer is the witness; W = E = 2 explicit, which
+    intersects: W+E > N, 2E > N) sustains acked PUTs plus lease and
+    ReadIndex reads through two skew windows within the configured
+    bound, a leader-targeted full partition, a one-directional leader
+    cut, and a whole-cluster crash+restart — the restart replays the
+    witness's vote/term/log purely from its WAL (it has no shard).
+    Geometry is CORRECT, so every standing invariant must hold and
+    digests must reproduce across runs; the witness must accumulate
+    replicated appends (witness_appends) while its publish stream
+    stays empty (one fewer apply stream than WAL streams)."""
+    rng = np.random.default_rng(seed ^ 0x9E0)
+    warmup = 40
+    rate = 2
+    wit = 2                       # witness slot: the last of 3 peers
+
+    def draw_incs() -> Tuple[int, ...]:
+        incs = [1, 1, 1]
+        fast = int(rng.integers(0, 3))
+        incs[fast] = rate
+        if rng.random() < 0.5:
+            incs[int((fast + 1) % 3)] = 0        # a stalled clock too
+        return tuple(incs)
+
+    s0 = int(rng.integers(warmup, warmup + ticks // 4))
+    w0 = SkewWindow(s0, s0 + int(rng.integers(25, 40)), draw_incs())
+    s1 = int(rng.integers(ticks // 2, int(ticks * 0.75)))
+    w1 = SkewWindow(s1, s1 + int(rng.integers(25, 40)), draw_incs())
+    p0 = int(rng.integers(warmup, ticks // 3))
+    part = PartitionWindow(p0, p0 + int(rng.integers(25, 40)),
+                           LEADER_TARGET)
+    a0 = int(rng.integers(ticks // 3, int(ticks * 0.7)))
+    asym = AsymPartitionWindow(a0, a0 + int(rng.integers(20, 35)),
+                               LEADER_TARGET,
+                               int(rng.integers(0, 2)))  # a voter
+    crash = CrashEvent(int(rng.integers(int(ticks * 0.55),
+                                        int(ticks * 0.85))))
+    return QuorumNemesisPlan(seed=seed, ticks=ticks, peers=3, groups=2,
+                             election_ticks=16, lease_ticks=6,
+                             max_clock_skew=1, max_skew_rate=rate,
+                             write_quorum=2, election_quorum=2,
+                             witnesses=(wit,),
+                             skews=(w0, w1), partitions=(part,),
+                             asym_partitions=(asym,), crashes=(crash,))
+
+
+def falsification_quorum_plan(seed: int = 0,
+                              broken: bool = True) -> QuorumNemesisPlan:
+    """DIRECTED split-brain falsification for flexible quorums: pin
+    group 0's leadership to peer 0, then isolate peer 0 for a long
+    window.  broken=True runs W=1 / E=2 (W + E <= N — the
+    non-intersecting geometry config.py refuses without
+    unsafe_quorum_geometry): the isolated leader keeps solo-committing
+    the acked writes still routed at it while the other two peers
+    elect (E=2 holds without it) and commit DIFFERENT entries into the
+    same slots — two peers surface different payloads for one
+    (group, index) and the harness MUST catch it (the cross-peer
+    durability view's changed-content check, log matching, or commit
+    monotonicity, whichever observes first).  broken=False runs the
+    SAME schedule at W=2: the isolated leader can no longer commit
+    alone and the run must pass — proving the harness is sensitive to
+    exactly the geometry, not to chaos in general."""
+    part = PartitionWindow(60, 170, 0)       # the pinned leader
+    return QuorumNemesisPlan(
+        seed=seed, ticks=220, peers=3, groups=1,
+        election_ticks=10,
+        lease_ticks=0, max_clock_skew=0, max_skew_rate=1,
+        write_quorum=1 if broken else 2, election_quorum=2,
+        unsafe_geometry=broken,
+        pin_leader_tick=30, pin_leader_peer=0,
+        partitions=(part,),
+        prop_rate=1.0, lease_read_rate=0.0, read_index_rate=0.0)
+
+
+def falsification_witness_plan(seed: int = 0,
+                               broken: bool = True) -> QuorumNemesisPlan:
+    """DIRECTED stale-lease falsification for witness accounting: pin
+    group 0's leadership to peer 1 (a full voter; peer 2 is the
+    witness), isolate it at tick 70, and run candidate peer 0's clock
+    at 4x so its election timer fires INSIDE the deposed leader's
+    still-live lease (lease 12 from the last pre-partition quorum ack
+    ~ tick 69; the 16..32-tick timeout draw lands at tick 74..78 of
+    real time).  broken=True sets unsafe_witness_lease: the witness
+    grants the prevote despite sitting inside the leader's lease
+    window, peer 0 wins (E=2 = itself + the witness), commits new
+    acked writes — and the isolated leader, lease in hand, serves a
+    lease read of the OLD value.  The register invariant MUST catch it
+    as a stale lease read.  broken=False runs the SAME schedule with
+    the honest witness: the prevote is refused until the witness's own
+    election timer clears (tick ~86, after the lease died at ~87 — the
+    first honest COMMIT lands later still), so the run must pass —
+    proving a witness counted toward the LEASE quorum is exactly the
+    bug, not chaos in general.  Lease 18 is the directed sweet spot:
+    long enough that the usurper's first committed writes (~tick 80)
+    land while the deposed leader still serves (stale window ~80..84),
+    short enough that the honest election cannot complete inside it."""
+    skew = SkewWindow(60, 130, (4, 1, 1))    # candidate clock at 4x
+    part = PartitionWindow(70, 130, 1)       # isolate the pinned leader
+    return QuorumNemesisPlan(
+        seed=seed, ticks=170, peers=3, groups=1,
+        election_ticks=16, lease_ticks=18,
+        max_clock_skew=0, max_skew_rate=4,
+        witnesses=(2,), write_quorum=2, election_quorum=2,
+        broken_witness_lease=broken,
+        pin_leader_tick=25, pin_leader_peer=1,
+        skews=(skew,), partitions=(part,),
+        prop_rate=1.0, lease_read_rate=1.0, read_index_rate=0.0)

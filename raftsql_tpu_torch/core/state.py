@@ -178,6 +178,71 @@ def witness_row(cfg: RaftConfig) -> np.ndarray:
     return row
 
 
+def _set_config(states: PeerState, at: tuple, voters_row, joint_row,
+                self_is_voter: bool) -> PeerState:
+    """Write one (peer row, group)'s masks in place; `at` indexes the
+    leading axes ((g,) or (p, g)).  A row the new config leaves without
+    a vote drops to follower if it led or campaigned: the condition is
+    evaluated on the device (torch.where), so a patch never syncs."""
+    dev = states.voters.device
+    states.voters[at] = torch.as_tensor(np.asarray(voters_row, bool),
+                                        device=dev)
+    states.voters_joint[at] = torch.as_tensor(np.asarray(joint_row, bool),
+                                              device=dev)
+    if not self_is_voter:
+        demote = states.role[at] != FOLLOWER
+        states.role[at] = torch.where(demote, FOLLOWER, states.role[at])
+        states.leader_hint[at] = torch.where(demote, NO_LEADER,
+                                             states.leader_hint[at])
+        states.votes[at] = states.votes[at] & ~demote
+    return states
+
+
+def set_group_config(state: PeerState, g: int, voters_row, joint_row,
+                     self_is_voter: bool) -> PeerState:
+    """Patch group `g`'s active configuration into one peer's masks, in
+    place (the JAX package's set_group_config, which donates its input).
+
+    Called by the host membership plane when a conf-change log entry
+    applies at commit (two-phase joint style: C_old,new sets voters=new
+    and voters_joint=old; C_new sets both to new).  A leader or
+    candidate that `self_is_voter` says has no vote in the new config
+    steps down to follower with its tally cleared (raft §6: it led long
+    enough to commit its own removal); core/step.py gates election
+    timeouts on the mask, so it never campaigns again.  Returns
+    `state`, whose leaves were written in place."""
+    return _set_config(state, (int(g),), voters_row, joint_row,
+                       bool(self_is_voter))
+
+
+def set_group_config_stacked(states: PeerState, p: int, g: int,
+                             voters_row, joint_row,
+                             self_is_voter: bool) -> PeerState:
+    """`set_group_config` over a stacked cluster state (leaves
+    [P, G, ...]): patch peer row `p`'s view of group `g`.  Each peer row
+    applies a conf entry when its own commit passes the entry."""
+    return _set_config(states, (int(p), int(g)), voters_row, joint_row,
+                       bool(self_is_voter))
+
+
+def set_transfer_target(state: PeerState, g: int, target: int) -> PeerState:
+    """Arm (target >= 0) or clear (NO_XFER) group `g`'s leadership
+    transfer on one peer's row, in place.  The step only reads
+    xfer_target: arming a non-leader row is harmless (the step clears
+    it next tick), and the abort path clears it to re-open the group
+    for proposals."""
+    state.xfer_target[int(g)] = int(target)
+    return state
+
+
+def set_transfer_target_stacked(states: PeerState, p: int, g: int,
+                                target: int) -> PeerState:
+    """`set_transfer_target` over a stacked cluster state: arm or clear
+    peer row `p`'s transfer latch for group `g`, in place."""
+    states.xfer_target[int(p), int(g)] = int(target)
+    return states
+
+
 def restore_peer_state(cfg: RaftConfig, self_id: int,
                        log_terms: dict, hard: dict,
                        seed: int | None = None,

@@ -49,12 +49,6 @@ from raftsql_tpu_torch.utils.metrics import LatencyTimer
 log = logging.getLogger("raftsql_tpu_torch.db")
 
 
-def _membership_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "the membership and transfer planes are not ported yet (ROADMAP "
-        "Queue 1 item 7)")
-
-
 def iter_plain_entries(base, datas):
     """Yield (index, decoded_command) for each non-empty entry of one
     plain-payload sub-batch (entries at base+1..).  Lives next to
@@ -240,9 +234,12 @@ class RaftDB:
         self.witness_self = bool(getattr(pipe.node, "witness_self",
                                          False))
         if self.witness_self:
+            # Only the distributed runtime's RaftNode sets witness_self
+            # (a process that IS a witness peer); the fused runtime
+            # keeps its witness slots inside the host plane.
             raise NotImplementedError(
-                "witness replicas are not ported yet (ROADMAP Queue 1 "
-                "item 7: the membership and transfer planes)")
+                "a witness replica process (RaftNode) is not ported yet "
+                "(ROADMAP Queue 1 item 8: the distributed runtime)")
         self._sms: Dict[int, StateMachine] = {
             g: sm_factory(g) for g in range(num_groups)}
         if not any(getattr(sm, "has_durable_snapshot", False)
@@ -910,12 +907,36 @@ class RaftDB:
         return fn()
 
     def member_change(self, group: int, op: str, peer: int) -> dict:
-        """POST /members: the membership plane is not ported yet."""
-        raise _membership_not_ported()
+        """POST /members: propose add/remove/promote of a peer slot.
+        Maps the membership plane's not-leader error onto the API's
+        NotLeaderError so both HTTP planes answer 421 + the hint."""
+        from raftsql_tpu_torch.membership import NotLeaderForChange
+        node = self.pipe.node
+        fn = getattr(node, "member_change", None)
+        if fn is None:
+            raise ValueError("engine has no membership plane")
+        try:
+            return fn(group, op, peer)
+        except NotLeaderForChange as e:
+            raise NotLeaderError(e.group, e.leader) from e
 
     def transfer(self, group: int, target: int) -> dict:
-        """POST /transfer: leadership transfer is not ported yet."""
-        raise _membership_not_ported()
+        """POST /transfer: arm a graceful leadership transfer of
+        `group` to peer slot `target` (0-based, like /members' `peer`;
+        thesis §3.10 TimeoutNow — the device plane stalls intake, waits
+        for catch-up, fires the grant).  Not-leader maps onto
+        NotLeaderError so both HTTP planes answer 421 + the hint;
+        validation refusals (in-flight transfer, learner target)
+        surface as 400s."""
+        from raftsql_tpu_torch.membership import NotLeaderForChange
+        node = self.pipe.node
+        fn = getattr(node, "transfer_leadership", None)
+        if fn is None:
+            raise ValueError("engine has no leadership-transfer plane")
+        try:
+            return fn(group, target)
+        except NotLeaderForChange as e:
+            raise NotLeaderError(e.group, e.leader) from e
 
     def render_members(self) -> str:
         return json.dumps(self.members(), sort_keys=True) + "\n"

@@ -3,12 +3,10 @@
 Copy of raftsql_tpu/runtime/hostplane.py for the PyTorch port.  Only the
 device call sites differ: the boot stack (tensors on `device`), the
 per-dispatch readback (ONE device-to-host copy, into pinned memory on
-CUDA) and the device event ring (obs/device_ring.py, on `device`).  The
-planes this port has not reached yet raise NotImplementedError at their
-entry points:
-membership apply-at-commit and leadership transfer (ROADMAP Queue 1
-item 7) and the native payload log (RAFTSQL_FUSED_NATIVE_PLOG, item
-9).
+CUDA), the device event ring (obs/device_ring.py, on `device`) and the
+membership and transfer patches (in-place index writes on the stacked
+state, core/state.py).  The native payload log (RAFTSQL_FUSED_NATIVE_PLOG,
+ROADMAP Queue 1 item 9) is not ported yet and raises NotImplementedError.
 
 runtime/fused.py (one chip) and the JAX package's runtime/mesh.py (a
 device mesh) run the same per-tick contract (reference raft.go:227-235: wal.Save →
@@ -21,8 +19,8 @@ transport.Send → publish, with the dispatch itself as the send barrier):
 This module is the host half of that contract, factored out of the
 original ~1400-line runtime/fused.py so both runtimes share ONE codepath
 for propose queues and leader routing, WAL + payload-log writes, the
-per-peer fsync barrier, epoch-framed multi-step dispatch and commit
-publish.  The device half — how one
+per-peer fsync barrier, epoch-framed multi-step dispatch, commit
+publish, and membership apply-at-commit.  The device half — how one
 tick's consensus math is dispatched — is the single abstract method
 `_device_step`, implemented by:
 
@@ -62,14 +60,20 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from raftsql_tpu_torch.config import RaftConfig
+from raftsql_tpu_torch.config import NO_XFER, RaftConfig
 from raftsql_tpu_torch.core.cluster import (empty_cluster_inbox,
                                             init_cluster_state)
 from raftsql_tpu_torch.core.state import (PeerState, resolve_device,
-                                          restore_peer_state)
+                                          restore_peer_state,
+                                          set_group_config_stacked,
+                                          set_transfer_target_stacked)
 from raftsql_tpu_torch.core.step import INFO_FIELDS
 from raftsql_tpu_torch.obs.prof import TickPhaseProfiler
-from raftsql_tpu_torch.runtime.node import CLOSED, RAW_MANY, RAW_PLAIN
+from raftsql_tpu_torch.runtime.node import (CLOSED, RAW_MANY, RAW_PLAIN,
+                                            TransferRefused)
+from raftsql_tpu_torch.transport.codec import (CONF_PREFIX as _CONF_PREFIX,
+                                               decode_conf_entry,
+                                               is_conf_entry)
 from raftsql_tpu_torch.storage import fsio
 from raftsql_tpu_torch.storage.log import PayloadLog
 from raftsql_tpu_torch.storage.wal import WAL, split_uniform_runs, wal_exists
@@ -254,9 +258,28 @@ class ClusterHostPlane:
         # tick pays one attribute test.
         self.tracer = None
         self.ring = None
-        # Dynamic membership is not ported yet (enable_membership
-        # raises); None keeps the static tick, as in the JAX package.
+        # Dynamic membership (raftsql_tpu_torch/membership/), opt-in via
+        # enable_membership(): None keeps the static tick (every hook
+        # gates on one attribute test).
         self.membership = None
+        # Leadership-transfer plane (thesis §3.10): one latch per
+        # group.  Client threads VALIDATE and enqueue into _xfer_req;
+        # the tick thread arms the device latch (an in-place patch of
+        # self.states, which only the tick thread touches) and drives
+        # completion/abort in _transfer_advance.  _xfer_events is the
+        # recent-outcome log flight bundles attach for attribution.
+        from collections import deque as _deque
+        self._xfer_lock = threading.Lock()
+        self._xfer_req: List[Tuple[int, int, int]] = []  # raftlint: guarded-by=_xfer_lock
+        self._xfers: Dict[int, dict] = {}  # raftlint: guarded-by=_xfer_lock
+        self._xfer_events = _deque(maxlen=256)
+        self._conf_pending: List[list] = []      # per group [(idx, data)]
+        self._conf_scrub: List[set] = []         # per group conf indexes
+        self._conf_cursor: Optional[np.ndarray] = None   # [P, G]
+        # Each peer's active config from its WAL replay (REC_CONF
+        # baseline), {group: conf}: enable_membership rebuilds from it.
+        self._replayed_conf: List[Dict[int, tuple]] = [
+            {} for _ in range(P)]
         self.error: Optional[Exception] = None
         self._work_evt = threading.Event()
         self._stop_evt = threading.Event()
@@ -499,6 +522,8 @@ class ClusterHostPlane:
         device state, payload log, and the replayed committed prefix
         published to its commit stream."""
         logs = self._wal_replay(d)
+        self._replayed_conf[p] = {g: gl.conf for g, gl in logs.items()
+                                  if gl.conf is not None}
         self.wals.append(self._new_wal(d))
         plog = PayloadLog(self.cfg.num_groups)
         self.plogs.append(plog)
@@ -554,21 +579,286 @@ class ClusterHostPlane:
         for w in self.wals:
             w.obs = self.tracer
 
-    # -- not ported yet: membership and leadership transfer -------------
+    # -- dynamic membership (raftsql_tpu_torch/membership/) -------------
 
     def enable_membership(self, initial_voters=None) -> None:
-        raise _not_ported("the membership plane", "item 7")
+        """Attach the membership plane: per-group voter masks as device
+        state, conf entries applied per PEER ROW as that row's commit
+        passes them, durable REC_CONF baselines per peer WAL.  Restores
+        each peer's active config from its replayed WAL (baseline +
+        retained conf entries).  Call before the tick loop; idempotent."""
+        from raftsql_tpu_torch.membership import MembershipManager
+        if self.membership is not None:
+            return
+        # Leave the static-full-voter fast path (config.py
+        # dynamic_membership): the device program must start reading the
+        # per-group masks BEFORE any of them can change.  The device step
+        # reads self.cfg every dispatch, so from the next tick on Phase 7
+        # counts over the masks (K2 under commit_rule="pallas").
+        import dataclasses as _dc
+        if self.cfg.static_full_voters:
+            self.cfg = _dc.replace(self.cfg, dynamic_membership=True)
+        P, G = self.cfg.num_peers, self.cfg.num_groups
+        iv = initial_voters if initial_voters is not None \
+            else self.cfg.initial_voters
+        geo = dict(write_quorum=self.cfg.write_quorum,
+                   election_quorum=self.cfg.election_quorum,
+                   witnesses=self.cfg.witnesses or (),
+                   unsafe_geometry=self.cfg.unsafe_quorum_geometry)
+        mm = MembershipManager(P, G, initial_voters=iv, **geo)
+        self._conf_pending = [[] for _ in range(G)]
+        self._conf_scrub = [set() for _ in range(G)]
+        self._conf_cursor = np.zeros((P, G), np.int64)
+        pend: List[Dict[int, bytes]] = [dict() for _ in range(G)]
+        for p in range(P):
+            view = MembershipManager(P, G, initial_voters=iv, **geo)
+            for g in range(G):
+                base = self._replayed_conf[p].get(g)
+                plog = self.plogs[p]
+                start, ln = plog.start(g), plog.length(g)
+                datas = plog.try_slice(g, start + 1, ln - start) \
+                    if ln > start else []
+                entries = [(0, d) for d in (datas or [])]
+                if view.restore(g, base, entries, start,
+                                int(self._hard[p, g, 2])):
+                    c = view.config(g)
+                    self._patch_conf_row(p, g, c.entry(0))
+                    self._conf_cursor[p, g] = c.index
+                    # The cluster authority adopts the most advanced
+                    # per-group view (full-picture entries make this a
+                    # plain superseding apply).
+                    mm.apply(g, c.index, c.entry(0))
+                for idx, d in view.appended_list(g):
+                    pend[g].setdefault(idx, d)
+        self.membership = mm
+        for g in range(G):
+            for idx in sorted(pend[g]):
+                self._conf_note(g, idx, pend[g][idx])
+
+    def _conf_note(self, g: int, idx: int, data: bytes) -> None:
+        """A conf entry entered some peer's log at `idx` (tick thread)."""
+        lst = self._conf_pending[g]
+        lst[:] = [(i, d) for (i, d) in lst if i != idx]
+        lst.append((idx, data))
+        lst.sort()
+        # New set object (not in-place add): the publisher thread scrubs
+        # from whatever reference it grabbed — no concurrent mutation.
+        self._conf_scrub[g] = self._conf_scrub[g] | {idx}
+
+    def _patch_conf_row(self, p: int, g: int, data: bytes) -> None:
+        got = decode_conf_entry(data)
+        if got is None:
+            return
+        _, v, j, _l = got
+        P = self.cfg.num_peers
+        vrow = np.array([bool(v >> i & 1) for i in range(P)])
+        jrow = np.array([bool(j >> i & 1) for i in range(P)])
+        self.states = set_group_config_stacked(
+            self.states, p, g, vrow, jrow, bool((v | j) >> p & 1))
+
+    def _membership_advance(self, pinfo: np.ndarray) -> None:
+        """Apply pending conf entries to each peer row whose commit
+        passed them, drive the auto LEAVE_JOINT, and keep the cluster
+        authority in sync.  Tick thread, after the durable phases."""
+        mm = self.membership
+        P = self.cfg.num_peers
+        commit = pinfo[:, :, _C["commit"]]
+        for g, lst in enumerate(self._conf_pending):
+            if not lst:
+                continue
+            drop: List[int] = []
+            for (idx, data) in list(lst):
+                all_done = True
+                superseded = False
+                for p in range(P):
+                    if self._conf_cursor[p, g] >= idx:
+                        continue
+                    if commit[p, g] < idx:
+                        all_done = False
+                        continue
+                    got = self.plogs[p].try_slice(g, idx, 1)
+                    if got is None:
+                        continue          # compacted under us: settled
+                    if got[0] != data:
+                        # Conflict truncation rewrote the slot before
+                        # commit: this conf never happened.
+                        superseded = True
+                        break
+                    self._patch_conf_row(p, g, data)
+                    self._conf_cursor[p, g] = idx
+                    # Per-peer durable baseline: THIS entry's masks (the
+                    # cluster authority may already be ahead).
+                    _k, cv, cj, cl = decode_conf_entry(data)
+                    self.wals[p].set_conf(g, idx, _k, cv, cj, cl)
+                    if mm.apply(g, idx, data) is not None:
+                        self.metrics.conf_changes_applied += 1
+                if superseded:
+                    mm.abort_pending(g)      # the change never happened
+                if superseded or all_done:
+                    drop.append(idx)
+            if drop:
+                lst[:] = [(i, d) for (i, d) in lst if i not in drop]
+        # Whichever peer leads a joint group finishes the transition.
+        for g in list(mm.joint_groups):
+            if self._hints[g] >= 0:
+                entry = mm.maybe_leave(g, self._tick_no,
+                                       4 * self.cfg.election_ticks)
+                if entry is not None:
+                    self.propose_many(g, [entry])
 
     def members_doc(self) -> dict:
-        return {"error": "membership plane not ported "
-                         "(raftsql_tpu_torch ROADMAP Queue 1 item 7)"}
+        if self.membership is None:
+            return {"error": "membership plane not enabled "
+                             "(enable_membership())"}
+        out = {}
+        for g in range(self.cfg.num_groups):
+            d = self.membership.describe(g)
+            d["leader"] = self.leader_of(g) + 1
+            out[str(g)] = d
+        return {"num_peers": self.cfg.num_peers, "groups": out,
+                "witnesses": sorted(self.witness_peers), "node": 0}
 
     def member_change(self, group: int, op: str, peer: int) -> dict:
-        raise _not_ported("the membership plane", "item 7")
+        """Admin plane for the co-located cluster: every peer lives in
+        this process, so routing goes through propose_many's leader
+        hint instead of a wire forward."""
+        from raftsql_tpu_torch.membership import MembershipLagError
+        if self.membership is None:
+            raise RuntimeError("membership plane not enabled "
+                               "(enable_membership())")
+        if op == "promote":
+            lead = int(self._hints[group])
+            commit = int(self._hard[max(lead, 0), group, 2])
+            have = self.plogs[peer].length(group)
+            if commit - have > self.cfg.max_entries_per_msg:
+                raise MembershipLagError(
+                    f"group {group}: learner {peer} is "
+                    f"{commit - have} entries behind; retry after "
+                    "catch-up")
+        entry = self.membership.make_change(group, op, peer)
+        self.propose_many(group, [entry])
+        return self.membership.describe(group)
+
+    # -- leadership transfer (raft thesis §3.10) -------------------------
 
     def transfer_leadership(self, group: int, target: int,
                             deadline_ticks: Optional[int] = None) -> dict:
-        raise _not_ported("leadership transfer", "item 7")
+        """Arm a graceful leadership transfer of `group` to peer slot
+        `target` (0-based).  The device latch stops proposal intake for
+        the group, waits for the target's match_index to catch up, then
+        fires the TimeoutNow grant (core/step.py Phase 9); queued
+        proposals re-route to the new leader automatically once the
+        hint moves.  One in flight per group; past `deadline_ticks` of
+        device steps (default 4 election timeouts) the host clears the
+        latch and the group resumes serving under the old leader.
+        Client-thread safe — the tick thread patches device state."""
+        cfg = self.cfg
+        if not 0 <= group < cfg.num_groups:
+            raise ValueError(f"group {group} out of range")
+        if not 0 <= target < cfg.num_peers:
+            raise ValueError(f"target {target} out of peer-slot range")
+        lead = int(self._hints[group])
+        if lead < 0:
+            self.metrics.transfers_refused += 1
+            raise TransferRefused(group, "group has no leader yet")
+        if target == lead:
+            self.metrics.transfers_refused += 1
+            raise TransferRefused(group, "target already leads")
+        if self.membership is not None \
+                and not self.membership.is_voter(group, target):
+            self.metrics.transfers_refused += 1
+            raise TransferRefused(
+                group, f"peer {target} is a learner/non-voter")
+        if target in self.witness_peers:
+            # A witness never campaigns or applies (core/step.py Phase
+            # 8 gate): arming the latch would stall the group until the
+            # transfer deadline aborts it.
+            self.metrics.transfers_refused += 1
+            raise TransferRefused(group, f"peer {target} is a witness")
+        dl = int(deadline_ticks) if deadline_ticks \
+            else 4 * cfg.election_ticks
+        with self._xfer_lock:
+            if group in self._xfers:
+                self.metrics.transfers_refused += 1
+                raise TransferRefused(group, "transfer already in flight")
+            self._xfers[group] = {"target": target, "from": lead,
+                                  "start_tick": self._tick_no,
+                                  "deadline_ticks": dl, "deadline": None,
+                                  "armed": False}
+            self._xfer_req.append((lead, group, target))
+        self.metrics.transfers_initiated += 1
+        self._work_evt.set()          # wake a parked tick loop
+        return {"group": group, "from": lead + 1, "target": target + 1,
+                "deadline_ticks": dl}
+
+    def _transfer_arm(self) -> None:
+        """Apply queued transfer requests to device state (tick thread,
+        before the dispatch so this tick's step sees the latch)."""
+        with self._xfer_lock:
+            reqs, self._xfer_req = self._xfer_req, []
+            for (p, g, tgt) in reqs:
+                self.states = set_transfer_target_stacked(
+                    self.states, p, g, tgt)
+                tr = self._xfers.get(g)
+                if tr is not None:
+                    tr["armed"] = True
+                    tr["deadline"] = (self._device_steps
+                                      + tr["deadline_ticks"])
+
+    def _transfer_advance(self, pinfo: np.ndarray) -> None:
+        """Completion/abort driver (tick thread, right after the hint
+        refresh).  Completed: the hint names the target.  Aborted: the
+        deadline passed, or leadership settled on a third peer — either
+        way the latch is cleared so the group keeps serving."""
+        xcol = pinfo[:, :, _C["xfer"]]
+        now = self._device_steps
+        with self._xfer_lock:
+            for g, tr in list(self._xfers.items()):
+                if not tr["armed"]:
+                    continue
+                outcome = None
+                h = int(self._hints[g])
+                frm = tr["from"]
+                armed_dev = int(xcol[frm, g]) == tr["target"]
+                if h == tr["target"]:
+                    outcome = "completed"
+                elif now >= tr["deadline"]:
+                    if armed_dev:
+                        self.states = set_transfer_target_stacked(
+                            self.states, frm, g, NO_XFER)
+                    outcome = "aborted"
+                elif not armed_dev and 0 <= h != frm:
+                    outcome = "aborted"    # settled elsewhere
+                if outcome is None:
+                    continue
+                del self._xfers[g]
+                stall = self._tick_no - tr["start_tick"]
+                if outcome == "completed":
+                    self.metrics.transfers_completed += 1
+                else:
+                    self.metrics.transfers_aborted += 1
+                self.metrics.note_transfer_stall(stall)
+                self._xfer_events.append(
+                    {"group": g, "from": frm + 1,
+                     "to": tr["target"] + 1, "outcome": outcome,
+                     "stall_ticks": int(stall), "tick": self._tick_no})
+
+    def transferring_groups(self) -> set:
+        """Groups with a transfer in flight (hot-groups `transferring`
+        flag)."""
+        with self._xfer_lock:
+            return set(self._xfers)
+
+    def transfers_doc(self) -> dict:
+        """In-flight latches + the recent-outcome log (flight bundles,
+        placement-controller feedback)."""
+        with self._xfer_lock:
+            inflight = {str(g): {"target": tr["target"] + 1,
+                                 "from": tr["from"] + 1,
+                                 "start_tick": tr["start_tick"]}
+                        for g, tr in self._xfers.items()}
+            recent = list(self._xfer_events)
+        return {"in_flight": inflight, "recent": recent}
 
     def propose_many(self, group: int, payloads,
                      deadline_step: Optional[int] = None) -> None:
@@ -936,6 +1226,8 @@ class ClusterHostPlane:
         prof = self.prof
         prof_on = prof is not None and prof.sampled(self._tick_no)
         t0 = _t.monotonic()
+        if self._xfer_req:
+            self._transfer_arm()     # latch visible to THIS dispatch
         # Snapshot _queued: _build_prop_n may re-route into the set.
         prop_n = self._build_prop_n(self._steps)
         tb = _t.monotonic() if prof_on else t0
@@ -1016,6 +1308,8 @@ class ClusterHostPlane:
         self._hints = pinfo[0, :, _C["leader_hint"]]
         self._lease_col = pinfo[:, :, _C["lease"]]
         self._device_steps += len(step_infos)
+        if self._xfers:
+            self._transfer_advance(pinfo)
         # Stage the 2a ranges NOW (this pops the device-accepted
         # proposals off the queues): whether the durable phase runs
         # inline below or stashed into the next dispatch window, the
@@ -1051,7 +1345,8 @@ class ClusterHostPlane:
         base_active = (tick_active
                        or dev_busy
                        or bool((self._hints < 0).any())
-                       or bool(self._queued))
+                       or bool(self._queued)
+                       or bool(self._xfers))
         # HOT means real client work is flowing (writes this tick, a
         # device dispatch still in flight, or a proposal backlog): the
         # threaded loop then ticks back-to-back.  Merely-leaderless
@@ -1158,8 +1453,8 @@ class ClusterHostPlane:
 
     def _finish_durable(self, step_infos, staged) -> bool:
         """The whole durable back half for one dispatch: per-step
-        durable phases (epoch-framed when multi-step) and the epoch
-        commit.  Returns tick_active
+        durable phases (epoch-framed when multi-step), the epoch
+        commit, and membership apply-at-commit.  Returns tick_active
         (anything written).  Attributed to `self._prof_tick` (set by
         the caller: the live tick inline, the originating tick when a
         stash retires)."""
@@ -1189,6 +1484,11 @@ class ClusterHostPlane:
             self._epoch_no = self._ep_no_this
             self._commit_epoch(self._epoch_no)
         self._ep_active = False
+        if self.membership is not None:
+            # Apply-at-commit for conf entries: patch each peer row
+            # whose commit passed a pending entry, BEFORE this tick's
+            # publish enqueue (the scrub set must cover the batch).
+            self._membership_advance(pinfo)
         if self._gcwal is not None:
             self.metrics.wal_group_commits = self._gcwal.group_commits
         if prof_on and tick_active:
@@ -1212,8 +1512,8 @@ class ClusterHostPlane:
         tick's _build_prop_n snapshot (offer counts and re-routes read
         queue lengths), whether the heavy durable write runs inline or
         stashed into the next dispatch window.  Side effects that ride
-        the pop (tracer append stamps, the proposals counter) happen
-        here too, in step order."""
+        the pop (conf-entry notes, tracer append stamps, the proposals
+        counter) happen here too, in step order."""
         P = self.cfg.num_peers
         out = []
         for p in range(P):
@@ -1241,6 +1541,7 @@ class ClusterHostPlane:
             if ags.size:
                 props_p = self._props[p]
                 traced = [] if self.tracer is not None else None
+                confs = [] if self.membership is not None else None
                 ov = self.overload
                 strip = self._deadlines_live
                 with self._prop_lock:   # pops race client-thread extends
@@ -1266,6 +1567,17 @@ class ClusterHostPlane:
                         r_term.append(tm)
                         if traced is not None:
                             traced.append((g, b0, batch))
+                        if confs is not None:
+                            # Conf entries entering the cluster log —
+                            # one leading-byte test per accepted
+                            # proposal, only with membership enabled.
+                            for off, d in enumerate(batch):
+                                if d[:1] == _CONF_PREFIX \
+                                        and is_conf_entry(d):
+                                    confs.append((g, b0 + off, d))
+                if confs:
+                    for (cg, cidx, cd) in confs:
+                        self._conf_note(cg, cidx, cd)
                 self.metrics.proposals += int(acc[ags].sum())
                 # Per-group traffic: the accepted counts are already in
                 # hand per group — one vectorized add, no new walks.
@@ -1429,6 +1741,20 @@ class ClusterHostPlane:
             self._fsync_span = (tf0, _t.monotonic() - tf0)
         return tick_active
 
+    def _scrub_conf(self, g: int, base: int, datas: list) -> list:
+        """Blank conf entries out of a publish batch (entries at
+        base+1..): the apply plane sees an empty slot where the
+        membership change sat.  Index-driven off the scrub set — zero
+        per-entry work; `_conf_scrub[g]` is replaced (never mutated) so
+        the async publish workers can read it lock-free."""
+        scrub = self._conf_scrub[g]
+        if scrub:
+            top = base + len(datas)
+            for idx in scrub:
+                if base < idx <= top:
+                    datas[idx - base - 1] = b""
+        return datas
+
     def _publish(self, pinfo: np.ndarray) -> None:
         """Deliver a saved tick's newly committed entries to every
         peer's commit stream, across ALL group shards (the inline /
@@ -1478,6 +1804,8 @@ class ClusterHostPlane:
                     raise RuntimeError(
                         f"peer {p} g{g}: payload log shorter than "
                         f"commit ({a}+{len(datas)} < {c})")
+                if self.membership is not None:
+                    datas = self._scrub_conf(g, a, datas)
                 if any(datas):
                     items.append((g, a, datas))
             if items:
@@ -1574,4 +1902,6 @@ class ClusterHostPlane:
 
     def roles(self) -> np.ndarray:
         """[P, G] role matrix from the live device state."""
-        return self.states.role.cpu().numpy()
+        # A copy: on the CPU .cpu() is the tensor itself, and the
+        # membership patches write role in place.
+        return self.states.role.to("cpu", copy=True).numpy()

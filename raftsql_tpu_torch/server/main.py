@@ -8,8 +8,10 @@ pipe -> RaftDB -> HTTP, the reference's server/main.go:24-38) with the
 fused co-located cluster underneath, stepping on `--device` (CUDA by
 default; a missing card is an error, never a silent CPU fallback).  The
 other deployments of the JAX package (the multi-process cluster, --mesh,
---pod) and the planes not ported yet (--workers, --placement,
---reshard, --replica-listen) exit with an error naming them.
+--pod) and the planes not ported yet (--workers, --reshard,
+--replica-listen) exit with an error naming them.  `--placement` runs
+the traffic-aware leadership controller (raftsql_tpu_torch/placement/)
+over the fused host plane's transfer latch.
 """
 from __future__ import annotations
 
@@ -85,6 +87,20 @@ def build_fused_node(groups: int = 1, peers: int = 3,
                   compact_every=compact_every, compact_keep=compact_keep)
 
 
+def attach_placement(rdb: RaftDB, interval_s: float = 0.5,
+                     imbalance: float = 2.0):
+    """--placement: start the traffic-aware leadership controller
+    (raftsql_tpu_torch/placement/) over the fused host plane's traffic
+    feed and transfer latch; GET /metrics then carries its gauges.
+    Returns the controller (stop() ends its thread)."""
+    from raftsql_tpu_torch.placement import PlacementController
+    pc = PlacementController(rdb.pipe.node, interval_s=interval_s,
+                             imbalance=imbalance)
+    rdb.placement = pc
+    pc.start()
+    return pc
+
+
 # Exit code for "the consensus engine failed" (unrecoverable WAL fsync,
 # injected ENOSPC): a server that can no longer participate must crash,
 # visibly, rather than keep answering HTTP with a dead engine behind it.
@@ -142,7 +158,6 @@ _NOT_PORTED = {
     "mesh": "--mesh (ROADMAP Queue 1 item 13)",
     "pod": "--pod (ROADMAP Queue 1 item 13)",
     "workers": "--workers (ROADMAP Queue 1 item 14)",
-    "placement": "--placement (ROADMAP Queue 1 item 7)",
     "reshard": "--reshard (ROADMAP Queue 1 item 14)",
     "replica_listen": "--replica-listen (ROADMAP Queue 1 item 14)",
 }
@@ -184,7 +199,18 @@ def main(argv=None) -> None:
     ap.add_argument("--mesh", action="store_true", help="not ported")
     ap.add_argument("--pod", action="store_true", help="not ported")
     ap.add_argument("--workers", type=int, default=0, help="not ported")
-    ap.add_argument("--placement", action="store_true", help="not ported")
+    ap.add_argument("--placement", action="store_true",
+                    help="traffic-aware leadership placement "
+                         "(raftsql_tpu_torch/placement/): a controller "
+                         "thread watches the per-group traffic feed "
+                         "and issues graceful leadership transfers "
+                         "(POST /transfer machinery, thesis §3.10) to "
+                         "balance hot groups across peers")
+    ap.add_argument("--placement-interval", type=float, default=0.5,
+                    help="seconds between placement passes")
+    ap.add_argument("--placement-imbalance", type=float, default=2.0,
+                    help="hottest/coldest per-peer load ratio that "
+                         "triggers a transfer")
     ap.add_argument("--reshard", action="store_true", help="not ported")
     ap.add_argument("--replica-listen", type=int, default=0,
                     help="not ported")
@@ -264,6 +290,9 @@ def main(argv=None) -> None:
             tick_interval_s=args.tick,
             brownout_hi=args.brownout_hi,
             brownout_lo=args.brownout_lo)
+    if args.placement:
+        attach_placement(rdb, interval_s=args.placement_interval,
+                         imbalance=args.placement_imbalance)
     if args.http_engine == "aio":
         from raftsql_tpu_torch.api.aio import AioSQLServer
         srv = AioSQLServer(args.port, rdb)

@@ -69,10 +69,14 @@ def test_default_family_seed0_equals_chip_smoke_constant(port_default):
 
 def test_seed0_families_equal_chip_smoke_constants(tmp_path):
     """Schedules are pure numpy: every family's seed-0 schedule digest
-    must be the constant the chip run checks (its result digest is
-    checked there and, at the tests' tick counts, above)."""
+    (a nemesis plan's: the digest of the schedule its runner projects it
+    into) must be the constant the chip run checks (its result digest
+    is checked there and, at the tests' tick counts, above)."""
     for name, (gen, _) in trun.family_specs().items():
-        assert gen(0).digest() == chip_smoke.CHAOS_DIGESTS[name][0], name
+        plan = gen(0)
+        sched = trun.runner_class(plan)(plan, str(tmp_path),
+                                        device="cpu").sched
+        assert sched.digest() == chip_smoke.CHAOS_DIGESTS[name][0], name
     assert TS.generate(0).digest() == chip_smoke.CHAOS_DIGESTS[
         "default"][0]
 

@@ -139,3 +139,56 @@ def test_fused_tick_card_equals_cpu(card):
                                                   prop.to(card))
         assert torch.equal(gp.cpu(), cp), t
     assert pq.launches["pallas_quorum_commit_index"] == 64
+
+
+def _replace_and_transfer(device, path):
+    """A durable 4-slot node on voters {0,1,2}: slot 0 replaced by slot 3
+    on groups 0-7 (add_learner, promote, remove: joint consensus) while
+    leadership moves on groups 8-15; returns what both devices must
+    agree on, tick by tick."""
+    from raftsql_tpu_torch.membership import MembershipError
+    from raftsql_tpu_torch.runtime.fused import FusedClusterNode
+    cfg = RaftConfig(num_groups=16, num_peers=4, log_window=32,
+                     max_entries_per_msg=4, commit_rule="pallas",
+                     initial_voters=(0, 1, 2), tick_interval_s=0.0)
+    node = FusedClusterNode(cfg, path, seed=7, device=device)
+    node.publish_peers = {0}
+    node.enable_membership()
+    rec, stage = [], dict.fromkeys(range(8), 0)
+    ops = (("add_learner", 3), ("promote", 3), ("remove", 0))
+    try:
+        for t in range(200):
+            node.tick()
+            rec.append((node._hints.tolist(), node._hard.tolist(),
+                        sorted(node.transferring_groups())))
+            if t == 60:
+                for g in range(8, 16):
+                    node.transfer_leadership(
+                        g, next(p for p in (0, 1, 2)
+                                if p != node.leader_of(g)))
+            for g in range(8) if t >= 60 else ():
+                c = node.membership.config(g)
+                if stage[g] < 3 and not c.is_joint and (
+                        stage[g] == 0 or c.learners == 8 and stage[g] == 1
+                        or c.voters == 15 and stage[g] == 2):
+                    try:
+                        node.member_change(g, *ops[stage[g]])
+                        stage[g] += 1
+                    except MembershipError:
+                        pass
+        rec.append(node.members_doc())
+    finally:
+        node.stop()
+    return rec
+
+
+def test_membership_and_transfer_card_equal_cpu(card, tmp_path):
+    pq.reset_launches()
+    got = _replace_and_transfer(card, str(tmp_path / "card"))
+    assert pq.launches["pallas_masked_quorum_commit_index"] == 200
+    assert pq.launches["pallas_quorum_commit_index"] == 0
+    want = _replace_and_transfer("cpu", str(tmp_path / "cpu"))
+    assert got == want
+    doc = got[-1]["groups"]
+    assert all(doc[str(g)]["voters"] == [1, 2, 3] for g in range(8))
+    assert all(doc[str(g)]["voters"] == [0, 1, 2] for g in range(8, 16))

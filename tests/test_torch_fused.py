@@ -139,14 +139,24 @@ def test_fused_node_restart_replays(tmp_path):
     t2.stop()
 
 
-def test_unported_planes_raise(tmp_path):
+def test_unported_planes_raise(tmp_path, monkeypatch):
+    """The native payload log (ROADMAP Queue 1 item 9) raises; the obs,
+    membership and transfer planes are ported and answer."""
     cfg = TConfig(**cfg_kw())
+    monkeypatch.setenv("RAFTSQL_FUSED_NATIVE_PLOG", "1")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
+        TNode(cfg, str(tmp_path / "native"), device="cpu")
+    monkeypatch.delenv("RAFTSQL_FUSED_NATIVE_PLOG")
     tn = TNode(cfg, str(tmp_path / "t"), device="cpu")
-    for call in (tn.enable_membership,
-                 lambda: tn.transfer_leadership(0, 1),
-                 lambda: tn.member_change(0, "add", 1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
-    tn.enable_tracing()                 # the obs plane is ported
+    tn.enable_tracing()
     assert tn.tracer is not None and tn.ring is not None
+    from raftsql_tpu_torch.runtime.node import TransferRefused
+    with pytest.raises(TransferRefused, match="no leader"):
+        tn.transfer_leadership(0, 1)
+    tn.enable_membership()
+    assert tn.cfg.dynamic_membership and tn.membership is not None
+    from raftsql_tpu_torch.membership import MembershipError
+    with pytest.raises(MembershipError, match="already a voter"):
+        tn.member_change(0, "add", 1)
+    assert tn.member_change(0, "remove", 2)["pending"]
     tn.stop()

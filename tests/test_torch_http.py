@@ -68,7 +68,7 @@ def test_group_header_routes(server):
 
 @pytest.mark.parametrize("argv", [
     ["--cluster", "http://127.0.0.1:1", "--id", "1"],
-    ["--fused", "--mesh"], ["--fused", "--placement"],
+    ["--fused", "--mesh"], ["--fused", "--reshard"],
     ["--fused", "--workers", "2"]])
 def test_cli_refuses_unported_deployments(argv, capsys):
     with pytest.raises(SystemExit) as e:

@@ -55,7 +55,8 @@ def test_module_list_covers_the_slice():
               "server.main", "core.threefry", "transport.faults",
               "obs.device_ring", "obs.spans", "obs.export", "obs.flight",
               "chaos.invariants", "chaos.schedule", "chaos.scenarios",
-              "chaos.run"):
+              "chaos.run", "membership", "membership.manager",
+              "placement", "placement.controller"):
         assert f"raftsql_tpu_torch.{m}" in MODULES, m
 
 
