@@ -24,7 +24,7 @@ exit, no result line) at the first phase that fails:
      then the device event ring's cost at G = 100,000 ([64, 3, 100000,
      9] int32): the fused tick without and with a ring record per tick,
      and the durable node's tick without and with enable_tracing;
-  5. the membership and transfer planes at G = 100,000 on 4 slots
+  5. the membership and transfer planes at G = 25,000 on 4 slots
      (voters {0,1,2}, a spare slot 3, durable FusedClusterNode,
      commit_rule="pallas"): after the elections slot 0 is replaced by
      slot 3 (add_learner, promote, remove through joint consensus) on 64
@@ -32,7 +32,10 @@ exit, no result line) at the first phase that fails:
      must end on its expected config or leader and every other group on
      {0,1,2}; K2 must launch on every tick after enable_membership, and
      on one tick with joint masks live its inputs are copied: K2 is held
-     against its plain version and timed on them (R = 400,000, P = 4);
+     against its plain version and timed on them (R = 100,000, P = 4);
+     G is cut from the bench headline's 100,000 to keep the whole run
+     near half its time limit (the phase's host plane costs about
+     1.5 s a tick and 73 s of set-up at G = 100,000);
   6. the fused durable SQL server (build_fused_node + the aio HTTP
      plane): the reference curl recipe, concurrent acked PUTs, a close
      and a resume=True reopen that replays the WALs;
@@ -55,11 +58,41 @@ exit, no result line) at the first phase that fails:
      nemesis families' runs; then the falsification pairs of the three
      gauntlets (the broken lease bound, the unsafe transfer kernel,
      quorum arms A and B) must be caught and their controls pass;
- 10. the kernels line (JSON: K1 as phase 4 measured it, K2 on phase 5's
-     joint masks, launches summed over the paths) and the result line.
+ 10. the distributed runtime at the bench's node shape: 3 RaftNodes on
+     the card over LoopbackHub(codec=False), G = 10,000, P = 3, W = 64,
+     E = 8, tick_interval_s = 0, commit_rule="pallas", in lockstep
+     through the elections, then 24 ticks draining E proposals per
+     group per tick queued ahead: node 1's commits/s and per-phase ms
+     per tick; K1 must launch once per node tick, and one tick's K1
+     inputs (R = 10,000, one peer's rows) are copied, held to the plain
+     version and timed; then a card run and a CPU run of one lockstep
+     script at G = 512 must be bit-identical (packed info, commit
+     stream, WAL bytes);
+ 11. the Procfile cluster: three `python -m raftsql_tpu_torch.server.main
+     --id I --cluster <3 urls> --port I2380 --groups 8 --resume`
+     processes on the card (the Procfile's ports, default tick and
+     commit rule): the curl recipe, node 2 SIGKILLed, a write while it
+     is down and its catch-up, PUT p50/p99 from 16 client threads over
+     the 8 groups with every acked PUT read back at every node, no
+     election during that load (node steps slower than the 10 ms tick
+     must not depose a leader), and each node's GET /metrics
+     phase_ms_per_tick;
+ 12. the node-plane chaos families: corrupt, snapshot and membership
+     twice each with commit_rule="pallas" (digests equal to the JAX
+     package's, CHAOS_DIGESTS; K1 launches in corrupt and snapshot, K2
+     in membership, where the inputs of its first call on joint masks,
+     R = 2 rows of one peer at P = 4, are copied, held to the plain
+     version and timed), tcp and tcp_rebind once each (invariants hold,
+     faults fired);
+ 13. the kernels line (JSON: K1 as phase 4 measured it, K2 on phase 5's
+     joint masks, launches summed over the paths, and each kernel's
+     node-path launches and time: K1 at R = 10,000 from phase 10, K2 at
+     R = 2 from phase 12) and the result line.
 
-It needs one card and writes under build/ of its checkout (and the chaos
-runs' data dirs under $TMPDIR, removed after each run).
+`--only 10,12` runs the build and the named phases (4-12) alone: a
+development run, with no result line.  It needs one card and writes
+under build/ of its checkout (and the chaos runs' data dirs under
+$TMPDIR, removed after each run).
 """
 from __future__ import annotations
 
@@ -104,6 +137,11 @@ CHAOS_DIGESTS = {
     "reads": ("1e788605c763474d", "078b010d4d28b49f"),
     "quorum": ("238cad39f96aea26", "ea8cfbc0d6779d40"),
     "transfers": ("c82c989e600de20b", "cfd7db527bd7f45e"),
+    # The lockstep node-plane families (the distributed runtime): the
+    # runner reports (plan digest, result digest).
+    "corrupt": ("4f4ed0f264577c9d", "f5ee78bdc4375e9c"),
+    "snapshot": ("edd1a37f25bc171d", "d4b51966c0c2ee25"),
+    "membership": ("2a76495647d33d68", "f6f1b63bf483aaba"),
 }
 REPLACES = {
     "pallas_quorum_commit_index":
@@ -398,10 +436,11 @@ def check_kernels(card: str, dev="cuda", G=100_000) -> None:
 
 
 def main_path_kernels(card: str, captured: dict) -> dict:
-    """K1 and K2 on the tensors one fused tick at G = 100,000 handed them
-    (captured in phase 4): equality, per-call (CUDA events), host and
-    device time, the plain version, the bound, and what bounds the
-    kernel from below."""
+    """K1 and K2 on the tensors a main path handed them (captured in
+    phase 4's fused tick, phase 5's membership node and phase 10's node
+    cluster): equality, per-call (CUDA events), host and device time,
+    the plain version, the bound, and what bounds the kernel from
+    below."""
     results = {}
     for name, (args, kw) in captured.items():
         masks = (kw["voters"], kw["voters_joint"]) if "voters" in kw \
@@ -436,7 +475,8 @@ def main_path_kernels(card: str, captured: dict) -> dict:
             log(f"main path {name} host parts: "
                 f"{k1_host_parts(args, size)} on {card}")
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bms, bound_by=by)
+                             bound_ms=bms, bound_by=by,
+                             rows=args[0].shape[0])
     return results
 
 
@@ -704,9 +744,9 @@ def traced_tick(card: str, dev="cuda", G=100_000, ticks=64,
 
 # ---- phase 5 ---------------------------------------------------------------
 
-def membership_node(card: str, dev="cuda", G=100_000, n=64) -> dict:
-    """The membership and transfer planes at the bench headline's width:
-    a durable FusedClusterNode of G groups on 4 slots, voters {0,1,2}
+def membership_node(card: str, dev="cuda", G=25_000, n=64) -> dict:
+    """The membership and transfer planes: a durable FusedClusterNode of
+    G groups on 4 slots, voters {0,1,2}
     and a live spare slot 3 (the JAX package's node-replacement layout),
     commit_rule="pallas".  After the elections, slot 0 is replaced by
     slot 3 (add_learner 3, promote 3, remove 0, each change through
@@ -1217,56 +1257,502 @@ def chaos(card: str, dev="cuda") -> dict:
     return {"walls": walls, "launches": launches}
 
 
+# ---- phase 10 --------------------------------------------------------------
+
+def _node_drain(n, plain=False) -> list:
+    """Node n's commit stream so far, expanded to (g, idx, sql); `plain`
+    only counts (the bench's drain without apply)."""
+    from raftsql_tpu_torch.runtime.db import _expand_commit_item
+    out = []
+    while not n.commit_q.empty():
+        item = n.commit_q.get_nowait()
+        if item is None:
+            continue
+        got = _expand_commit_item(item, n)
+        out.extend([None] * len(got) if plain else got)
+    return out
+
+
+def _boot_nodes(cfg, d, dev, codec=True):
+    from raftsql_tpu_torch.runtime.node import RaftNode
+    from raftsql_tpu_torch.transport.loopback import (LoopbackHub,
+                                                      LoopbackTransport)
+    shutil.rmtree(d, ignore_errors=True)
+    hub = LoopbackHub(codec=codec)
+    P = cfg.num_peers
+    nodes = [RaftNode(i + 1, P, cfg, LoopbackTransport(hub),
+                      os.path.join(d, f"n{i + 1}"), device=dev)
+             for i in range(P)]
+    for n in nodes:
+        n.start(threaded=False)
+    return nodes
+
+
+def _elect(nodes, cfg) -> int:
+    """Lockstep ticks until node 1 knows a leader for every group."""
+    for t in range(40 * cfg.election_ticks):
+        for n in nodes:
+            n.tick()
+        for n in nodes:
+            _node_drain(n, plain=True)
+        if t > cfg.election_ticks and (nodes[0]._last_hint >= 0).all():
+            return t + 1
+    raise AssertionError("node cluster: not every group elected a leader")
+
+
+def node_lockstep(dev, G, ticks, d) -> tuple:
+    """The bench's node shape at G groups on `dev`, with envelope ids
+    from a counter: every tick's packed info of every node, node 1's
+    commit stream and every WAL file's bytes."""
+    from raftsql_tpu_torch.runtime import envelope
+    from raftsql_tpu_torch.core.step import INFO_FIELDS
+    cfg = RaftConfig(num_groups=G, num_peers=3, log_window=64,
+                     max_entries_per_msg=8, tick_interval_s=0.0,
+                     commit_rule="pallas")
+    real_id = envelope.new_id
+    envelope.new_id = iter(range(1, 1 << 62)).__next__
+    infos, commits = [], []
+    try:
+        nodes = _boot_nodes(cfg, d, dev)
+        for n in nodes:
+            wal_phase = n._wal_phase
+
+            def spy(info, wal_phase=wal_phase):
+                infos.append(np.stack([np.asarray(getattr(info, f))
+                                       for f in INFO_FIELDS], 1))
+                return wal_phase(info)
+
+            n._wal_phase = spy
+        rng = np.random.default_rng(9)
+        for t in range(ticks):
+            for g in np.nonzero(rng.random(G) < 0.3)[0].tolist():
+                nodes[int(rng.integers(0, 3))].propose(
+                    g, f"SET k{g} v{t}".encode())
+            for n in nodes:
+                n.tick()
+            commits.extend(_node_drain(nodes[0]))
+        for n in nodes:
+            n.stop()
+    finally:
+        envelope.new_id = real_id
+    wal = {}
+    for root, _, files in os.walk(d):
+        for f in files:
+            with open(os.path.join(root, f), "rb") as fh:
+                wal[os.path.relpath(os.path.join(root, f), d)] = fh.read()
+    shutil.rmtree(d, ignore_errors=True)
+    return infos, commits, wal
+
+
+def node_cluster(card: str, dev="cuda", G=10_000, ticks=24,
+                 g_cmp=512) -> dict:
+    """The distributed runtime at the bench's node shape (bench.py
+    bench_durable, BENCH_DURABLE_MODE=node): 3 RaftNodes on the card over
+    LoopbackHub(codec=False), G groups, P = 3, W = 64, E = 8,
+    tick_interval_s = 0, commit_rule="pallas", ticked in lockstep.  After
+    the elections, `ticks` x E proposals per group are queued at each
+    group's leader and `ticks` lockstep ticks drain them: commits/s from
+    node 1's commit stream (counted, not applied) and node 1's per-phase
+    ms per tick.  K1 must launch once per node tick (R = G rows of one
+    peer); one tick's K1 inputs are copied.  Then a card run and a CPU
+    run of a lockstep script at G = g_cmp must be bit-identical."""
+    E = 8
+    cfg = RaftConfig(num_groups=G, num_peers=3, log_window=64,
+                     max_entries_per_msg=E, tick_interval_s=0.0,
+                     commit_rule="pallas")
+    d = os.path.join(ROOT, "build", "chip_smoke_node")
+    k1 = "pallas_quorum_commit_index"
+    t0 = time.monotonic()
+    nodes = _boot_nodes(cfg, d, dev, codec=False)
+    try:
+        n_elect = _elect(nodes, cfg)
+        t_elect = time.monotonic() - t0
+        hints = nodes[0]._last_hint.copy()
+        cmds = [f"SET k{i} v".encode() for i in range(ticks * E)]
+        for g in range(G):
+            nodes[int(hints[g])].propose_many(g, cmds)
+        for n in nodes:
+            _node_drain(n, plain=True)
+            m = n.metrics
+            m.ticks = 0
+            m.t_stage_ms = m.t_device_ms = m.t_wal_ms = 0.0
+            m.t_send_ms = m.t_publish_ms = 0.0
+        captured = {}
+        real = getattr(pq, k1)
+
+        def spy(*args, **kw):
+            captured.setdefault(k1, ([a.clone() for a in args], dict(kw)))
+            return real(*args, **kw)
+
+        pq.reset_launches()                    # the node path starts here
+        t1 = time.monotonic()
+        committed = 0
+        for t in range(ticks):
+            if t == ticks // 2:
+                setattr(pq, k1, spy)
+            for n in nodes:
+                n.tick()
+            setattr(pq, k1, real)
+            committed += len(_node_drain(nodes[0], plain=True))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        dt = time.monotonic() - t1
+        launches = dict(pq.launches)           # ... and ends here
+        phase = nodes[0].metrics.snapshot()["phase_ms_per_tick"]
+        roles = np.stack([n._last_role for n in nodes])
+    finally:
+        setattr(pq, k1, real)
+        for n in nodes:
+            n.stop()
+        shutil.rmtree(d, ignore_errors=True)
+    expect(launches, {k1: 3 * ticks,
+                      "pallas_masked_quorum_commit_index": 0},
+           "K1 once per node tick")
+    if committed <= 0 or (roles == 2).sum(0).max() != 1:
+        raise AssertionError(f"node cluster: {committed} committed, "
+                             f"leaders per group off")
+    log(f"node cluster G={G} P=3 W=64 E={E} pallas: elected in {n_elect} "
+        f"lockstep ticks ({t_elect:.1f} s with boot); {ticks} ticks "
+        f"drained {committed} commits at node 1 in {dt:.2f} s: "
+        f"{committed / dt:.0f} commits/s, {dt / ticks * 1e3:.1f} ms per "
+        f"cluster tick; node 1 ms per tick {phase}; K1 launches "
+        f"{launches[k1]} on {card}")
+    t2 = time.monotonic()
+    got = node_lockstep(dev, g_cmp, 60, d)
+    want = node_lockstep("cpu", g_cmp, 60, d)
+    for part, a, b in zip(("packed info", "commit stream", "WAL bytes"),
+                          got, want):
+        if part == "packed info":
+            same = len(a) == len(b) and all(
+                np.array_equal(x, y) for x, y in zip(a, b))
+        else:
+            same = a == b
+        if not same:
+            raise AssertionError(f"node cluster card vs CPU at G={g_cmp}: "
+                                 f"{part} differs")
+    log(f"node cluster card vs CPU at G={g_cmp}: 60 lockstep ticks "
+        f"bit-identical (packed info of {len(got[0])} node ticks, "
+        f"{len(got[1])} commits at node 1, {len(got[2])} WAL files) in "
+        f"{time.monotonic() - t2:.1f} s")
+    return {"launches": launches, "captured": captured,
+            "commits_per_s": committed / dt, "phase_ms": phase}
+
+
+# ---- phase 11 --------------------------------------------------------------
+
+def procfile_cluster(card: str, dev="cuda", groups=8, threads=16,
+                     per=25) -> dict:
+    """The reference's Procfile cluster on the card: three
+    `python -m raftsql_tpu_torch.server.main --id I --cluster <3 urls>
+    --port I2380 --groups 8 --resume` processes (the Procfile's ports
+    and default tick and commit rule), driven by the port's
+    RaftSQLClient: the curl recipe, a SIGKILL of node 2 with a write
+    while it is down and its catch-up after the restart, then PUT
+    latency from `threads` clients over the groups, every acked PUT
+    read back, no election during the load, and each node's GET
+    /metrics phase split."""
+    from raftsql_tpu_torch.api.client import RaftSQLClient, SQLError
+    from raftsql_tpu_torch.chaos.proc import ProcCluster
+    work = os.path.join(ROOT, "build", "chip_smoke_procs")
+    shutil.rmtree(work, ignore_errors=True)
+    c = ProcCluster(work, peers=3, groups=groups, tick=0.01,
+                    device=dev, resume=True,
+                    peer_ports=[12379, 22379, 32379],
+                    http_ports=[12380, 22380, 32380])
+    t0 = time.monotonic()
+    for i in range(3):
+        c.spawn(i)
+    cli = RaftSQLClient([f"127.0.0.1:{p}" for p in c.http_ports],
+                        timeout_s=10.0)
+    dl = 120.0
+    try:
+        cli.put("CREATE TABLE main.t (name text)", node=0, deadline_s=dl)
+        t_up = time.monotonic() - t0
+        cli.put('INSERT INTO main.t (name) VALUES ("abc")', node=1,
+                deadline_s=dl)
+        cli.get_until("SELECT * FROM main.t", "|abc|\n", node=2,
+                      deadline_s=dl)
+        expect(cli.raw(0, "POST", "/", "SELECT 1")[0], 405, "POST")
+        try:
+            cli.put("NOT SQL", node=0, deadline_s=dl)
+        except SQLError:
+            pass
+        else:
+            raise AssertionError("bad SQL was not refused with 400")
+        c.sigkill(1)
+        cli.put('INSERT INTO main.t (name) VALUES ("while-down")', node=0,
+                deadline_s=dl)
+        c.spawn(1)
+        cli.get_until("SELECT count(*) FROM main.t", "|2|\n", node=1,
+                      deadline_s=dl)
+        log(f"procfile cluster: first PUT acked {t_up:.1f} s after spawn; "
+            f"curl recipe ok (204, rows, 405, 400); node 2 SIGKILLed, a "
+            f"write while down, restarted with --resume and caught up")
+        for g in range(1, groups):
+            cli.put("CREATE TABLE main.t (name text)", group=g,
+                    deadline_s=dl)
+
+        def metrics():
+            out = []
+            for i in range(3):
+                st, _, body = cli.raw(i, "GET", "/metrics")
+                expect(st, 200, f"node {i + 1} /metrics")
+                out.append(json.loads(body))
+            return out
+
+        won0 = [m["elections_won"] for m in metrics()]
+        lat, errs, acked = [], [], []
+        mu = threading.Lock()
+
+        def client(i):
+            my = RaftSQLClient([f"127.0.0.1:{p}" for p in c.http_ports],
+                               timeout_s=10.0)
+            try:
+                for k in range(per):
+                    g = (i + k) % groups
+                    q = f'INSERT INTO main.t (name) VALUES ("c{i}-{k}")'
+                    t1 = time.monotonic()
+                    try:
+                        my.put(q, group=g, deadline_s=dl)
+                    except Exception as e:               # noqa: BLE001
+                        with mu:
+                            errs.append(repr(e))
+                        continue
+                    with mu:
+                        lat.append(time.monotonic() - t1)
+                        acked.append((g, f"c{i}-{k}"))
+            finally:
+                my.close()
+
+        ths = [threading.Thread(target=client, args=(i,))
+               for i in range(threads)]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join()
+        expect(errs, [], "procfile cluster PUTs")
+        for g in range(groups):
+            # Plain reads are stale by design: poll each node until it
+            # has applied every acked PUT of the group.
+            want = [v for (gg, v) in acked if gg == g]
+            want += ["abc", "while-down"] if g == 0 else []
+            want = sorted(f"|{v}|" for v in want)
+            for node in range(3):
+                until = time.monotonic() + 30.0
+                while True:
+                    st, _, body = cli.raw(
+                        node, "GET", "/", "SELECT name FROM main.t",
+                        headers={"X-Raft-Group": str(g)})
+                    got = sorted(x for x in body.strip().split("\n") if x)
+                    if st == 200 and got == want:
+                        break
+                    if time.monotonic() > until:
+                        expect((st, got), (200, want), f"acked PUTs of "
+                               f"g{g} read back at node {node + 1}")
+                    time.sleep(0.1)
+        lat.sort()
+        p50 = lat[len(lat) // 2] * 1e3
+        p99 = lat[int(len(lat) * 0.99)] * 1e3
+        after = metrics()
+        phases = [m["phase_ms_per_tick"] for m in after]
+        # The node steps run slower than the 10 ms tick on the card; the
+        # event loop's margin cap must still keep every leader in place:
+        # no election while the load ran.
+        won = [m["elections_won"] - w for m, w in zip(after, won0)]
+        expect(won, [0, 0, 0], "elections during the PUT load")
+        log(f"procfile cluster: {len(lat)} PUTs from {threads} threads "
+            f"on {groups} groups acked and read back; PUT p50 "
+            f"{p50:.2f} ms p99 {p99:.2f} ms, no election during the "
+            f"load (device ms per node tick "
+            f"{[round(ph['device'], 1) for ph in phases]} against a "
+            f"10 ms tick) on {card}")
+        for i, ph in enumerate(phases):
+            log(f"procfile cluster node {i + 1} GET /metrics "
+                f"phase_ms_per_tick {ph}")
+    except BaseException:
+        for i in range(3):
+            log(f"--- node {i + 1} log tail ---\n{c.log_tail(i, 3000)}")
+        raise
+    finally:
+        cli.close()
+        codes = c.stop_all()
+    expect(codes, [0, 0, 0], "procfile cluster clean stop exit codes")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"p50": p50, "p99": p99, "phases": phases}
+
+
+# ---- phase 12 --------------------------------------------------------------
+
+def node_chaos(card: str, dev="cuda") -> dict:
+    """The node-plane chaos families on the card: corrupt, snapshot and
+    membership twice each with commit_rule="pallas" (their plan and
+    result digests must equal the JAX package's, CHAOS_DIGESTS; K1 must
+    launch in each family's runs and K2 in membership's, whose conf
+    entries switch every node to the masked rule), then tcp and
+    tcp_rebind once each (real sockets: their invariants must hold and
+    their faults fire).  In the first membership run, the inputs of the
+    first K2 call with joint masks live are copied.  Returns the wall
+    time of each run, the launches of each family and the copy."""
+    from raftsql_tpu_torch.chaos import run as crun
+    walls, launches, captured = {}, {}, {}
+    specs = crun.node_family_specs()
+    k2 = "pallas_masked_quorum_commit_index"
+    real = getattr(pq, k2)
+
+    def spy(*args, **kw):
+        if k2 not in captured and bool(
+                (kw["voters"] != kw["voters_joint"]).any()):
+            captured[k2] = ([a.clone() for a in args],
+                            {k: v.clone() if torch.is_tensor(v) else v
+                             for k, v in kw.items()})
+        return real(*args, **kw)
+
+    for name in ("corrupt", "snapshot", "membership"):
+        fired = specs[name][3]
+        pq.reset_launches()                    # this family starts here
+        for i in range(2):
+            t0 = time.monotonic()
+            if name == "membership" and i == 0:
+                setattr(pq, k2, spy)
+            try:
+                r = crun.run_node(name, 0, device=dev,
+                                  commit_rule="pallas")
+            finally:
+                setattr(pq, k2, real)
+            walls[f"{name}#{i + 1}"] = time.monotonic() - t0
+            got = (r["plan_digest"], r["result_digest"])
+            log(f"node chaos {name} run {i + 1}: plan={got[0]} "
+                f"result={got[1]} ({r['commits']} commits, "
+                f"{r['crashes']} crashes) {walls[f'{name}#{i + 1}']:.2f} s "
+                f"on {card}")
+            expect(got, CHAOS_DIGESTS[name], f"node chaos {name} digests")
+            if not fired(r):
+                raise AssertionError(f"node chaos {name}: its faults "
+                                     f"never fired ({r})")
+        launches[name] = dict(pq.launches)     # ... and ends here
+        if launches[name]["pallas_quorum_commit_index"] <= 0 and \
+                name != "membership":
+            raise AssertionError(f"node chaos {name} never launched K1")
+    if launches["membership"][k2] <= 0 or k2 not in captured:
+        raise AssertionError("node chaos membership never launched K2 "
+                             "(on joint masks)")
+    for name in ("tcp", "tcp_rebind"):
+        t0 = time.monotonic()
+        r = crun.run_node(name, 0, device=dev, commit_rule="pallas")
+        walls[name] = time.monotonic() - t0
+        if not specs[name][3](r):
+            raise AssertionError(f"node chaos {name}: faults never fired "
+                                 f"or too few commits ({r})")
+        log(f"node chaos {name}: invariants held, {r} "
+            f"{walls[name]:.2f} s on {card}")
+    log(f"node chaos launches by family: {launches}")
+    return {"walls": walls, "launches": launches, "captured": captured}
+
+
 # ---- main ------------------------------------------------------------------
 
-def main() -> int:
+def main(argv=None) -> int:
+    """Every phase in turn, then the kernels line and the result line.
+    `--only 10,12` (a development run) runs the build and the named
+    phases and prints no result line."""
+    import argparse
+    ap = argparse.ArgumentParser(description="smoke run on one CUDA card")
+    ap.add_argument("--only", default="",
+                    help="comma separated phases (4-12) to run after the "
+                         "build; no result line is printed")
+    only = {int(x) for x in ap.parse_args(argv).only.split(",") if x}
     t_start = time.monotonic()
 
     def done(phase):
         log(f"phase {phase} done at {time.monotonic() - t_start:.1f} s")
 
+    def want(phase):
+        return not only or phase in only
+
     card = environment()
+    node_kern = {}          # K1 and K2 on the node path (phases 10, 12)
     build_s = pq.build()
     log(f"build: csrc/quorum.cu in {build_s:.1f} s")
     check_ptxas(pq.build_log())
     done("build")
-    check_kernels(card)
-    done("kernels")
-    tick = fused_tick(card)
-    kern = main_path_kernels(card, tick.pop("captured"))
-    traced_tick(card)
-    done("fused tick")
-    mem = membership_node(card)
-    # K2's row is its joint-consensus path: R = 400,000, P = 4 (the
-    # generic kernel), C_old,new masks live.
-    kern.update(main_path_kernels(card, mem.pop("captured")))
-    done("membership node")
-    k1_server = server(card)
-    done("server")
-    traced_server(card)
-    done("traced server")
-    place = placement_server(card)
-    done("placement server")
-    ch = chaos(card)
-    done("chaos")
+    if want(3):
+        check_kernels(card)
+        done("kernels")
+    if want(4):
+        tick = fused_tick(card)
+        kern = main_path_kernels(card, tick.pop("captured"))
+        traced_tick(card)
+        done("fused tick")
+    if want(5):
+        mem = membership_node(card)
+        # K2's row is its joint-consensus path: R = 100,000, P = 4 (the
+        # generic kernel), C_old,new masks live.
+        kern.update(main_path_kernels(card, mem.pop("captured")))
+        done("membership node")
+    if want(6):
+        k1_server = server(card)
+        done("server")
+    if want(7):
+        traced_server(card)
+        done("traced server")
+    if want(8):
+        place = placement_server(card)
+        done("placement server")
+    if want(9):
+        ch = chaos(card)
+        done("chaos")
+    if want(10):
+        node = node_cluster(card)
+        # K1 on one peer's rows: R = 10,000, P = 3, one leader row in 3.
+        node_kern.update(main_path_kernels(card, node.pop("captured")))
+        done("node cluster")
+    if want(11):
+        procs = procfile_cluster(card)
+        done("procfile cluster")
+    if want(12):
+        nch = node_chaos(card)
+        # K2 on one peer's rows after conf entries applied: R = G = 2,
+        # P = 4, C_old,new masks live (the membership family).
+        node_kern.update(main_path_kernels(card, nch.pop("captured")))
+        done("node chaos")
+    if only:
+        log(f"development run of phases {sorted(only)}: no result line")
+        return 0
     k1, k2 = "pallas_quorum_commit_index", \
         "pallas_masked_quorum_commit_index"
+    node_launches = {
+        k: node["launches"][k] + sum(f[k] for f in nch["launches"].values())
+        for k in (k1, k2)}
     launches = {
         k1: (tick["launches"][k1] + k1_server + place["launches"]
-             + ch["launches"]["default"] + ch["launches"]["nemesis"]),
-        k2: tick["launches"][k2] + mem["launches"][k2]}
+             + ch["launches"]["default"] + ch["launches"]["nemesis"]
+             + node_launches[k1]),
+        k2: tick["launches"][k2] + mem["launches"][k2] + node_launches[k2]}
     log(f"launches by path: fused tick {tick['launches']}, membership "
         f"node {mem['launches']}, server K1 {k1_server}, placement "
-        f"server K1 {place['launches']}, chaos K1 {ch['launches']}")
+        f"server K1 {place['launches']}, chaos K1 {ch['launches']}, node "
+        f"cluster {node['launches']}, node chaos {nch['launches']}")
+    log(f"procfile cluster PUT p50 {procs['p50']:.2f} ms p99 "
+        f"{procs['p99']:.2f} ms; node cluster "
+        f"{node['commits_per_s']:.0f} commits/s on {card}")
     rows = []
     for name, r in kern.items():
-        rows.append({"name": name, "route": "cuda",
-                     "source": "raftsql_tpu_torch/csrc/quorum.cu",
-                     "replaces": REPLACES[name],
-                     "launches": launches[name],
-                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"], "library_ms": None})
+        row = {"name": name, "route": "cuda",
+               "source": "raftsql_tpu_torch/csrc/quorum.cu",
+               "replaces": REPLACES[name],
+               "launches": launches[name],
+               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": None,
+               "node_path_launches": node_launches[name]}
+        if name in node_kern:
+            n = node_kern[name]
+            row["node_path"] = {"rows": n["rows"], "ms": n["ms"],
+                                "plain_ms": n["plain_ms"],
+                                "bound_ms": n["bound_ms"],
+                                "bound_by": n["bound_by"],
+                                "max_abs_err": n["max_abs_err"]}
+        rows.append(row)
     log(json.dumps({"kernels": rows}))
     log(card)
     print(json.dumps({"ok": True, "device": {

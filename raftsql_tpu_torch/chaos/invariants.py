@@ -1,8 +1,8 @@
 """Invariant checkers the fused chaos runner enforces during and after
 runs.
 
-Port of the part of raftsql_tpu/chaos/invariants.py the fused runner
-uses (pure numpy/Python, copied so the port imports nothing of the JAX
+Port of the part of raftsql_tpu/chaos/invariants.py the fused and
+node runners use (pure numpy/Python, copied so the port imports nothing of the JAX
 package).  Four invariants (raft paper §5.4 + the durability contract):
 
   * ELECTION SAFETY — at most one leader per (group, term), across the
@@ -19,11 +19,11 @@ package).  Four invariants (raft paper §5.4 + the durability contract):
 
 plus a single-register-per-key LINEARIZABILITY check over the KV
 plane's completed PUT/GET history, SESSION CONSISTENCY for watermark
-reads (the read nemesis), TRANSFER AVAILABILITY (the transfer nemesis)
-and REMOVED-QUORUM SAFETY (the membership plane's own invariant; its
-lockstep runner comes with the distributed runtime).  Violations raise
-`InvariantViolation` (an AssertionError so pytest reports them as
-failures, not errors).
+reads (the read nemesis), TRANSFER AVAILABILITY (the transfer
+nemesis), REMOVED-QUORUM SAFETY (the membership plane's own invariant)
+and the post-snapshot CONVERGENCE of the node plane's snapshot family.
+Violations raise `InvariantViolation` (an AssertionError so pytest
+reports them as failures, not errors).
 """
 from __future__ import annotations
 
@@ -153,6 +153,37 @@ class DurabilityLedger:
                 raise InvariantViolation(
                     f"{context}: committed entry g{g} i{i} changed "
                     f"across restart ({payload!r} -> {got!r})")
+
+
+def check_convergence(group: int, survivors: List[Tuple[int, int, Dict]],
+                      context: str = "") -> None:
+    """CONVERGENCE (post-snapshot survivors): after a fault-free heal
+    window, every surviving peer of a group must have applied to the
+    SAME index and hold IDENTICAL state-machine state — a peer rebuilt
+    through InstallSnapshot included.  This is the end-to-end check the
+    per-entry invariants cannot give: an installed snapshot could be
+    internally consistent yet wrong (stale applied index, dropped dedup
+    window, a key lost in blob serialization) and still pass log
+    matching, because the installed peer no longer HAS the log below
+    its floor to compare.
+
+    survivors: [(peer, applied_index, state_dict)] for live peers.
+    """
+    if len(survivors) < 2:
+        return
+    tops = {a for (_, a, _) in survivors}
+    if len(tops) != 1:
+        raise InvariantViolation(
+            f"{context}: g{group} survivors failed to converge: "
+            f"applied indexes "
+            f"{sorted((p, a) for (p, a, _) in survivors)}")
+    _, _, ref = survivors[0]
+    for (p, _, st) in survivors[1:]:
+        if st != ref:
+            raise InvariantViolation(
+                f"{context}: g{group} survivor p{p} state diverges "
+                f"from p{survivors[0][0]} at applied "
+                f"{survivors[0][1]}")
 
 
 class RemovedQuorumSafety:

@@ -6,7 +6,7 @@
     python -m raftsql_tpu_torch.chaos.run --reads --no-procs
     python -m raftsql_tpu_torch.chaos.run --device cpu      # no card
 
-Port of the fused part of raftsql_tpu/chaos/run.py.  Default mode
+Port of the fused and node-plane parts of raftsql_tpu/chaos/run.py.  Default mode
 generates the seed's full ChaosSchedule (>= 2 partitions, >= 2
 crash/restart events, >= 1 injected fsync fault, plus a torn-write
 power loss), runs it against a fresh FusedClusterNode data dir per run,
@@ -15,29 +15,39 @@ produce IDENTICAL schedule and result digests.  The node boots from the
 JAX package's threefry draws, so the digests equal the JAX package's
 runner's for the same seed.
 
---matrix sweeps ONE seed through the fused scenario FAMILIES:
+--matrix sweeps ONE seed through the scenario FAMILIES:
 
-    asym             one-directional partitions
-    skew             per-peer clock skew
-    enospc           disk-full on WAL append
-    fsync_stall      slow-disk fsync latency
-    compact          compaction + crash interleaving
+    asym             one-directional partitions          (fused plane)
+    skew             per-peer clock skew                 (fused plane)
+    enospc           disk-full on WAL append             (fused plane)
+    fsync_stall      slow-disk fsync latency             (fused plane)
+    compact          compaction + crash interleaving     (fused plane)
     reads            every read mode under skew, partitions and crashes
     quorum           2 voters + 1 witness, W = E = 2, under the same
     transfers        graceful leadership transfers under the same
+    corrupt          wire-frame corruption         (lockstep node plane)
+    snapshot         compaction + InstallSnapshot + crash (node plane)
+    membership       add/promote/remove churn + node replacement under
+                     faults                        (lockstep node plane)
+    tcp              drops/corruption/asym/delays  (REAL TCP transport)
+    tcp_rebind       crash/restart with port rebinding      (REAL TCP)
 
-Each family runs twice and must reproduce identical schedule + result
-digests, and its signature faults must have fired.  The JAX package's
-other families (mesh_skew, corrupt, snapshot, tcp, membership,
-tcp_rebind, ...) need planes this port has not reached yet.
+Every family except tcp and tcp_rebind runs twice and must reproduce
+identical schedule (or plan) + result digests, and every family's
+signature faults must have fired.  The TCP families cross real kernel
+sockets, so arrival interleaving is not virtualizable: their plan is
+deterministic and their invariants must hold, but the committed history
+is not bit-reproducible, so they run once.  The JAX package's other
+families (mesh_skew, procs, pod, replica, reshard, overload) need
+planes this port has not reached yet.
 
 --reads, --transfers and --quorum are the gauntlets: the family twice,
 then its falsification pairs (a deliberately broken lease bound,
 transfer kernel or quorum geometry must be CAUGHT by the invariants,
 and the same schedule with the correct setting must pass).  The
-process-plane arms of --reads and --transfers need the distributed
-runtime (ROADMAP Queue 1 item 8): without --no-procs they raise
-NotImplementedError.
+process-plane arms of --reads and --transfers (the JAX package's
+process chaos runners, the remainder of ROADMAP Queue 1 item 8) are not
+ported yet: without --no-procs they raise NotImplementedError.
 
 `--device` picks where the consensus state steps (default cuda; a
 missing card is an error) and `--commit-rule` the Phase-7 commit rule
@@ -110,33 +120,77 @@ def family_specs():
     }
 
 
+# family -> (runner class, plan generator, deterministic, fired_predicate)
+def node_family_specs():
+    from raftsql_tpu_torch.chaos import scenarios as C
+    from raftsql_tpu_torch.chaos import schedule as S
+    return {
+        "corrupt": (C.NodeClusterChaosRunner, S.generate_corrupt_plan,
+                    True, lambda r: r["corrupt_frames"] > 0),
+        "snapshot": (C.SnapshotChaosRunner, S.generate_snapshot_plan,
+                     True, lambda r: r["snapshots_installed"] > 0
+                     and r["compactions"] > 0 and r["crashes"] >= 2),
+        "membership": (C.MembershipChaosRunner,
+                       S.generate_membership_plan, True,
+                       lambda r: r["member_ops_applied"] >= 2 * 3
+                       and r["boots"] >= 1 and r["crashes"] >= 2
+                       and r["commits"] > 20),
+        "tcp": (C.TcpClusterChaosRunner, S.generate_tcp_plan, False,
+                lambda r: r["corrupt_frames_dropped"] > 0
+                and r["commits"] > 20),
+        "tcp_rebind": (C.TcpRebindChaosRunner, S.generate_tcp_rebind_plan,
+                       False, lambda r: r["rebinds"] == 2
+                       and r["commits"] > 20),
+    }
+
+
+def run_node(name: str, seed: int, device="cuda",
+             commit_rule=None) -> dict:
+    """One run of node-plane family `name` at `seed` in a fresh
+    temporary data dir; returns its report (plan_digest, and
+    result_digest for the lockstep families)."""
+    cls, gen, _, _ = node_family_specs()[name]
+    with tempfile.TemporaryDirectory(prefix="raftsql-chaos-") as d:
+        return cls(gen(seed), d, device=device,
+                   commit_rule=commit_rule).run()
+
+
 def _digests(r: dict):
-    return r["schedule_digest"], r["result_digest"]
+    return (r.get("schedule_digest") or r.get("plan_digest"),
+            r.get("result_digest"))
 
 
 def run_matrix(seed: int, only=None, device="cuda",
                commit_rule=None) -> int:
-    specs = family_specs()
+    kw = dict(device=device, commit_rule=commit_rule)
+    specs = {name: (lambda gen=gen: run_fused(gen(seed), **kw), True,
+                    fired)
+             for name, (gen, fired) in family_specs().items()}
+    specs.update({name: (lambda name=name: run_node(name, seed, **kw),
+                         det, fired)
+                  for name, (_, _, det, fired)
+                  in node_family_specs().items()})
     unknown = sorted(set(only or ()) - set(specs))
     if unknown:
         print(f"CHAOS FAIL: families not ported: {unknown} (ported: "
               f"{sorted(specs)})", file=sys.stderr)
         return 2
     ok = True
-    for name, (gen, fired) in specs.items():
+    for name, (run_fn, deterministic, fired) in specs.items():
         if only and name not in only:
             continue
-        reports = [run_fused(gen(seed), device=device,
-                             commit_rule=commit_rule) for _ in range(2)]
-        ok &= _check(
-            _digests(reports[0]) == _digests(reports[1]),
-            f"family {name}: non-deterministic "
-            f"({_digests(reports[0])} != {_digests(reports[1])})")
+        reports = [run_fn()]
+        if deterministic:
+            reports.append(run_fn())
+            ok &= _check(
+                _digests(reports[0]) == _digests(reports[1]),
+                f"family {name}: non-deterministic "
+                f"({_digests(reports[0])} != {_digests(reports[1])})")
         ok &= _check(fired(reports[0]),
                      f"family {name}: signature fault never fired "
                      f"({reports[0]})")
-        out = {"family": name, "seed": seed, "deterministic": True,
-               **reports[0]}
+        out = {"family": name, "seed": seed,
+               "deterministic": deterministic, **reports[0]}
         print(json.dumps(out, sort_keys=True))
     if ok:
         print(f"chaos matrix ok: seed={seed} families="
@@ -147,8 +201,9 @@ def run_matrix(seed: int, only=None, device="cuda",
 def _procs_not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"the process-plane {what} nemesis (the JAX package's "
-        "chaos/proc.py) runs real server processes of the distributed "
-        "runtime, which is not ported yet (ROADMAP Queue 1 item 8); "
+        "chaos/proc.py ProcReadChaosRunner/ProcTransferChaosRunner) is "
+        "not ported yet (ROADMAP Queue 1 item 8, its remainder: the "
+        "process chaos runners); "
         "pass --no-procs (with_procs=False) to run the fused arms")
 
 
@@ -325,7 +380,7 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=1,
                     help="fused steps per dispatch (epoch-framed when >1)")
     ap.add_argument("--matrix", action="store_true",
-                    help="sweep one seed through every fused family")
+                    help="sweep one seed through every ported family")
     ap.add_argument("--family", action="append", default=None,
                     help="run only this family (repeatable; implies "
                          "--matrix)")

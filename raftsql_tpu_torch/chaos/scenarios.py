@@ -1,13 +1,22 @@
-"""The fused chaos runners: drive the port's FusedClusterNode through a
-seeded `ChaosSchedule`, injecting faults at every seam, checking
-invariants every tick.
+"""The chaos runners: drive the port's runtimes through seeded
+schedules, injecting faults at every seam, checking invariants every
+tick.
 
-Port of the fused plane of raftsql_tpu/chaos/scenarios.py:
-`FusedChaosRunner` and the three nemesis runners built on it —
-`ReadNemesisRunner` (every read mode under skew, partitions and
+Port of the fused and node planes of raftsql_tpu/chaos/scenarios.py.
+The fused plane: `FusedChaosRunner` and the three nemesis runners built
+on it — `ReadNemesisRunner` (every read mode under skew, partitions and
 crashes), `QuorumChaosRunner` (flexible quorums and a witness peer) and
 `TransferChaosRunner` (graceful leadership transfers under the same
-faults).  Each takes `device` and `commit_rule`.  Fully
+faults).  The node plane (the distributed runtime, runtime/node.py
+RaftNode): `NodeClusterChaosRunner` (a lockstep cluster over the
+loopback transport: crashes, partitions, skew, wire-frame corruption),
+`SnapshotChaosRunner` (compaction + InstallSnapshot + crashes, ending in
+the convergence invariant), `MembershipChaosRunner` (node replacement
+through joint consensus under faults), and the two runners over real
+TCP sockets, `TcpClusterChaosRunner` and `TcpRebindChaosRunner`, whose
+histories are not bit-reproducible (kernel-scheduled arrival) but whose
+invariants must hold.  Each takes `device` and `commit_rule`.  The
+fused and lockstep runners are fully
 deterministic: one thread drives `tick()` manually, fault masks are
 numpy draws from the runner's seeded generator (copied to the inbox's
 device, never drawn by torch), crashes are simulated in-process, and
@@ -32,6 +41,8 @@ import hashlib
 import json
 import os
 import queue
+import socket
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -41,19 +52,36 @@ from raftsql_tpu_torch.chaos.invariants import (CommitMonotonic,
                                                 ElectionSafety,
                                                 InvariantViolation,
                                                 RegisterLinearizability,
+                                                RemovedQuorumSafety,
+                                                check_convergence,
                                                 check_log_matching)
-from raftsql_tpu_torch.chaos.schedule import ChaosSchedule
+from raftsql_tpu_torch.chaos.schedule import (LEADER_TARGET, ChaosSchedule,
+                                              MembershipChaosPlan,
+                                              NodeChaosPlan, TcpChaosPlan,
+                                              TcpRebindPlan)
 from raftsql_tpu_torch.config import LEADER, RaftConfig
 from raftsql_tpu_torch.core.state import resolve_device
-from raftsql_tpu_torch.runtime.db import iter_plain_batches
+from raftsql_tpu_torch.runtime.db import (_expand_commit_item,
+                                          iter_plain_batches)
 from raftsql_tpu_torch.runtime.fused import FusedClusterNode
-from raftsql_tpu_torch.runtime.node import CLOSED
+from raftsql_tpu_torch.runtime.node import CLOSED, RaftNode
 from raftsql_tpu_torch.storage import fsio
 from raftsql_tpu_torch.transport.faults import (asym_partition,
                                                 drop_messages,
                                                 hold_messages,
                                                 partition_peer,
                                                 release_messages)
+from raftsql_tpu_torch.transport.loopback import (LoopbackHub,
+                                                  LoopbackTransport)
+from raftsql_tpu_torch.transport.tcp import SendFaults, TcpTransport
+
+DEAD_ROLE = -1          # role code for a crashed node's safety-matrix row
+
+# Post-heal settle budget (NodeClusterChaosRunner.run): extra fault-free
+# ticks allowed for in-flight apply pipelines to drain before the
+# convergence check.  Healthy runs need 1-2 (one batched publish of
+# lag); the cap keeps a genuinely diverged peer a loud failure.
+SETTLE_TICKS_MAX = 40
 
 
 def _redirect_to_devnull(files) -> None:
@@ -83,6 +111,13 @@ def hard_crash_fused(node: FusedClusterNode) -> None:
             q.put_nowait(None)
         except queue.Full:               # pragma: no cover - bounded lag
             pass
+
+
+def hard_crash_node(node: RaftNode) -> None:
+    """Simulate a process kill of one RaftNode: WAL fd neutered, then
+    detached from the loopback hub (its 'NIC' goes dark)."""
+    _redirect_to_devnull([getattr(node.wal, "_f", None)])
+    node.transport.stop()
 
 
 def _power_loss(inj: fsio.StorageFaultInjector, data_dir: str,
@@ -1031,3 +1066,934 @@ class TransferChaosRunner(FusedChaosRunner):
         r = super()._report()
         r["plan_digest"] = self.plan.digest()
         return r
+
+
+# ---------------------------------------------------------------------------
+# The node plane: lockstep and TCP clusters of the distributed runtime.
+
+def _with_rule(cfg: RaftConfig, commit_rule: Optional[str]) -> RaftConfig:
+    return cfg if commit_rule is None \
+        else dataclasses.replace(cfg, commit_rule=commit_rule)
+
+
+class NodeClusterChaosRunner:
+    """Lockstep RaftNode cluster under a NodeChaosPlan.
+
+    P RaftNodes over the loopback transport, ticked manually in id
+    order (deterministic consensus schedule; envelope ids randomize WAL
+    bytes but not the schedule).  Faults: FaultPlan partitions,
+    per-node hard crash + restart-from-WAL, leader-targeted kills.
+    Invariants: election safety, per-node commit-stream durability
+    across restart, and cross-node log matching of live-published
+    (committed) entries.
+
+    `device` is where every node's consensus state steps (CUDA by
+    default; raises without a card); `commit_rule` overrides the
+    config's Phase-7 rule ("pallas" runs the quorum kernels).
+    """
+
+    def __init__(self, plan: NodeChaosPlan, tmpdir: str,
+                 cfg: Optional[RaftConfig] = None, peers: int = 3,
+                 device="cuda", commit_rule: Optional[str] = None):
+        self.plan = plan
+        self.tmpdir = tmpdir
+        self.P = peers
+        self.device = resolve_device(device)
+        self.cfg = _with_rule(cfg or RaftConfig(
+            num_groups=2, num_peers=peers, log_window=64,
+            max_entries_per_msg=4, election_ticks=10, heartbeat_ticks=1,
+            tick_interval_s=0.0), commit_rule)
+        self.hub = LoopbackHub()
+        self.nodes: List[Optional[RaftNode]] = [None] * peers
+        self.safety = ElectionSafety(LEADER)
+        self.monotonic = CommitMonotonic(peers, self.cfg.num_groups)
+        # Live-published (committed) history, shared: (g, idx) -> sql.
+        self._hist: Dict[Tuple[int, int], str] = {}
+        # Per node: everything IT has published live (must survive its
+        # own restarts).
+        self._published: List[Dict[Tuple[int, int], str]] = [
+            {} for _ in range(peers)]
+        self.report = {"crashes": 0, "restarts": 0, "partitions": 0,
+                       "asym_partitions": 0, "skew_ticks": 0,
+                       "corrupt_frames": 0, "commits": 0}
+        self._asym_src: Dict[int, int] = {}
+        # Peer slots that start UNBOOTED (provisioned spare capacity,
+        # membership plans): slot -> first boot tick.  The restart path
+        # then boots them fresh — "a new machine joins".
+        self._initial_down: Dict[int, int] = {}
+        self._t = 0
+        # Wire-corruption seam: mangle encoded frames during the plan's
+        # corruption windows; the CRC framing must catch every mangled
+        # frame (hub.on_corrupt charges the receiving node's metrics).
+        # The rng draws per route call, which is deterministic here —
+        # the lockstep tick order serializes every send.
+        if plan.corruptions:
+            rng_c = np.random.default_rng(plan.seed + 3)
+
+            def _mangle(src: int, dst: int, blob: bytes) -> bytes:
+                for w in self.plan.corruptions:
+                    if w.start <= self._t < w.end \
+                            and rng_c.random() < w.p:
+                        i = int(rng_c.integers(0, len(blob)))
+                        return blob[:i] + bytes([blob[i] ^ 0x5A]) \
+                            + blob[i + 1:]
+                return blob
+
+            self.hub.mangler = _mangle
+            self.hub.on_corrupt = self._note_corrupt
+
+    def _note_corrupt(self, src: int, dst: int) -> None:
+        self.report["corrupt_frames"] += 1
+        n = self.nodes[dst - 1]
+        if n is not None:
+            n.metrics.faults_corrupt_frames += 1
+
+    # Subclass hooks (SnapshotChaosRunner): replay observation, per-tick
+    # work (compaction cadence), commit application, final invariants.
+    def _on_replay(self, p: int,
+                   replayed: Dict[Tuple[int, int], str],
+                   node: RaftNode) -> None:
+        pass
+
+    def _apply_commit(self, p: int, g: int, idx: int, sql: str) -> None:
+        pass
+
+    def _pre_tick(self, t: int, healing: bool,
+                  rng: np.random.Generator) -> None:
+        pass
+
+    def _post_tick(self, t: int, healing: bool) -> None:
+        pass
+
+    def _settled(self) -> bool:
+        """Post-heal quiescence probe for the bounded settle loop (see
+        run()): True once in-flight apply pipelines have drained.  The
+        base runner has no apply plane to wait on."""
+        return True
+
+    def _final_check(self) -> None:
+        pass
+
+    def _data_dir(self, p: int) -> str:
+        return os.path.join(self.tmpdir, f"chaos-node-{p + 1}")
+
+    def _boot(self, p: int) -> RaftNode:
+        n = RaftNode(p + 1, self.P, self.cfg,
+                     LoopbackTransport(self.hub), self._data_dir(p),
+                     device=self.device)
+        n.enable_tracing()          # flight-recorder feed (host spans)
+        n.start(threaded=False)
+        # Replay drain: every WAL entry then the nil sentinel
+        # (raft.go:122-134).  Verify durability of everything this node
+        # ever acked; do NOT fold replay into the shared history —
+        # replay includes uncommitted entries that may legally be
+        # conflict-truncated later.
+        replayed: Dict[Tuple[int, int], str] = {}
+        while True:
+            try:
+                item = n.commit_q.get_nowait()
+            except queue.Empty:
+                break
+            if item is None:
+                break
+            if item is CLOSED:
+                break
+            for (g, idx, sql) in _expand_commit_item(item, n):
+                replayed[(g, idx)] = sql
+        for (g, idx), sql in self._published[p].items():
+            if idx <= n.payload_log.start(g):
+                # Compacted away before the crash: the entry lives on in
+                # the state-machine snapshot the compaction was gated on
+                # (the SnapshotChaosRunner's SM carries it; replay
+                # legitimately starts above the floor).
+                continue
+            got = replayed.get((g, idx))
+            if got != sql:
+                raise InvariantViolation(
+                    f"node {p}: committed entry g{g} i{idx} "
+                    f"{'lost' if got is None else 'changed'} across "
+                    f"restart")
+        self._on_replay(p, replayed, n)
+        return n
+
+    def _resolve(self, peer: int) -> int:
+        if peer != LEADER_TARGET:
+            return peer
+        for n in self.nodes:
+            if n is not None and n.leader_of(0) >= 0:
+                return int(n.leader_of(0))
+        return 0
+
+    def _drain_live(self) -> None:
+        for p, n in enumerate(self.nodes):
+            if n is None:
+                continue
+            while True:
+                try:
+                    item = n.commit_q.get_nowait()
+                except queue.Empty:
+                    break
+                if item is None or item is CLOSED:
+                    continue
+                for (g, idx, sql) in _expand_commit_item(item, n):
+                    prev = self._hist.setdefault((g, idx), sql)
+                    if prev != sql:
+                        raise InvariantViolation(
+                            f"log matching: node {p} committed g{g} "
+                            f"i{idx} {sql!r} but {prev!r} was committed")
+                    self._published[p][(g, idx)] = sql
+                    self._apply_commit(p, g, idx, sql)
+                    self.report["commits"] += 1
+
+    def _observe(self, t: int) -> None:
+        G = self.cfg.num_groups
+        roles = np.full((self.P, G), DEAD_ROLE, np.int64)
+        terms = np.zeros((self.P, G), np.int64)
+        commits = np.zeros((self.P, G), np.int64)
+        for p, n in enumerate(self.nodes):
+            if n is None:
+                continue
+            roles[p] = n._last_role
+            terms[p] = n._hard_np[:, 0]
+            commits[p] = n._hard_np[:, 2]
+        self.safety.observe(t, roles, terms)
+        # Dead rows read 0 — mask them to each node's running floor so
+        # a down node never looks like a regression.
+        commits = np.maximum(commits, self.monotonic._hi * (roles < 0))
+        self.monotonic.observe(t, commits)
+
+    def run(self) -> dict:
+        inj = fsio.StorageFaultInjector()   # no rules: forces the
+        rng = np.random.default_rng(self.plan.seed + 1)  # python WAL
+        crash_at: Dict[int, list] = {}
+        for c in self.plan.crashes:
+            crash_at.setdefault(c.tick, []).append(c)
+        down_until: Dict[int, int] = {}
+        total = self.plan.ticks + self.plan.heal_ticks
+        with fsio.installed(inj):
+            for p in range(self.P):
+                if p not in self._initial_down:
+                    self.nodes[p] = self._boot(p)
+            try:
+                for t in range(total):
+                    self._t = t
+                    # The heal window: no new faults, no new load —
+                    # in-flight recovery (restarts, transfers) finishes
+                    # and the survivors must converge (_final_check).
+                    healing = t >= self.plan.ticks
+                    for c in crash_at.get(t, ()):
+                        p = self._resolve(c.peer)
+                        if self.nodes[p] is None:
+                            continue
+                        hard_crash_node(self.nodes[p])
+                        self.nodes[p] = None
+                        down_until[p] = t + c.down
+                        self.report["crashes"] += 1
+                    for p in [p for p, d in down_until.items()
+                              if d <= t]:
+                        del down_until[p]
+                        self.nodes[p] = self._boot(p)
+                        self.report["restarts"] += 1
+                    for p in [p for p, bt in self._initial_down.items()
+                              if bt <= t]:
+                        # Provisioned spare slot comes online: a FRESH
+                        # machine (empty WAL) joining the cluster.
+                        del self._initial_down[p]
+                        self.nodes[p] = self._boot(p)
+                        self.report["boots"] = \
+                            self.report.get("boots", 0) + 1
+                    self.hub.faults.heal()
+                    incs: Optional[Tuple[int, ...]] = None
+                    if not healing:
+                        for w in self.plan.partitions:
+                            if w.start <= t < w.end:
+                                if t == w.start:
+                                    self.report["partitions"] += 1
+                                self.hub.faults.isolate(
+                                    w.peer + 1, range(1, self.P + 1))
+                        for wi, w in enumerate(self.plan.asym_partitions):
+                            if w.start <= t < w.end:
+                                src = self._asym_src.get(wi)
+                                if src is None:
+                                    src = self._resolve(w.src)
+                                    self._asym_src[wi] = src
+                                    self.report["asym_partitions"] += 1
+                                self.hub.faults.block(src + 1, w.dst + 1)
+                        for w in self.plan.skews:
+                            if w.start <= t < w.end:
+                                incs = w.incs
+                    # Subclass seam (membership runner: seeded per-link
+                    # drops, scripted admin churn).  Draw order is fixed,
+                    # so determinism survives the hook.
+                    self._pre_tick(t, healing, rng)
+                    if not healing:
+                        if rng.random() < self.plan.prop_rate:
+                            alive = [p for p, n in enumerate(self.nodes)
+                                     if n is not None]
+                            src = alive[int(rng.integers(0, len(alive)))]
+                            g = int(rng.integers(0, self.cfg.num_groups))
+                            self.nodes[src].propose(
+                                g, f"SET k{g} v{t}".encode())
+                    for p, n in enumerate(self.nodes):
+                        if n is None:
+                            continue
+                        inc = 1 if incs is None else int(incs[p])
+                        if inc != 1:
+                            self.report["skew_ticks"] += abs(inc - 1)
+                            n.metrics.faults_skew_ticks += abs(inc - 1)
+                        n.tick(timer_inc=inc)
+                    self._drain_live()
+                    self._observe(t)
+                    self._post_tick(t, healing)
+                # Bounded settle: the heal window can end on the very
+                # tick the leader commits its last entry, leaving the
+                # followers' applied indexes a publish batch behind
+                # (the PR-12 batched commit stream delivers on the NEXT
+                # tick).  Tick fault-free until the subclass reports
+                # quiescence — deterministic (no load, no rng draws)
+                # and bounded, so a peer that never catches up still
+                # fails `_final_check` loudly instead of hanging.
+                settle = 0
+                while settle < SETTLE_TICKS_MAX and not self._settled():
+                    self.hub.faults.heal()
+                    for n in self.nodes:
+                        if n is not None:
+                            n.tick()
+                    self._drain_live()
+                    self._observe(total + settle)
+                    settle += 1
+                self.report["settle_ticks"] = settle
+                self._final_check()
+            except InvariantViolation as e:
+                self._flight_dump(e)
+                raise
+            finally:
+                for n in self.nodes:
+                    if n is not None:
+                        n.stop()
+        return {"plan_digest": self.plan.digest(),
+                "result_digest": self._result_digest(), **self.report}
+
+    def _flight_dump(self, err: Exception) -> None:
+        """Host-plane flight dump (this plane has no device ring): the
+        first live node's spans, next to the failing seed."""
+        from raftsql_tpu_torch.obs.flight import FlightRecorder
+        tracer = next((n.tracer for n in self.nodes if n is not None),
+                      None)
+        FlightRecorder().dump(
+            f"node-seed{self.plan.seed}", repr(err), tracer=tracer,
+            meta={"seed": self.plan.seed,
+                  "plan_digest": self.plan.digest(),
+                  "report": dict(self.report)})
+
+    def _result_digest(self) -> str:
+        """Digest of the run's committed (unwrapped) history + fault
+        counts: identical across two runs of one plan — envelope ids
+        randomize WAL bytes but never the lockstep schedule or the
+        decoded commit stream."""
+        hist = sorted((g, i, s) for (g, i), s in self._hist.items())
+        blob = json.dumps({"hist": hist, "report": self.report},
+                          sort_keys=True, separators=(",", ":")).encode()
+        return hashlib.sha256(blob).hexdigest()[:16]
+
+
+class SnapshotChaosRunner(NodeClusterChaosRunner):
+    """Aggressive compaction + InstallSnapshot + crash interleavings.
+
+    Each node carries a tiny per-group KV state machine applied from
+    its commit stream (this runner IS the apply plane), exposed through
+    the node's snapshot provider/installer hooks as a JSON blob, and
+    compacts its own log on the plan's cadence gated on its own applied
+    index — the RaftDB calling convention (runtime/db.py).  The plan
+    crashes one follower long enough that every retained log floor
+    passes it by: its restart can only be served by a full state
+    transfer, while a second (leader-targeted) crash lands after the
+    transfer window.  After the fault-free heal window the survivors
+    must CONVERGE — same applied index, identical state, the installed
+    peer included (chaos/invariants.py check_convergence); this is the
+    check log matching cannot give once the log below a floor is gone.
+    """
+
+    def __init__(self, plan: NodeChaosPlan, tmpdir: str, peers: int = 3,
+                 device="cuda", commit_rule: Optional[str] = None):
+        cfg = RaftConfig(num_groups=2, num_peers=peers, log_window=16,
+                         max_entries_per_msg=4, election_ticks=10,
+                         heartbeat_ticks=1, tick_interval_s=0.0)
+        super().__init__(plan, tmpdir, cfg=cfg, peers=peers,
+                         device=device, commit_rule=commit_rule)
+        G = self.cfg.num_groups
+        self._sm: List[List[Dict[str, str]]] = [
+            [dict() for _ in range(G)] for _ in range(peers)]
+        self._sm_applied = np.zeros((peers, G), np.int64)
+        self.report.update({"snapshots_installed": 0,
+                            "snapshots_sent": 0, "compactions": 0})
+
+    def _boot(self, p: int) -> RaftNode:
+        n = super()._boot(p)
+        n.snapshot_provider = lambda g, p=p: self._provide(p, g)
+        n.snapshot_installer = \
+            lambda g, idx, blob, p=p: self._install(p, g, idx, blob)
+        return n
+
+    def _on_replay(self, p: int, replayed, node: RaftNode) -> None:
+        # The crash took the SM with it (these dicts ARE the apply
+        # plane): rebuild from the replay stream, exactly as RaftDB's
+        # delete-and-replay does (reference db.go:27-29).
+        G = self.cfg.num_groups
+        self._sm[p] = [dict() for _ in range(G)]
+        self._sm_applied[p] = 0
+        for (g, idx) in sorted(replayed):
+            self._apply_sm(p, g, idx, replayed[(g, idx)])
+
+    def _apply_commit(self, p: int, g: int, idx: int, sql: str) -> None:
+        self._apply_sm(p, g, idx, sql)
+
+    def _apply_sm(self, p: int, g: int, idx: int, sql: str) -> None:
+        parts = sql.split(" ")
+        if len(parts) == 3 and parts[0] == "SET":
+            self._sm[p][g][parts[1]] = parts[2]
+        if idx > self._sm_applied[p, g]:
+            self._sm_applied[p, g] = idx
+
+    def _provide(self, p: int, g: int):
+        blob = json.dumps(sorted(self._sm[p][g].items())).encode()
+        return int(self._sm_applied[p, g]), blob
+
+    def _install(self, p: int, g: int, idx: int, blob: bytes) -> None:
+        self._sm[p][g] = dict(json.loads(blob.decode()))
+        self._sm_applied[p, g] = idx
+        self.report["snapshots_installed"] += 1
+
+    def _post_tick(self, t: int, healing: bool) -> None:
+        ce = self.plan.compact_every
+        if not ce or not t or t % ce:
+            return
+        for p, n in enumerate(self.nodes):
+            if n is None:
+                continue
+            applied = {g: int(self._sm_applied[p, g])
+                       for g in range(self.cfg.num_groups)}
+            if n.compact(applied, keep=self.plan.compact_keep):
+                self.report["compactions"] += 1
+
+    def _settled(self) -> bool:
+        """Quiesced once every group's survivors agree on the applied
+        index — the state-identity half of convergence is then
+        `_final_check`'s to judge (a snapshot that installed WRONG
+        state converges in index and still fails there)."""
+        for g in range(self.cfg.num_groups):
+            tops = {int(self._sm_applied[p, g])
+                    for p, n in enumerate(self.nodes) if n is not None}
+            if len(tops) > 1:
+                return False
+        return True
+
+    def _final_check(self) -> None:
+        self.report["snapshots_sent"] = sum(
+            n.metrics.snapshots_sent for n in self.nodes
+            if n is not None)
+        for g in range(self.cfg.num_groups):
+            survivors = [(p, int(self._sm_applied[p, g]), self._sm[p][g])
+                         for p, n in enumerate(self.nodes)
+                         if n is not None]
+            check_convergence(g, survivors, context="post-heal")
+
+
+def _free_ports(n: int) -> List[int]:
+    """n OS-assigned localhost ports (bind-and-release; the runs bind
+    them back immediately, and a collision fails loudly on bind)."""
+    socks, ports = [], []
+    for _ in range(n):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+        ports.append(s.getsockname()[1])
+    for s in socks:
+        s.close()
+    return ports
+
+
+class TcpClusterChaosRunner:
+    """Chaos under the REAL TCP transport (transport/tcp.py).
+
+    P RaftNodes ticked manually, but their frames cross actual
+    localhost sockets through each transport's SendFaults seam: seeded
+    send-side drops, ONE-directional blocks (asymmetric partition),
+    frame corruption (the receiver's CRC framing must drop + count
+    every mangled frame and keep its recv loop alive), and delayed
+    frames (out-of-order arrival).  Kernel scheduling orders delivery,
+    so this plane is NOT bit-reproducible — the schedule is
+    deterministic from the seed and the invariants (election safety,
+    commit monotonicity, cross-node log matching of the published
+    streams) must hold on every run, which is exactly the guarantee a
+    real deployment gets.  After the heal window the cluster must have
+    made real progress (commits floor asserted by callers).
+    """
+
+    def __init__(self, plan: TcpChaosPlan, tmpdir: str, peers: int = 3,
+                 device="cuda", commit_rule: Optional[str] = None):
+        self.plan = plan
+        self.tmpdir = tmpdir
+        self.P = peers
+        self.device = resolve_device(device)
+        self.cfg = _with_rule(RaftConfig(
+            num_groups=2, num_peers=peers, log_window=64,
+            max_entries_per_msg=4, election_ticks=10, heartbeat_ticks=1,
+            tick_interval_s=0.0), commit_rule)
+        self.nodes: List[Optional[RaftNode]] = [None] * peers
+        self.safety = ElectionSafety(LEADER)
+        self.monotonic = CommitMonotonic(peers, self.cfg.num_groups)
+        self._hist: Dict[Tuple[int, int], str] = {}
+        self.report = {"commits": 0, "sent_dropped": 0,
+                       "sent_corrupted": 0, "sent_delayed": 0,
+                       "corrupt_frames_dropped": 0, "asym_partitions": 0}
+
+    def _drain_live(self) -> None:
+        for p, n in enumerate(self.nodes):
+            if n is None:
+                continue
+            while True:
+                try:
+                    item = n.commit_q.get_nowait()
+                except queue.Empty:
+                    break
+                if item is None or item is CLOSED:
+                    continue
+                for (g, idx, sql) in _expand_commit_item(item, n):
+                    prev = self._hist.setdefault((g, idx), sql)
+                    if prev != sql:
+                        raise InvariantViolation(
+                            f"log matching: node {p} committed g{g} "
+                            f"i{idx} {sql!r} but {prev!r} was committed")
+                    self.report["commits"] += 1
+
+    def _observe(self, t: int) -> None:
+        G = self.cfg.num_groups
+        roles = np.full((self.P, G), DEAD_ROLE, np.int64)
+        terms = np.zeros((self.P, G), np.int64)
+        commits = np.zeros((self.P, G), np.int64)
+        for p, n in enumerate(self.nodes):
+            if n is None:
+                continue
+            roles[p] = n._last_role
+            terms[p] = n._hard_np[:, 0]
+            commits[p] = n._hard_np[:, 2]
+        self.safety.observe(t, roles, terms)
+        commits = np.maximum(commits, self.monotonic._hi * (roles < 0))
+        self.monotonic.observe(t, commits)
+
+    def run(self) -> dict:
+        ports = _free_ports(self.P)
+        urls = [f"127.0.0.1:{port}" for port in ports]
+        faults = [SendFaults(self.plan.seed * 131 + p)
+                  for p in range(self.P)]
+        rng = np.random.default_rng(self.plan.seed + 1)
+        try:
+            for p in range(self.P):
+                tr = TcpTransport(urls, p)
+                tr.faults = faults[p]
+                n = RaftNode(p + 1, self.P, self.cfg, tr,
+                             os.path.join(self.tmpdir,
+                                          f"tcp-node-{p + 1}"),
+                             device=self.device)
+                n.start(threaded=False)
+                self.nodes[p] = n
+            total = self.plan.ticks + self.plan.heal_ticks
+            for t in range(total):
+                healing = t >= self.plan.ticks
+                for p, f in enumerate(faults):
+                    f.heal()
+                    drop = corrupt = delay = dsec = 0.0
+                    if not healing:
+                        for w in self.plan.drops:
+                            if w.start <= t < w.end:
+                                drop = w.p
+                        for w in self.plan.corruptions:
+                            if w.start <= t < w.end:
+                                corrupt = w.p
+                        for w in self.plan.delays:
+                            if w.start <= t < w.end:
+                                delay = w.p
+                                dsec = w.latency / 1000.0
+                        for w in self.plan.asym_partitions:
+                            if w.start <= t < w.end and p == w.src:
+                                f.block(w.dst + 1)
+                                if t == w.start:
+                                    self.report["asym_partitions"] += 1
+                    f.set_rates(drop, corrupt, delay, dsec)
+                if not healing and rng.random() < self.plan.prop_rate:
+                    g = int(rng.integers(0, self.cfg.num_groups))
+                    src = int(rng.integers(0, self.P))
+                    self.nodes[src].propose(g, f"SET k{g} v{t}".encode())
+                for n in self.nodes:
+                    n.tick()
+                # Let frames cross the sockets before the next tick:
+                # the recv threads stage asynchronously.
+                time.sleep(0.002)
+                self._drain_live()
+                self._observe(t)
+        finally:
+            for n in self.nodes:
+                if n is not None:
+                    n.stop()
+        self.report["sent_dropped"] = sum(f.dropped for f in faults)
+        self.report["sent_corrupted"] = sum(f.corrupted for f in faults)
+        self.report["sent_delayed"] = sum(f.delayed for f in faults)
+        self.report["corrupt_frames_dropped"] = sum(
+            n.metrics.faults_corrupt_frames for n in self.nodes
+            if n is not None)
+        return {"plan_digest": self.plan.digest(), **self.report}
+
+
+class MembershipChaosRunner(NodeClusterChaosRunner):
+    """Dynamic-membership churn under faults (raftsql_tpu_torch/membership/).
+
+    The node-replacement story, scripted by a MembershipChaosPlan: a
+    cluster booted on `initial_voters` over P provisioned slots loses a
+    voter to a permanent SIGKILL, boots a spare slot as a FRESH machine
+    (empty WAL), adds it as a learner, promotes it through joint
+    consensus once caught up, and removes the dead member — while
+    drops, partitions, and transient crashes land mid-churn.  Admin ops
+    are issued against the group's current leader and retried every
+    tick until the applied configuration reflects them (exactly an
+    operator's retry loop, including aborting a change whose entry was
+    lost with its leader).
+
+    On top of the base invariants (single leader per term, per-node
+    durability across restart, log matching, commit monotonicity) every
+    tick observes RemovedQuorumSafety — no quorum from a removed
+    majority — and the final check asserts every live node converged on
+    `plan.final_voters` with zero learners AND that the cluster still
+    commits on the post-churn configuration.  Fully deterministic
+    (lockstep ticks, seeded draws): two runs of one plan must produce
+    identical result digests.
+    """
+
+    # Abort-and-reissue horizon for an admin op whose conf entry was
+    # lost (leader died holding the one-in-flight latch, proposal
+    # dropped): an operator timeout, in ticks.
+    RETRY_TICKS = 60
+
+    def __init__(self, plan: MembershipChaosPlan, tmpdir: str,
+                 device="cuda", commit_rule: Optional[str] = None):
+        cfg = RaftConfig(
+            num_groups=2, num_peers=plan.peers, log_window=64,
+            max_entries_per_msg=4, election_ticks=10, heartbeat_ticks=1,
+            tick_interval_s=0.0, initial_voters=plan.initial_voters)
+        super().__init__(plan, tmpdir, cfg=cfg, peers=plan.peers,
+                         device=device, commit_rule=commit_rule)
+        for b in plan.boots:
+            self._initial_down[b.peer] = b.tick
+        self.removed_safety = RemovedQuorumSafety(LEADER)
+        self._events = sorted(plan.events, key=lambda e: e.tick)
+        G = self.cfg.num_groups
+        self._ev_done = [0] * G          # per-group next-event cursor
+        # g -> (node the pending op was issued at, issue tick).
+        self._issued: Dict[int, Tuple[int, int]] = {}
+        # report["commits"] at the moment every group settled on the
+        # final config — progress after this point proves the new
+        # voter set actually commits.
+        self._settle_commits: Optional[int] = None
+        self.report.update({"boots": 0, "member_ops_applied": 0,
+                            "member_op_retries": 0,
+                            "member_op_aborts": 0})
+
+    # -- scripted admin churn ------------------------------------------
+
+    def _op_complete(self, g: int, op: str, peer: int) -> bool:
+        """The applied config of some live node reflects the op and the
+        group left its joint state (replication spreads it from there;
+        the next op validates against the leader's view anyway)."""
+        for n in self.nodes:
+            if n is None or n.membership is None:
+                continue
+            c = n.membership.config(g)
+            if c.is_joint:
+                continue
+            bit = 1 << peer
+            if op == "add_learner" and c.learners & bit:
+                return True
+            if op == "promote" and c.voters & bit \
+                    and not c.learners & bit:
+                return True
+            if op == "remove" and c.index > 0 \
+                    and not (c.voters | c.joint) & bit:
+                return True
+            if op == "remove_learner" and c.index > 0 \
+                    and not c.learners & bit:
+                return True
+        return False
+
+    def _leader_node(self, g: int) -> Optional[int]:
+        for p, n in enumerate(self.nodes):
+            if n is not None and n._last_role[g] == LEADER:
+                return p
+        return None
+
+    def _drive_events(self, t: int) -> None:
+        from raftsql_tpu_torch.membership import MembershipError
+        for g in range(self.cfg.num_groups):
+            i = self._ev_done[g]
+            if i >= len(self._events):
+                continue
+            ev = self._events[i]
+            if t < ev.tick:
+                continue
+            if self._op_complete(g, ev.op, ev.peer):
+                self._ev_done[g] += 1
+                self._issued.pop(g, None)
+                self.report["member_ops_applied"] += 1
+                continue
+            lead = self._leader_node(g)
+            if lead is None:
+                continue
+            try:
+                self.nodes[lead].member_change(g, ev.op, ev.peer)
+                self._issued[g] = (lead, t)
+            except MembershipError:
+                # Not caught up yet / change in flight / transient
+                # joint state: the operator retry loop.  If the latch
+                # holder sat on an in-flight change past the horizon
+                # (its conf entry died with a deposed leader), abort it
+                # there and reissue fresh.
+                self.report["member_op_retries"] += 1
+                src_t = self._issued.get(g)
+                if src_t is not None \
+                        and t - src_t[1] > self.RETRY_TICKS:
+                    src = self.nodes[src_t[0]]
+                    if src is not None and src.membership is not None:
+                        src.membership.abort_pending(g)
+                        self.report["member_op_aborts"] += 1
+                    self._issued[g] = (src_t[0], t)
+
+    def _pre_tick(self, t: int, healing: bool,
+                  rng: np.random.Generator) -> None:
+        if not healing:
+            # Per-link drop windows: the loopback hub has no rate seam,
+            # so each active window blocks a seeded subset of directed
+            # links for THIS tick (heal() lifts them next tick).  Draw
+            # count per tick is fixed — determinism holds.
+            for w in self.plan.drops:
+                if w.start <= t < w.end:
+                    for s in range(self.P):
+                        for d in range(self.P):
+                            if s != d and rng.random() < w.p:
+                                self.hub.faults.block(s + 1, d + 1)
+        self._drive_events(t)
+        if healing and self._needs_settle_load():
+            # Keep a trickle of writes flowing until the post-churn
+            # config has demonstrably committed (the heal window's
+            # no-new-load rule bends exactly this far: proving the
+            # final voter set commits IS the recovery being waited on).
+            for g in range(self.cfg.num_groups):
+                lead = self._leader_node(g)
+                if lead is not None:
+                    self.nodes[lead].propose(
+                        g, f"SET settle{g} t{t}".encode())
+
+    def _needs_settle_load(self) -> bool:
+        return self._settle_commits is None \
+            or self.report["commits"] <= self._settle_commits + 5
+
+    # -- invariants ----------------------------------------------------
+
+    def _final_mask(self) -> int:
+        want = 0
+        for v in self.plan.final_voters:
+            want |= 1 << v
+        return want
+
+    def _post_tick(self, t: int, healing: bool) -> None:
+        if self._settle_commits is not None:
+            return
+        if any(i < len(self._events) for i in self._ev_done):
+            return
+        want = self._final_mask()
+        for n in self.nodes:
+            if n is None or n.membership is None:
+                continue
+            for g in range(self.cfg.num_groups):
+                c = n.membership.config(g)
+                if c.is_joint or c.voters != want:
+                    return
+        self._settle_commits = self.report["commits"]
+
+    def _observe(self, t: int) -> None:
+        super()._observe(t)
+        G = self.cfg.num_groups
+        roles = np.full((self.P, G), DEAD_ROLE, np.int64)
+        for p, n in enumerate(self.nodes):
+            if n is not None:
+                roles[p] = n._last_role
+
+        def voter_of(p: int, g: int) -> bool:
+            n = self.nodes[p]
+            return n is not None and n.membership is not None \
+                and bool(n.membership.voter_mask(g) >> p & 1)
+
+        live = [n.membership.voter_mask for n in self.nodes
+                if n is not None and n.membership is not None]
+        self.removed_safety.observe(t, roles, voter_of, live)
+
+    def _final_check(self) -> None:
+        want = self._final_mask()
+        for g in range(self.cfg.num_groups):
+            for p, n in enumerate(self.nodes):
+                if n is None or n.membership is None:
+                    continue
+                c = n.membership.config(g)
+                if c.is_joint or c.voters != want or c.learners:
+                    raise InvariantViolation(
+                        f"post-heal g={g}: node {p} ended on "
+                        f"voters={c.voters:#x} joint={c.is_joint} "
+                        f"learners={c.learners:#x}, wanted "
+                        f"voters={want:#x} stable")
+        if self._settle_commits is None:
+            raise InvariantViolation(
+                "the scripted membership churn never completed: "
+                f"per-group event cursors {self._ev_done} of "
+                f"{len(self._events)}")
+        if self.report["commits"] <= self._settle_commits:
+            raise InvariantViolation(
+                "no commits observed on the post-churn configuration "
+                f"(stuck at {self._settle_commits})")
+
+
+class TcpRebindChaosRunner:
+    """TCP-plane crash/restart with PORT REBINDING (the ROADMAP chaos
+    frontier item): a TcpRebindPlan stops nodes — their listeners
+    close, their ports are released — and restarts each on the SAME
+    port and data dir `down` ticks later.  Peers' sender threads must
+    reconnect through their backoff loop, the rebound listener must
+    accept them, and the restarted node must catch up on everything
+    committed while it was away.  Same reproducibility posture as
+    TcpClusterChaosRunner: the schedule is deterministic from the
+    seed, the invariants (election safety, commit monotonicity, log
+    matching of published streams) must hold on every run, but
+    kernel-scheduled arrival keeps the history non-bit-reproducible.
+    """
+
+    def __init__(self, plan: TcpRebindPlan, tmpdir: str, peers: int = 3,
+                 device="cuda", commit_rule: Optional[str] = None):
+        self.plan = plan
+        self.tmpdir = tmpdir
+        self.P = peers
+        self.device = resolve_device(device)
+        self.cfg = _with_rule(RaftConfig(
+            num_groups=2, num_peers=peers, log_window=64,
+            max_entries_per_msg=4, election_ticks=10, heartbeat_ticks=1,
+            tick_interval_s=0.0), commit_rule)
+        self.nodes: List[Optional[RaftNode]] = [None] * peers
+        self.safety = ElectionSafety(LEADER)
+        self.monotonic = CommitMonotonic(peers, self.cfg.num_groups)
+        self._hist: Dict[Tuple[int, int], str] = {}
+        self._urls: List[str] = []
+        self.report = {"commits": 0, "stops": 0, "rebinds": 0}
+
+    def _boot(self, p: int) -> RaftNode:
+        tr = TcpTransport(self._urls, p)
+        n = RaftNode(p + 1, self.P, self.cfg, tr,
+                     os.path.join(self.tmpdir, f"rebind-node-{p + 1}"),
+                     device=self.device)
+        n.start(threaded=False)
+        return n
+
+    def _resolve(self, peer: int) -> int:
+        if peer != LEADER_TARGET:
+            return peer
+        for n in self.nodes:
+            if n is not None and n.leader_of(0) >= 0:
+                return int(n.leader_of(0))
+        return 0
+
+    def _drain_live(self) -> None:
+        for p, n in enumerate(self.nodes):
+            if n is None:
+                continue
+            while True:
+                try:
+                    item = n.commit_q.get_nowait()
+                except queue.Empty:
+                    break
+                if item is None or item is CLOSED:
+                    continue
+                for (g, idx, sql) in _expand_commit_item(item, n):
+                    prev = self._hist.setdefault((g, idx), sql)
+                    if prev != sql:
+                        raise InvariantViolation(
+                            f"log matching: node {p} committed g{g} "
+                            f"i{idx} {sql!r} but {prev!r} was committed")
+                    self.report["commits"] += 1
+
+    def _observe(self, t: int) -> None:
+        G = self.cfg.num_groups
+        roles = np.full((self.P, G), DEAD_ROLE, np.int64)
+        terms = np.zeros((self.P, G), np.int64)
+        commits = np.zeros((self.P, G), np.int64)
+        for p, n in enumerate(self.nodes):
+            if n is None:
+                continue
+            roles[p] = n._last_role
+            terms[p] = n._hard_np[:, 0]
+            commits[p] = n._hard_np[:, 2]
+        self.safety.observe(t, roles, terms)
+        commits = np.maximum(commits, self.monotonic._hi * (roles < 0))
+        self.monotonic.observe(t, commits)
+
+    def run(self) -> dict:
+        ports = _free_ports(self.P)
+        self._urls = [f"127.0.0.1:{port}" for port in ports]
+        rng = np.random.default_rng(self.plan.seed + 1)
+        restart_at: Dict[int, list] = {}
+        for c in self.plan.restarts:
+            restart_at.setdefault(c.tick, []).append(c)
+        down_until: Dict[int, int] = {}
+        total = self.plan.ticks + self.plan.heal_ticks
+        try:
+            for p in range(self.P):
+                self.nodes[p] = self._boot(p)
+            for t in range(total):
+                healing = t >= self.plan.ticks
+                for c in restart_at.get(t, ()):
+                    p = self._resolve(c.peer)
+                    if self.nodes[p] is None:
+                        continue
+                    # Graceful stop: the listener closes and the PORT
+                    # IS RELEASED (crash-without-rebind is the node
+                    # runner's family; this one is about the rebind).
+                    self.nodes[p].stop()
+                    self.nodes[p] = None
+                    down_until[p] = t + c.down
+                    self.report["stops"] += 1
+                for p in [p for p, d in down_until.items() if d <= t]:
+                    del down_until[p]
+                    # Same port, same data dir: replay-from-WAL, then
+                    # peers reconnect into the rebound listener.
+                    self.nodes[p] = self._boot(p)
+                    self.report["rebinds"] += 1
+                if not healing and rng.random() < self.plan.prop_rate:
+                    alive = [p for p, n in enumerate(self.nodes)
+                             if n is not None]
+                    src = alive[int(rng.integers(0, len(alive)))]
+                    g = int(rng.integers(0, self.cfg.num_groups))
+                    self.nodes[src].propose(g, f"SET k{g} v{t}".encode())
+                for n in self.nodes:
+                    if n is not None:
+                        n.tick()
+                time.sleep(0.002)
+                self._drain_live()
+                self._observe(t)
+            # Catch-up check: every node is back, and no node's commit
+            # trails the cluster max by more than one append batch
+            # (the last heartbeat's commit broadcast may be in flight).
+            commits = np.stack([n._hard_np[:, 2] for n in self.nodes])
+            spread = commits.max(axis=0) - commits.min(axis=0)
+            if (spread > self.cfg.max_entries_per_msg).any():
+                raise InvariantViolation(
+                    f"post-heal catch-up failed: commit spread "
+                    f"{spread.tolist()} across rebound nodes")
+        finally:
+            for n in self.nodes:
+                if n is not None:
+                    n.stop()
+        return {"plan_digest": self.plan.digest(), **self.report}

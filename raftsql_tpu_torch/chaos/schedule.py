@@ -5,7 +5,10 @@ Port of the fused-plane part of raftsql_tpu/chaos/schedule.py (pure
 numpy, copied so the port imports nothing of the JAX package): the
 window and fault dataclasses, `ChaosSchedule`, `generate(seed)`, the
 fused family generators, and the read, transfer and quorum nemesis plans
-with their falsification plans.  Every schedule derives from one integer seed
+with their falsification plans, and the node-plane plans of the
+distributed runtime's families (NodeChaosPlan, TcpChaosPlan,
+MembershipChaosPlan, TcpRebindPlan) with their generators.  Every
+schedule derives from one integer seed
 via `numpy.random.default_rng`, and `digest()` hashes the canonical
 JSON form with sha256 — the same bytes as the JAX package's, so a port
 schedule hashes to the reference's for the same seed.
@@ -99,6 +102,17 @@ class FsyncStall:
     op: int
     count: int = 3
     stall_s: float = 0.02
+
+
+@dataclasses.dataclass(frozen=True)
+class CorruptWindow:
+    """Wire-frame corruption (loopback / TCP planes): while active,
+    each encoded frame is bit-flipped with probability p.  The CRC32
+    framing (transport/codec.py) must catch and drop every mangled
+    frame — corruption may cost progress, never correctness."""
+    start: int
+    end: int
+    p: float
 
 
 @dataclasses.dataclass(frozen=True)
@@ -782,3 +796,278 @@ def falsification_witness_plan(seed: int = 0,
         pin_leader_tick=25, pin_leader_peer=1,
         skews=(skew,), partitions=(part,),
         prop_rate=1.0, lease_read_rate=1.0, read_index_rate=0.0)
+
+
+# ---------------------------------------------------------------------------
+# The node-plane families: lockstep RaftNode clusters over the loopback
+# transport (corrupt, snapshot, membership) and over real TCP (tcp,
+# tcp_rebind).
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class NodeCrash:
+    """Threaded-cluster plane: kill peer `peer` (0-based, or
+    LEADER_TARGET) at `tick`, restart it `down` ticks later."""
+    tick: int
+    peer: int
+    down: int = 30
+
+
+@dataclasses.dataclass(frozen=True)
+class NodeChaosPlan:
+    """Scripted scenario for the lockstep RaftNode cluster."""
+    seed: int
+    ticks: int
+    partitions: Tuple[PartitionWindow, ...] = ()
+    crashes: Tuple[NodeCrash, ...] = ()
+    asym_partitions: Tuple[AsymPartitionWindow, ...] = ()
+    skews: Tuple[SkewWindow, ...] = ()
+    corruptions: Tuple[CorruptWindow, ...] = ()
+    # Snapshot-interleaving knobs (SnapshotChaosRunner): aggressive
+    # per-node compaction cadence, retained window, and a fault-free
+    # heal window at the end of the run over which survivors must
+    # CONVERGE (the post-snapshot convergence invariant).
+    compact_every: int = 0
+    compact_keep: int = 0
+    heal_ticks: int = 0
+    prop_rate: float = 0.4
+
+    def digest(self) -> str:
+        blob = json.dumps(dataclasses.asdict(self), sort_keys=True,
+                          separators=(",", ":")).encode()
+        return hashlib.sha256(blob).hexdigest()[:16]
+
+
+@dataclasses.dataclass(frozen=True)
+class TcpChaosPlan:
+    """Scripted scenario for a RaftNode cluster over the REAL TCP
+    transport (transport/tcp.py + its SendFaults seam).  Frames cross
+    actual localhost sockets, so arrival interleaving is kernel-
+    scheduled: the SCHEDULE is deterministic from the seed, the
+    invariants must hold on every run, but the committed history is not
+    bit-reproducible (documented in the README fault matrix — this is
+    the one plane where a virtual clock does not exist)."""
+    seed: int
+    ticks: int
+    drops: Tuple[DropWindow, ...] = ()
+    corruptions: Tuple[CorruptWindow, ...] = ()
+    asym_partitions: Tuple[AsymPartitionWindow, ...] = ()
+    delays: Tuple[DelayWindow, ...] = ()       # latency in ms units
+    heal_ticks: int = 60
+    prop_rate: float = 0.5
+
+    def digest(self) -> str:
+        blob = json.dumps(dataclasses.asdict(self), sort_keys=True,
+                          separators=(",", ":")).encode()
+        return hashlib.sha256(blob).hexdigest()[:16]
+
+
+@dataclasses.dataclass(frozen=True)
+class MemberEvent:
+    """Admin membership op issued at `tick` against every group's
+    leader (retried each tick until the leader accepts it):
+    op in {add_learner, promote, remove, remove_learner}."""
+    tick: int
+    op: str
+    peer: int
+
+
+@dataclasses.dataclass(frozen=True)
+class NodeBoot:
+    """Boot peer slot `peer` (fresh, empty WAL — "a new machine") at
+    `tick`; before that the slot is provisioned capacity, down."""
+    tick: int
+    peer: int
+
+
+@dataclasses.dataclass(frozen=True)
+class MembershipChaosPlan:
+    """Scripted membership churn for the lockstep RaftNode cluster:
+    node replacement under faults.  `initial_voters` seeds the boot
+    config over `peers` provisioned slots; `initial_down` slots start
+    unbooted (spare machines)."""
+    seed: int
+    ticks: int
+    peers: int
+    initial_voters: Tuple[int, ...]
+    initial_down: Tuple[int, ...] = ()
+    boots: Tuple[NodeBoot, ...] = ()
+    events: Tuple[MemberEvent, ...] = ()
+    crashes: Tuple[NodeCrash, ...] = ()
+    partitions: Tuple[PartitionWindow, ...] = ()
+    drops: Tuple[DropWindow, ...] = ()
+    # Base-runner parity (NodeClusterChaosRunner drives this plan too):
+    asym_partitions: Tuple[AsymPartitionWindow, ...] = ()
+    skews: Tuple[SkewWindow, ...] = ()
+    corruptions: Tuple[CorruptWindow, ...] = ()
+    heal_ticks: int = 60
+    prop_rate: float = 0.5
+    # Expected stable config after the script (checked post-heal).
+    final_voters: Tuple[int, ...] = ()
+
+    def digest(self) -> str:
+        blob = json.dumps(dataclasses.asdict(self), sort_keys=True,
+                          separators=(",", ":")).encode()
+        return hashlib.sha256(blob).hexdigest()[:16]
+
+
+@dataclasses.dataclass(frozen=True)
+class TcpRebindPlan:
+    """TCP-plane crash/restart with PORT REBINDING: stop a node (its
+    listener closes), restart it `down` ticks later on the SAME port
+    and data dir — peers' senders must reconnect and the restarted
+    node must catch up.  Same reproducibility posture as TcpChaosPlan
+    (deterministic schedule, kernel-scheduled arrivals)."""
+    seed: int
+    ticks: int
+    restarts: Tuple[NodeCrash, ...] = ()
+    heal_ticks: int = 80
+    prop_rate: float = 0.6
+
+    def digest(self) -> str:
+        blob = json.dumps(dataclasses.asdict(self), sort_keys=True,
+                          separators=(",", ":")).encode()
+        return hashlib.sha256(blob).hexdigest()[:16]
+
+
+def generate_corrupt_plan(seed: int, ticks: int = 260,
+                          peers: int = 3) -> NodeChaosPlan:
+    """Byzantine/corrupted payloads (lockstep wire plane): windows of
+    seeded frame corruption — the CRC framing must drop every mangled
+    frame (counted), and consensus must ride out the loss."""
+    rng = np.random.default_rng(seed ^ 0xC0F)
+    warmup = 50
+    wins = []
+    for i in range(2):
+        s = int(rng.integers(warmup + i * ticks // 3,
+                             warmup + 20 + i * ticks // 3))
+        wins.append(CorruptWindow(s, s + int(rng.integers(30, 50)),
+                                  float(rng.uniform(0.15, 0.4))))
+    c0 = int(rng.integers(ticks // 2, int(ticks * 0.8)))
+    return NodeChaosPlan(seed=seed, ticks=ticks,
+                         corruptions=tuple(wins),
+                         crashes=(NodeCrash(c0, int(rng.integers(0, peers)),
+                                            down=int(rng.integers(25, 40))),))
+
+
+def generate_snapshot_plan(seed: int, ticks: int = 340,
+                           peers: int = 3) -> NodeChaosPlan:
+    """Aggressive compaction + InstallSnapshot + crash interleaving
+    (lockstep RaftNode plane): every node compacts on a short cadence
+    while one follower is crashed long enough to fall below every
+    retained floor — its restart must be served by a full state
+    transfer, and a second, leader-targeted crash lands while transfers
+    are in flight.  After a fault-free heal window the survivors must
+    CONVERGE (identical applied state per group)."""
+    rng = np.random.default_rng(seed ^ 0x5A7)
+    lag_peer = int(rng.integers(0, peers))
+    c0 = int(rng.integers(50, 70))
+    down = int(rng.integers(150, 190))
+    c1 = int(rng.integers(c0 + down + 20, ticks - 40))
+    crashes = (NodeCrash(c0, lag_peer, down=down),
+               NodeCrash(c1, LEADER_TARGET, down=int(rng.integers(20, 30))))
+    return NodeChaosPlan(seed=seed, ticks=ticks, crashes=crashes,
+                         compact_every=int(rng.integers(6, 10)),
+                         compact_keep=1, heal_ticks=80, prop_rate=0.95)
+
+
+def generate_tcp_plan(seed: int, ticks: int = 200,
+                      peers: int = 3) -> TcpChaosPlan:
+    """Chaos under the REAL TCP transport: seeded send-side drops, a
+    one-directional (asymmetric) block window, frame corruption, and
+    delayed frames — followed by a heal window over which the cluster
+    must converge and commit."""
+    rng = np.random.default_rng(seed ^ 0x7C9)
+    warmup = 40
+    s0 = int(rng.integers(warmup, ticks // 3))
+    drops = (DropWindow(s0, s0 + int(rng.integers(25, 40)),
+                        float(rng.uniform(0.1, 0.25))),)
+    s1 = int(rng.integers(ticks // 3, 2 * ticks // 3))
+    corr = (CorruptWindow(s1, s1 + int(rng.integers(30, 45)),
+                          float(rng.uniform(0.2, 0.4))),)
+    src = int(rng.integers(0, peers))
+    dst = int((src + 1 + rng.integers(0, peers - 1)) % peers)
+    s2 = int(rng.integers(2 * ticks // 3, ticks - 25))
+    asym = (AsymPartitionWindow(s2, s2 + int(rng.integers(20, 30)),
+                                src, dst),)
+    d0 = int(rng.integers(warmup, ticks - 40))
+    delays = (DelayWindow(d0, d0 + int(rng.integers(20, 35)),
+                          float(rng.uniform(0.1, 0.25)),
+                          int(rng.integers(5, 15))),)   # milliseconds
+    return TcpChaosPlan(seed=seed, ticks=ticks, drops=drops,
+                        corruptions=corr, asym_partitions=asym,
+                        delays=delays)
+
+
+def generate_membership_plan(seed: int, ticks: int = 320,
+                             peers: int = 4) -> MembershipChaosPlan:
+    """The node-replacement story under faults, seeded: a 3-voter
+    cluster over `peers` provisioned slots loses a voter to a
+    PERMANENT kill (SIGKILL, never restarted), boots the spare slot as
+    a fresh machine, adds it as a learner, promotes it once caught up
+    (joint consensus), and removes the dead member — while a drop
+    window and a second (transient) crash land mid-churn.  After the
+    heal window the cluster must run on the replacement voter set with
+    every invariant intact, including RemovedQuorumSafety."""
+    rng = np.random.default_rng(seed ^ 0x3E3)
+    spare = peers - 1
+    dead = int(rng.integers(0, 3))           # the voter that dies
+    kill_t = int(rng.integers(50, 70))
+    boot_t = kill_t + int(rng.integers(5, 15))
+    add_t = boot_t + int(rng.integers(5, 10))
+    promote_t = add_t + int(rng.integers(30, 50))
+    remove_t = promote_t + int(rng.integers(30, 50))
+    # A transient crash of a SURVIVING voter while the learner catches
+    # up, and a drop window across the promote.
+    surv = [p for p in range(3) if p != dead]
+    c1 = int(rng.integers(add_t + 5, promote_t))
+    crashes = (NodeCrash(kill_t, dead, down=10 * ticks),   # permanent
+               NodeCrash(c1, surv[int(rng.integers(0, 2))],
+                         down=int(rng.integers(15, 25))))
+    d0 = promote_t - int(rng.integers(5, 15))
+    drops = (DropWindow(d0, d0 + int(rng.integers(15, 30)),
+                        float(rng.uniform(0.05, 0.15))),)
+    final = tuple(sorted(surv + [spare]))
+    return MembershipChaosPlan(
+        seed=seed, ticks=max(ticks, remove_t + 60), peers=peers,
+        initial_voters=(0, 1, 2), initial_down=(spare,),
+        boots=(NodeBoot(boot_t, spare),),
+        events=(MemberEvent(add_t, "add_learner", spare),
+                MemberEvent(promote_t, "promote", spare),
+                MemberEvent(remove_t, "remove", dead)),
+        crashes=crashes, drops=drops, heal_ticks=80,
+        final_voters=final)
+
+
+def generate_tcp_rebind_plan(seed: int, ticks: int = 180,
+                             peers: int = 3) -> TcpRebindPlan:
+    """TCP crash/restart with port rebinding (ROADMAP chaos frontier):
+    one leader-targeted and one random-follower stop/rebind, spaced so
+    the second fires after the first recovered."""
+    rng = np.random.default_rng(seed ^ 0x4EB)
+    t0 = int(rng.integers(50, 70))
+    d0 = int(rng.integers(20, 30))
+    t1 = int(rng.integers(t0 + d0 + 20, ticks - 30))
+    restarts = (NodeCrash(t0, LEADER_TARGET, down=d0),
+                NodeCrash(t1, int(rng.integers(0, peers)),
+                          down=int(rng.integers(15, 25))))
+    return TcpRebindPlan(seed=seed, ticks=ticks, restarts=restarts)
+
+
+def generate_node_plan(seed: int, ticks: int = 320,
+                       peers: int = 3) -> NodeChaosPlan:
+    """Threaded-cluster plan: one leader-targeted kill, one follower
+    kill, one partition window — the reference's stop/restart scenarios
+    (raftsql_test.go:117-170) as a seeded schedule."""
+    rng = np.random.default_rng(seed)
+    warmup = 50
+    p0 = int(rng.integers(warmup, ticks // 3))
+    parts = (PartitionWindow(p0, p0 + int(rng.integers(25, 45)),
+                             int(rng.integers(0, peers))),)
+    c0 = int(rng.integers(ticks // 3, ticks // 2))
+    c1 = int(rng.integers(ticks // 2 + 20, int(ticks * 0.8)))
+    crashes = (NodeCrash(c0, LEADER_TARGET, down=int(rng.integers(25, 40))),
+               NodeCrash(c1, int(rng.integers(0, peers)),
+                         down=int(rng.integers(25, 40))))
+    return NodeChaosPlan(seed=seed, ticks=ticks, partitions=parts,
+                         crashes=crashes)

@@ -39,6 +39,20 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def host_copy(flat: torch.Tensor) -> np.ndarray:
+    """A 1-D device tensor as numpy in ONE device-to-host copy: into
+    freshly allocated pinned memory on CUDA (PyTorch's caching host
+    allocator takes the block back once every numpy view of it is
+    gone), the tensor itself on the CPU (`flat` must then be a fresh
+    tensor nothing else writes)."""
+    if flat.device.type == "cuda":
+        host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+        host.copy_(flat, non_blocking=True)
+        torch.cuda.current_stream(flat.device).synchronize()
+        return host.numpy()
+    return flat.numpy()
+
+
 class PeerState(NamedTuple):
     """Raft state of ONE peer, batched over G groups (see the JAX
     package's PeerState for each field's meaning).  Shapes [G] unless
@@ -241,6 +255,55 @@ def set_transfer_target_stacked(states: PeerState, p: int, g: int,
     peer row `p`'s transfer latch for group `g`, in place."""
     states.xfer_target[int(p), int(g)] = int(target)
     return states
+
+
+def install_snapshot_state(state: PeerState, g: int, last_idx: int,
+                           last_term: int, sender_term: int) -> PeerState:
+    """Reset group `g`'s row of one peer's state to a snapshot boundary,
+    in place (the JAX package's install_snapshot_state, which donates).
+
+    The follower installed a state-machine image at log position
+    `last_idx` (entry term `last_term`): its log becomes exactly that
+    prefix (length and commit jump to last_idx), the term ring and the
+    transition table keep only the boundary, and the row drops to
+    follower so replication resumes from last_idx + 1 (raft §7).  A
+    higher `sender_term` is adopted with the vote cleared; the caller
+    has already rejected a lower one.  The row is written by index from
+    host values, so the install never syncs with the device."""
+    g, last_idx, last_term = int(g), int(last_idx), int(last_term)
+    sender_term = int(sender_term)
+    rw = state.log_term.shape[-1]      # W, or 1 for the keep_ring stub
+    state.log_term[g] = 0
+    state.log_term[g, (last_idx - 1) % rw] = last_term
+    K = state.tbl_pos.shape[-1]
+    state.tbl_pos[g] = 0
+    state.tbl_pos[g, K - 1] = last_idx
+    state.tbl_term[g] = 0
+    state.tbl_term[g, K - 1] = last_term
+    newer = sender_term > state.term[g]
+    state.voted_for[g] = torch.where(newer, NO_VOTE, state.voted_for[g])
+    state.term[g] = torch.clamp(state.term[g], min=sender_term)
+    state.log_len[g] = last_idx
+    state.commit[g] = last_idx
+    state.role[g] = FOLLOWER
+    state.votes[g] = False
+    state.match[g] = 0
+    state.next_idx[g] = last_idx + 1
+    state.elapsed[g] = 0
+    state.resp_tick[g] = 0
+    state.xfer_target[g] = NO_XFER
+    return state
+
+
+def set_peer_progress(state: PeerState, g: int, d: int,
+                      next_idx: int) -> PeerState:
+    """Leader-side optimistic advance after shipping a snapshot to peer
+    `d`: replication resumes at next_idx = last_idx + 1, written in
+    place.  `match` is not touched (the step clamps next_idx to match+1
+    from below, so an unacknowledged match would block reject-walkback
+    for good); a lost transfer walks next_idx back and retriggers it."""
+    state.next_idx[int(g), int(d)] = int(next_idx)
+    return state
 
 
 def restore_peer_state(cfg: RaftConfig, self_id: int,

@@ -569,3 +569,21 @@ def pack_info(info: StepInfo) -> torch.Tensor:
     """[..., G] info columns -> [..., G, INFO_NCOLS] i32."""
     return torch.stack([getattr(info, n).to(I32) for n in INFO_FIELDS],
                        dim=-1)
+
+
+def peer_step_packed(cfg: RaftConfig, state: PeerState, packed: torch.Tensor,
+                     prop_n: torch.Tensor, self_id: torch.Tensor,
+                     timer_inc: torch.Tensor | int = 1,
+                     force_bcast: torch.Tensor | bool = False):
+    """One peer's step with single-tensor host I/O (the distributed
+    runtime's tick, runtime/node.py): `state` leaves are one peer's [G,
+    ...], `packed` the [G, P, IB_NCOLS+E] i32 inbox, `self_id` a 0-dim
+    tensor.  Returns (state, packed outbox [G, P, IB_NCOLS+E], packed
+    info [G, INFO_NCOLS], next_idx [G, P], timer_margin []).  Under
+    commit_rule="pallas" Phase 7 launches the quorum kernel once, on the
+    peer's G rows."""
+    st, ob, info = peer_step(cfg, state, unpack_inbox(packed), prop_n,
+                             self_id, timer_inc=timer_inc,
+                             force_bcast=force_bcast)
+    return (st, pack_outbox(ob), pack_info(info), info.next_idx,
+            info.timer_margin)

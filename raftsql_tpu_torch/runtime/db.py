@@ -234,12 +234,9 @@ class RaftDB:
         self.witness_self = bool(getattr(pipe.node, "witness_self",
                                          False))
         if self.witness_self:
-            # Only the distributed runtime's RaftNode sets witness_self
-            # (a process that IS a witness peer); the fused runtime
-            # keeps its witness slots inside the host plane.
-            raise NotImplementedError(
-                "a witness replica process (RaftNode) is not ported yet "
-                "(ROADMAP Queue 1 item 8: the distributed runtime)")
+            from raftsql_tpu_torch.models.witness import \
+                WitnessStateMachine
+            sm_factory = WitnessStateMachine
         self._sms: Dict[int, StateMachine] = {
             g: sm_factory(g) for g in range(num_groups)}
         if not any(getattr(sm, "has_durable_snapshot", False)

@@ -63,7 +63,8 @@ import torch
 from raftsql_tpu_torch.config import NO_XFER, RaftConfig
 from raftsql_tpu_torch.core.cluster import (empty_cluster_inbox,
                                             init_cluster_state)
-from raftsql_tpu_torch.core.state import (PeerState, resolve_device,
+from raftsql_tpu_torch.core.state import (PeerState, host_copy,
+                                          resolve_device,
                                           restore_peer_state,
                                           set_group_config_stacked,
                                           set_transfer_target_stacked)
@@ -442,23 +443,14 @@ class ClusterHostPlane:
     @staticmethod
     def _readback(pinfo_dev: torch.Tensor,
                   busy_dev: Optional[torch.Tensor]):
-        """ONE device-to-host copy per dispatch: the packed info with the
-        busy bit riding as a trailing word, into freshly allocated pinned
-        memory on CUDA (PyTorch's caching host allocator recycles it once
-        every numpy view of this tick's info is gone — the stash and the
-        publish queue may still hold earlier ticks').  Returns (pinfo
-        numpy [.., P, G, NCOLS], busy)."""
+        """ONE device-to-host copy per dispatch (core/state.py host_copy):
+        the packed info with the busy bit riding as a trailing word (the
+        stash and the publish queue may still hold views of earlier
+        ticks' copies).  Returns (pinfo numpy [.., P, G, NCOLS], busy)."""
         flat = pinfo_dev.reshape(-1)
         if busy_dev is not None:
             flat = torch.cat([flat, busy_dev.reshape(1).to(flat.dtype)])
-        if flat.device.type == "cuda":
-            host = torch.empty(flat.shape, dtype=flat.dtype,
-                               pin_memory=True)
-            host.copy_(flat, non_blocking=True)
-            torch.cuda.current_stream(flat.device).synchronize()
-        else:
-            host = flat
-        arr = host.numpy()
+        arr = host_copy(flat)
         n = pinfo_dev.numel()
         busy = bool(arr[n]) if busy_dev is not None else True
         return arr[:n].reshape(tuple(pinfo_dev.shape)), busy

@@ -4,8 +4,7 @@ The reference's 17-line `raftPipe` (reference raftpipe.go:3-17) bundles
 {ProposeC, CommitC, ErrorC}: everything above consensus sees "strings in,
 totally ordered strings out".  SURVEY.md §1 marks this as THE seam where
 the TPU backend plugs in; here it is the same triple, batched with group
-ids, backed by a RaftNode (the distributed runtime, not ported yet:
-`create` raises).
+ids, backed by a RaftNode (runtime/node.py, stepping on `device`).
 
 close() mirrors the reference contract (raftpipe.go:14-17): stop accepting
 proposals, shut the node down, and return the terminal error (None on a
@@ -15,9 +14,11 @@ from __future__ import annotations
 
 from typing import Optional
 
+from raftsql_tpu_torch.runtime.node import RaftNode
+
 
 class RaftPipe:
-    def __init__(self, node):
+    def __init__(self, node: RaftNode):
         self.node = node
         # Items: (group, index, sql) per-entry (replay), or the RAW
         # batch form (group, base_idx, [bytes, ...]) from the live
@@ -30,10 +31,14 @@ class RaftPipe:
 
     @classmethod
     def create(cls, node_id: int, num_nodes: int, cfg, transport,
-               data_dir: str) -> "RaftPipe":
-        raise NotImplementedError(
-            "the distributed runtime (RaftNode) is not ported yet "
-            "(ROADMAP Queue 1 item 8)")
+               data_dir: str, device="cuda") -> "RaftPipe":
+        """Boot a RaftNode on `device` (CUDA by default; raises without
+        a card), start its tick thread, and wrap it."""
+        node = RaftNode(node_id, num_nodes, cfg, transport, data_dir,
+                        device=device)
+        pipe = cls(node)
+        node.start()
+        return pipe
 
     def propose(self, group: int, payload: bytes,
                 pid: Optional[int] = None) -> None:

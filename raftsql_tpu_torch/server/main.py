@@ -1,17 +1,22 @@
-"""CLI entry point of the PyTorch port — the `--fused` deployment only.
+"""CLI entry point of the PyTorch port.
 
+    python -m raftsql_tpu_torch.server.main \
+        --cluster http://127.0.0.1:12379,http://127.0.0.1:22379,... \
+        --id 1 --port 12380 [--device cuda]
     python -m raftsql_tpu_torch.server.main --fused --groups 8 \
         --port 12380 [--device cuda]
 
 Port of raftsql_tpu/server/main.py: the same composition (proposeC ->
-pipe -> RaftDB -> HTTP, the reference's server/main.go:24-38) with the
-fused co-located cluster underneath, stepping on `--device` (CUDA by
-default; a missing card is an error, never a silent CPU fallback).  The
-other deployments of the JAX package (the multi-process cluster, --mesh,
---pod) and the planes not ported yet (--workers, --reshard,
---replica-listen) exit with an error naming them.  `--placement` runs
-the traffic-aware leadership controller (raftsql_tpu_torch/placement/)
-over the fused host plane's transfer latch.
+pipe -> RaftDB -> HTTP, the reference's server/main.go:24-38) with
+consensus stepping on `--device` (CUDA by default; a missing card is an
+error, never a silent CPU fallback).  Two deployments: the reference's
+multi-process cluster (--cluster/--id, one RaftNode per process over
+the TCP transport, as the Procfile runs it) and the fused co-located
+cluster (--fused).  The JAX package's other deployments (--mesh, --pod)
+and the planes not ported yet (--workers, --reshard, --replica-listen)
+exit with an error naming them.  `--placement` runs the traffic-aware
+leadership controller (raftsql_tpu_torch/placement/) over the fused
+host plane's transfer latch.
 """
 from __future__ import annotations
 
@@ -27,6 +32,68 @@ from raftsql_tpu_torch.api.http import SQLServer
 from raftsql_tpu_torch.config import RaftConfig
 from raftsql_tpu_torch.models.sqlite_sm import SQLiteStateMachine
 from raftsql_tpu_torch.runtime.db import RaftDB
+from raftsql_tpu_torch.runtime.pipe import RaftPipe
+from raftsql_tpu_torch.transport.tcp import TcpTransport
+
+
+def build_node(cluster: str, node_id: int, groups: int = 1,
+               tick: float = 0.01, election_ticks: int | None = None,
+               data_prefix: str = "raftsql", resume: bool = False,
+               compact_every: int = 0, compact_keep: int = 1024,
+               wal_segment_bytes: int = 4 << 20,
+               trace: bool = False, lease_ticks: int = 0,
+               max_clock_skew: int = 1,
+               write_quorum: int | None = None,
+               election_quorum: int | None = None,
+               witnesses: tuple = (), device="cuda") -> RaftDB:
+    """One process of the multi-process cluster (the reference's
+    Procfile deployment): node `node_id` (1-based) of the peers listed
+    in `cluster`, its RaftNode stepping all `groups` groups on `device`,
+    its WAL in <data_prefix>-<id> and SQLite in <data_prefix>-<id>.db
+    (per group g > 0: <data_prefix>-<id>-g<g>.db)."""
+    peers = cluster.split(",")
+    # Election/heartbeat timing in real time, whatever the tick (the
+    # reference's ~1 s election timeout and ~100 ms heartbeat at its
+    # 100 ms tick, raft.go:154-155, 207): timers advance only on
+    # interval-paced steps, so a fast tick is a finer timer, not a
+    # shorter election timeout.
+    if tick > 0:
+        if election_ticks is None:
+            election_ticks = max(10, round(1.0 / tick))
+        heartbeat_ticks = max(1, round(0.1 / tick))
+        if election_ticks <= 2 * heartbeat_ticks:
+            heartbeat_ticks = max(1, election_ticks // 3)
+    else:
+        # Untimed (step per loop): the reference's tick counts.
+        election_ticks = election_ticks or 10
+        heartbeat_ticks = 1
+    # Leader leases: clamp to what the election timeout can protect.
+    if lease_ticks:
+        lease_ticks = min(lease_ticks,
+                          max(1, election_ticks - max_clock_skew - 1))
+    cfg = RaftConfig(num_groups=groups, num_peers=len(peers),
+                     tick_interval_s=tick, election_ticks=election_ticks,
+                     heartbeat_ticks=heartbeat_ticks,
+                     wal_segment_bytes=wal_segment_bytes,
+                     lease_ticks=lease_ticks,
+                     max_clock_skew=max_clock_skew,
+                     write_quorum=write_quorum,
+                     election_quorum=election_quorum,
+                     witnesses=tuple(witnesses) or None)
+    transport = TcpTransport(peers, node_id - 1)
+    pipe = RaftPipe.create(node_id, len(peers), cfg, transport,
+                           data_dir=f"{data_prefix}-{node_id}",
+                           device=device)
+    if trace:
+        pipe.node.enable_tracing()
+
+    def sm_factory(g: int) -> SQLiteStateMachine:
+        path = (f"{data_prefix}-{node_id}.db" if g == 0
+                else f"{data_prefix}-{node_id}-g{g}.db")
+        return SQLiteStateMachine(path, resume=resume)
+
+    return RaftDB(sm_factory, pipe, num_groups=groups, resume=resume,
+                  compact_every=compact_every, compact_keep=compact_keep)
 
 
 def build_fused_node(groups: int = 1, peers: int = 3,
@@ -165,10 +232,9 @@ _NOT_PORTED = {
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(
-        description="replicated SQL on the PyTorch/CUDA port (--fused)")
-    ap.add_argument("--cluster", default="",
-                    help="multi-process cluster peers (not ported: "
-                         "use --fused)")
+        description="replicated SQL on the PyTorch/CUDA port")
+    ap.add_argument("--cluster", default="http://127.0.0.1:9021",
+                    help="comma separated cluster peers")
     ap.add_argument("--id", type=int, default=1, help="node ID (1-based)")
     ap.add_argument("--port", type=int, default=9121,
                     help="sql server port")
@@ -190,7 +256,7 @@ def main(argv=None) -> None:
     ap.add_argument("--fused", action="store_true",
                     help="single-process cluster: all --peers raft peers "
                          "co-located on one device, one fused step per "
-                         "tick (the only deployment this port serves)")
+                         "tick (no --cluster/--id needed)")
     ap.add_argument("--peers", type=int, default=3,
                     help="with --fused: peers per group")
     ap.add_argument("--device", default="cuda",
@@ -256,10 +322,12 @@ def main(argv=None) -> None:
     for name, what in _NOT_PORTED.items():
         if getattr(args, name):
             ap.error(f"{what} is not ported to raftsql_tpu_torch yet")
-    if not args.fused:
-        ap.error("raftsql_tpu_torch serves the --fused deployment only; "
-                 "the multi-process cluster (--cluster/--id) is not "
-                 "ported yet (ROADMAP Queue 1 item 8)")
+    if not args.fused and (args.placement or args.overload_cap
+                           or args.overload_group_cap
+                           or args.brownout_hi is not None):
+        ap.error("--placement/--overload-cap/--overload-group-cap/"
+                 "--brownout-* require --fused (the co-located runtime "
+                 "owns the traffic feed and the propose queues)")
     from raftsql_tpu_torch.storage import fsio
     fsio.install_from_env()
     sys.setswitchinterval(
@@ -267,19 +335,34 @@ def main(argv=None) -> None:
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    rdb = build_fused_node(groups=args.groups, peers=args.peers,
-                           tick=args.tick, resume=args.resume,
-                           compact_every=args.compact_every,
-                           compact_keep=args.compact_keep,
-                           wal_segment_bytes=args.wal_segment_bytes,
-                           wal_group_commit=args.wal_group_commit == "on",
-                           lease_ticks=args.lease_ticks,
-                           max_clock_skew=args.max_clock_skew,
-                           write_quorum=args.write_quorum,
-                           election_quorum=args.election_quorum,
-                           witnesses=tuple(args.witness),
-                           trace=args.trace,
-                           device=args.device)
+    if args.fused:
+        rdb = build_fused_node(groups=args.groups, peers=args.peers,
+                               tick=args.tick, resume=args.resume,
+                               compact_every=args.compact_every,
+                               compact_keep=args.compact_keep,
+                               wal_segment_bytes=args.wal_segment_bytes,
+                               wal_group_commit=args.wal_group_commit
+                               == "on",
+                               lease_ticks=args.lease_ticks,
+                               max_clock_skew=args.max_clock_skew,
+                               write_quorum=args.write_quorum,
+                               election_quorum=args.election_quorum,
+                               witnesses=tuple(args.witness),
+                               trace=args.trace,
+                               device=args.device)
+    else:
+        rdb = build_node(args.cluster, args.id, groups=args.groups,
+                         tick=args.tick, resume=args.resume,
+                         compact_every=args.compact_every,
+                         compact_keep=args.compact_keep,
+                         wal_segment_bytes=args.wal_segment_bytes,
+                         trace=args.trace,
+                         lease_ticks=args.lease_ticks,
+                         max_clock_skew=args.max_clock_skew,
+                         write_quorum=args.write_quorum,
+                         election_quorum=args.election_quorum,
+                         witnesses=tuple(args.witness),
+                         device=args.device)
     _watch_fatal(rdb)
     if args.overload_cap or args.overload_group_cap \
             or args.brownout_hi is not None:

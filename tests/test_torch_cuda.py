@@ -192,3 +192,80 @@ def test_membership_and_transfer_card_equal_cpu(card, tmp_path):
     doc = got[-1]["groups"]
     assert all(doc[str(g)]["voters"] == [1, 2, 3] for g in range(8))
     assert all(doc[str(g)]["voters"] == [0, 1, 2] for g in range(8, 16))
+
+
+def _node_lockstep(device, path, cfg, ticks, change_at=None):
+    """Three RaftNodes (the distributed runtime) over the loopback hub
+    with its codec, ticked in lockstep with seeded proposals; at tick
+    `change_at` group 0's leader removes slot 3 (the first conf entry:
+    from then on every node's step takes the masked rule).  Returns
+    every tick's (roles, hints, hard state, next_idx) and commits."""
+    from raftsql_tpu_torch.runtime.db import _expand_commit_item
+    from raftsql_tpu_torch.runtime.node import RaftNode
+    from raftsql_tpu_torch.transport.loopback import (LoopbackHub,
+                                                      LoopbackTransport)
+    hub = LoopbackHub()
+    P = cfg.num_peers
+    nodes = [RaftNode(p + 1, P, cfg, LoopbackTransport(hub),
+                      f"{path}/n{p}", device=device) for p in range(P)]
+    rng = np.random.default_rng(3)
+    rec = []
+    try:
+        for n in nodes:
+            n.start(threaded=False)
+        for t in range(ticks):
+            if rng.random() < 0.7:
+                nodes[int(rng.integers(0, P))].propose(
+                    int(rng.integers(0, cfg.num_groups)),
+                    f"SET k v{t}".encode())
+            if t == change_at:
+                lead = next(n for n in nodes if n._last_role[0] == 2)
+                lead.member_change(0, "remove", 3)
+            for n in nodes:
+                n.tick()
+            for n in nodes:
+                got = []
+                while not n.commit_q.empty():
+                    item = n.commit_q.get_nowait()
+                    if item is not None:
+                        got.extend(_expand_commit_item(item, n))
+                rec.append((n._last_role.tolist(), n._last_hint.tolist(),
+                            n._hard_np.tolist(), n._next_idx.tolist(),
+                            got))
+    finally:
+        for n in nodes:
+            n.stop()
+    return rec
+
+
+def test_node_path_k1_card_equals_cpu(card, tmp_path):
+    """The node path's K1: one launch per node tick, on that peer's G
+    rows, and the cluster on the card equal to the same ticks on the
+    CPU."""
+    cfg = RaftConfig(num_groups=256, num_peers=3, log_window=32,
+                     max_entries_per_msg=4, election_ticks=10,
+                     heartbeat_ticks=1, tick_interval_s=0.0,
+                     commit_rule="pallas")
+    pq.reset_launches()
+    got = _node_lockstep(card, str(tmp_path / "card"), cfg, 60)
+    assert pq.launches["pallas_quorum_commit_index"] == 3 * 60
+    assert pq.launches["pallas_masked_quorum_commit_index"] == 0
+    assert got == _node_lockstep("cpu", str(tmp_path / "cpu"), cfg, 60)
+
+
+def test_node_path_k2_after_member_change(card, tmp_path):
+    """After the first conf entry applies, each node's next steps take
+    the masked rule: K1 launches until then, K2 from then on, and the
+    card equals the CPU tick for tick."""
+    cfg = RaftConfig(num_groups=64, num_peers=4, log_window=32,
+                     max_entries_per_msg=4, election_ticks=10,
+                     heartbeat_ticks=1, tick_interval_s=0.0,
+                     commit_rule="pallas")
+    pq.reset_launches()
+    got = _node_lockstep(card, str(tmp_path / "card"), cfg, 90,
+                         change_at=40)
+    k1 = pq.launches["pallas_quorum_commit_index"]
+    k2 = pq.launches["pallas_masked_quorum_commit_index"]
+    assert k1 >= 4 * 40 and k2 > 0 and k1 + k2 == 4 * 90, (k1, k2)
+    assert got == _node_lockstep("cpu", str(tmp_path / "cpu"), cfg, 90,
+                                 change_at=40)

@@ -67,7 +67,7 @@ def test_group_header_routes(server):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--cluster", "http://127.0.0.1:1", "--id", "1"],
+    ["--cluster", "http://127.0.0.1:1", "--id", "1", "--pod"],
     ["--fused", "--mesh"], ["--fused", "--reshard"],
     ["--fused", "--workers", "2"]])
 def test_cli_refuses_unported_deployments(argv, capsys):
@@ -75,6 +75,16 @@ def test_cli_refuses_unported_deployments(argv, capsys):
         main(argv)
     assert e.value.code != 0
     assert "not ported" in capsys.readouterr().err
+
+
+def test_cli_cluster_node_needs_the_card_by_default(tmp_path,
+                                                    monkeypatch):
+    """The multi-process deployment (--cluster/--id) is served now; its
+    default device is cuda, and without a card it raises instead of
+    falling back to the CPU."""
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--cluster", "http://127.0.0.1:1", "--id", "1"])
 
 
 @pytest.mark.parametrize("engine", ["threaded", "aio"])

@@ -56,7 +56,10 @@ def test_module_list_covers_the_slice():
               "obs.device_ring", "obs.spans", "obs.export", "obs.flight",
               "chaos.invariants", "chaos.schedule", "chaos.scenarios",
               "chaos.run", "membership", "membership.manager",
-              "placement", "placement.controller"):
+              "placement", "placement.controller",
+              "transport.base", "transport.codec", "transport.loopback",
+              "transport.tcp", "runtime.node", "runtime.pipe",
+              "models.witness", "api.client", "chaos.proc"):
         assert f"raftsql_tpu_torch.{m}" in MODULES, m
 
 
