@@ -84,12 +84,28 @@ exit, no result line) at the first phase that fails:
      R = 2 rows of one peer at P = 4, are copied, held to the plain
      version and timed), tcp and tcp_rebind once each (invariants hold,
      faults fired);
- 13. the kernels line (JSON: K1 as phase 4 measured it, K2 on phase 5's
+ 13. the overload gauntlet (chaos.run overload_gauntlet, what --overload
+     runs) at the plan's own size, G = 4, P = 3, 160 ticks, 32 offered
+     writes a tick plus bursts, commit_rule="pallas", twice: plan and
+     result digests equal to the JAX package's (CHAOS_DIGESTS), every
+     pressure family fired, the backlog peak at or under its cap of 48,
+     the goodput and starvation floors met, the falsification pair
+     caught and its control passed, and K1 launched once per device
+     step (launches and dispatches zeroed just before, read just after);
+ 14. the process plane, every server child a CUDA process: the --procs
+     gauntlet at seed 0, 80 ticks, twice (every fault family fires, no
+     unexpected exit, both verdict digests the reference's all-pass
+     digest, PROC_VERDICTS), the read and transfer arms once each on
+     generate_procs(0, ticks=60), and a SIGSTOP probe (a stalled CUDA
+     leader's survivors: device ms per node tick and ticks per second
+     before and during the stall);
+ 15. the kernels line (JSON: K1 as phase 4 measured it, K2 on phase 5's
      joint masks, launches summed over the paths, and each kernel's
      node-path launches and time: K1 at R = 10,000 from phase 10, K2 at
-     R = 2 from phase 12) and the result line.
+     R = 2 from phase 12; K1's launches on the overload path of phase
+     13) and the result line.
 
-`--only 10,12` runs the build and the named phases (4-12) alone: a
+`--only 13,14` runs the build and the named phases (3-14) alone: a
 development run, with no result line.  It needs one card and writes
 under build/ of its checkout (and the chaos runs' data dirs under
 $TMPDIR, removed after each run).
@@ -142,6 +158,10 @@ CHAOS_DIGESTS = {
     "corrupt": ("4f4ed0f264577c9d", "f5ee78bdc4375e9c"),
     "snapshot": ("edd1a37f25bc171d", "d4b51966c0c2ee25"),
     "membership": ("2a76495647d33d68", "f6f1b63bf483aaba"),
+    # The overload family (OverloadChaosRunner): (plan digest, result
+    # digest) of a live JAX run.  bench_logs/chaos_digests.json pins the
+    # result as ac2d01c5e3007d01, the non-partitionable threefry run.
+    "overload": ("993c8f68e0b1ac1a", "fadf1a8688e66fa1"),
 }
 REPLACES = {
     "pallas_quorum_commit_index":
@@ -1649,6 +1669,207 @@ def node_chaos(card: str, dev="cuda") -> dict:
     return {"walls": walls, "launches": launches, "captured": captured}
 
 
+# ---- phase 13 --------------------------------------------------------------
+
+def overload(card: str, dev="cuda") -> int:
+    """The overload gauntlet on the card (chaos.run overload_gauntlet,
+    what `--overload` runs): the overload family at seed 0 twice with
+    commit_rule="pallas" at the plan's own size (G = 4, P = 3, 160
+    ticks, 32 offered writes a tick plus two bursts, a crash mid-
+    overload), then the falsification pair (no admission controller:
+    caught as OVERLOAD-MEMORY; bounded: passes and refuses).  Plan and
+    result digests must equal CHAOS_DIGESTS["overload"] in both runs,
+    every pressure family must fire, the backlog peak must stay at or
+    under the cap and the goodput and starvation floors hold (the
+    gauntlet's own checks), and K1 must launch once per device step:
+    the launch count and the dispatch count are zeroed just before the
+    gauntlet and read just after.  Returns K1's launches."""
+    from raftsql_tpu_torch.chaos import run as crun
+    from raftsql_tpu_torch.runtime.hostplane import ClusterHostPlane
+    k1 = "pallas_quorum_commit_index"
+    steps = [0]
+    real = ClusterHostPlane._readback       # one call per device dispatch
+
+    def counted(*a, **kw):
+        steps[0] += 1
+        return real(*a, **kw)
+
+    pq.reset_launches()                       # the overload path starts here
+    ClusterHostPlane._readback = staticmethod(counted)
+    try:
+        t0 = time.monotonic()
+        ok, reports = crun.overload_gauntlet(0, runs=2, device=dev,
+                                             commit_rule="pallas")
+        wall = time.monotonic() - t0
+    finally:
+        ClusterHostPlane._readback = staticmethod(real)
+    launches = pq.launches[k1]                # ... and ends here
+    if not ok:
+        raise AssertionError("the overload gauntlet failed (see CHAOS FAIL "
+                             "above)")
+    for r in reports:
+        got = (r["plan_digest"], r["result_digest"])
+        log(f"overload run {r['run'] + 1}: plan={got[0]} result={got[1]} "
+            f"offered {r['offered']}, rejected {r['overload_rejected']}, "
+            f"shed_stage {r['overload_shed_stage']}, depth peak "
+            f"{r['overload_depth_peak']}/48, committed "
+            f"{r['committed_entries']}, per group {r['group_commits']}, "
+            f"{r['crashes']} crashes, {r['fsync_stalls']} fsync stalls; "
+            f"{r['wall_s']:.2f} s on {card}")
+        expect(got, CHAOS_DIGESTS["overload"], "overload digests")
+    expect(launches, steps[0], "K1 launches against device steps on the "
+                               "overload path")
+    if launches <= 0:
+        raise AssertionError("the overload path never launched K1")
+    log(f"overload: K1 launches {launches} = device steps {steps[0]} over "
+        f"both runs and the falsification pair; falsification caught, "
+        f"control passed; gauntlet {wall:.2f} s on {card}")
+    return launches
+
+
+# ---- phase 14 --------------------------------------------------------------
+
+# The reference's all-pass verdict digests at seed 0 (chaos/proc.py
+# _verdict_digest of the JAX package: the schedule digest, every
+# invariant "pass" and every family boolean true, hashed as its
+# docstring says): the --procs family at 80 ticks, and the read and
+# transfer arms on generate_procs(0, ticks=60).
+PROC_VERDICTS = {
+    "procs": ("fb868899b7dbd88a", "3b7df695ba0107b3"),
+    "reads": ("14e0b1d3918591ef", "95fa6c73158c79e6"),
+    "transfers": ("14e0b1d3918591ef", "05aec3f72b210740"),
+}
+
+
+def _device_ms(doc: dict):
+    """(ticks, device ms summed over them) from one GET /metrics doc."""
+    t = doc["ticks"]
+    return t, doc["phase_ms_per_tick"]["device"] * max(t, 1)
+
+
+def stall_probe(card: str, dev="cuda", writes=60) -> None:
+    """SIGSTOP of a CUDA child: three server processes on the card, 60
+    acked PUTs at the group-0 leader with all three up, then that leader
+    SIGSTOPped (its CUDA context held, frozen) and 60 more PUTs at the
+    survivor that leads next.  Each survivor's device ms per node tick
+    and ticks per second in the two windows, from GET /metrics (a node
+    steps only when it has work or a timer due, so ticks per second
+    follow the PUT rate).  The woken leader must rejoin and every write
+    must be read back at every node."""
+    from raftsql_tpu_torch.api.client import RaftSQLClient
+    from raftsql_tpu_torch.chaos.proc import ProcCluster
+    work = os.path.join(ROOT, "build", "chip_smoke_stall")
+    shutil.rmtree(work, ignore_errors=True)
+    c = ProcCluster(work, peers=3, device=dev)
+    for i in range(3):
+        c.spawn(i)
+    cli = RaftSQLClient([f"127.0.0.1:{p}" for p in c.http_ports],
+                        timeout_s=5.0)
+
+    def leader(nodes):
+        until = time.monotonic() + 60.0
+        while time.monotonic() < until:
+            for i in nodes:
+                doc = cli.health(i)
+                if doc and doc["groups"]["0"]["role"] == "leader":
+                    return i
+            time.sleep(0.2)
+        raise AssertionError(f"no leader among nodes {nodes}")
+
+    def window(nodes, tag, at):
+        m0 = {i: _device_ms(json.loads(cli.raw(i, "GET", "/metrics")[2]))
+              for i in nodes}
+        t0 = time.monotonic()
+        for k in range(writes):
+            cli.put(f"INSERT INTO t (v) VALUES ('{tag}{k}')", node=at,
+                    deadline_s=60.0)
+        dt = time.monotonic() - t0
+        out = {}
+        for i in nodes:
+            t1, d1 = _device_ms(json.loads(cli.raw(i, "GET",
+                                                   "/metrics")[2]))
+            ticks = t1 - m0[i][0]
+            out[i] = ((d1 - m0[i][1]) / max(ticks, 1), ticks / dt)
+        return out, dt
+
+    try:
+        cli.put("CREATE TABLE t (v text)", deadline_s=120.0)
+        lead = leader(range(3))
+        survivors = [i for i in range(3) if i != lead]
+        before, dt0 = window(range(3), "b", lead)
+        c.sigstop(lead)
+        during, dt1 = window(survivors, "s", leader(survivors))
+        c.sigcont(lead)
+        want = "".join(f"|{v}|\n" for v in sorted(
+            [f"b{k}" for k in range(writes)]
+            + [f"s{k}" for k in range(writes)]))
+        for i in range(3):
+            cli.get_until("SELECT v FROM t ORDER BY v", want, node=i,
+                          deadline_s=60.0)
+    except BaseException:
+        for i in range(3):
+            log(f"--- stall probe node {i + 1} log tail ---\n"
+                f"{c.log_tail(i, 3000)}")
+        raise
+    finally:
+        cli.close()
+        codes = c.stop_all()
+    expect(codes, [0, 0, 0], "stall probe clean stop exit codes")
+    shutil.rmtree(work, ignore_errors=True)
+    for i in survivors:
+        log(f"stall probe: survivor node {i + 1} device "
+            f"{before[i][0]:.3f} ms per node tick at "
+            f"{before[i][1]:.1f} ticks/s with all three up, "
+            f"{during[i][0]:.3f} ms at {during[i][1]:.1f} ticks/s with "
+            f"leader node {lead + 1} SIGSTOPped on {card}")
+    log(f"stall probe: {writes} PUTs in {dt0:.2f} s before, {writes} in "
+        f"{dt1:.2f} s during the stall; the woken node rejoined and every "
+        f"write was read back at every node on {card}")
+
+
+def proc_chaos(card: str, dev="cuda") -> None:
+    """The process plane on the card, every server child a CUDA process
+    (`--device cuda`, the CLI's default point rule): run_procs's
+    gauntlet at seed 0, 80 ticks, twice (every family fires, no
+    unexpected exit, schedule digest fb868899b7dbd88a, both verdict
+    digests the reference's all-pass digest), the read arm and the
+    transfer arm once each on generate_procs(0, ticks=60) (linear,
+    session and follower reads above 0 with no stale session read; a
+    transfer completed), then the SIGSTOP probe."""
+    from raftsql_tpu_torch.chaos import run as crun
+    runs = []
+    for family, ticks, n in (("procs", 80, 2), ("reads", 60, 1),
+                             ("transfers", 60, 1)):
+        ok, reports = crun.procs_gauntlet(family, 0, ticks, runs=n,
+                                          device=dev)
+        if not ok:
+            raise AssertionError(f"the process {family} gauntlet failed "
+                                 f"(see CHAOS FAIL above)")
+        runs += [(family, r) for r in reports]
+    for family, r in runs:
+        got = (r["schedule_digest"], r["result_digest"])
+        extra = ""
+        if family == "reads":
+            expect(r["stale_session"], 0, "stale session reads")
+            extra = (f", reads linear {r['linear_reads']} session "
+                     f"{r['session_reads']} follower "
+                     f"{r['follower_reads']}")
+        elif family == "transfers":
+            extra = (f", transfers requested "
+                     f"{r['transfers_requested']} completed "
+                     f"{r['transfers_completed']} lost "
+                     f"{r['transfers_lost']}")
+        log(f"proc chaos {family}: schedule={got[0]} verdict={got[1]} "
+            f"acked {r['acked']}, respawns {r['respawns']}, kills "
+            f"{r['kills']}, stalls {r['stalls']}, storm restarts "
+            f"{r['storm_restarts']}, fsio exits {r['fsio_exits']}, fatal "
+            f"exits {r['fatal_exits']}, unexpected {r['unexpected_exits']}"
+            f"{extra}; first child healthy {r['boot_s']:.1f} s after "
+            f"spawn; {r['wall_s']:.1f} s on {card}")
+        expect(got, PROC_VERDICTS[family], f"proc chaos {family} digests")
+    stall_probe(card, dev)
+
+
 # ---- main ------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -1658,7 +1879,7 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="smoke run on one CUDA card")
     ap.add_argument("--only", default="",
-                    help="comma separated phases (4-12) to run after the "
+                    help="comma separated phases (3-14) to run after the "
                          "build; no result line is printed")
     only = {int(x) for x in ap.parse_args(argv).only.split(",") if x}
     t_start = time.monotonic()
@@ -1715,6 +1936,12 @@ def main(argv=None) -> int:
         # P = 4, C_old,new masks live (the membership family).
         node_kern.update(main_path_kernels(card, nch.pop("captured")))
         done("node chaos")
+    if want(13):
+        k1_overload = overload(card)
+        done("overload")
+    if want(14):
+        proc_chaos(card)
+        done("proc chaos")
     if only:
         log(f"development run of phases {sorted(only)}: no result line")
         return 0
@@ -1726,12 +1953,13 @@ def main(argv=None) -> int:
     launches = {
         k1: (tick["launches"][k1] + k1_server + place["launches"]
              + ch["launches"]["default"] + ch["launches"]["nemesis"]
-             + node_launches[k1]),
+             + node_launches[k1] + k1_overload),
         k2: tick["launches"][k2] + mem["launches"][k2] + node_launches[k2]}
     log(f"launches by path: fused tick {tick['launches']}, membership "
         f"node {mem['launches']}, server K1 {k1_server}, placement "
         f"server K1 {place['launches']}, chaos K1 {ch['launches']}, node "
-        f"cluster {node['launches']}, node chaos {nch['launches']}")
+        f"cluster {node['launches']}, node chaos {nch['launches']}, "
+        f"overload K1 {k1_overload}")
     log(f"procfile cluster PUT p50 {procs['p50']:.2f} ms p99 "
         f"{procs['p99']:.2f} ms; node cluster "
         f"{node['commits_per_s']:.0f} commits/s on {card}")
@@ -1744,7 +1972,9 @@ def main(argv=None) -> int:
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": None,
-               "node_path_launches": node_launches[name]}
+               "node_path_launches": node_launches[name],
+               "overload_path_launches":
+                   k1_overload if name == k1 else 0}
         if name in node_kern:
             n = node_kern[name]
             row["node_path"] = {"rows": n["rows"], "ms": n["ms"],

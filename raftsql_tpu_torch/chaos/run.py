@@ -3,10 +3,12 @@
     python -m raftsql_tpu_torch.chaos.run --seed 0 --ticks 240 --runs 2
     python -m raftsql_tpu_torch.chaos.run --matrix --seed 0
     python -m raftsql_tpu_torch.chaos.run --family reads --seed 3
+    python -m raftsql_tpu_torch.chaos.run --procs --seed 0
+    python -m raftsql_tpu_torch.chaos.run --overload --seed 0
     python -m raftsql_tpu_torch.chaos.run --reads --no-procs
     python -m raftsql_tpu_torch.chaos.run --device cpu      # no card
 
-Port of the fused and node-plane parts of raftsql_tpu/chaos/run.py.  Default mode
+Port of raftsql_tpu/chaos/run.py.  Default mode
 generates the seed's full ChaosSchedule (>= 2 partitions, >= 2
 crash/restart events, >= 1 injected fsync fault, plus a torn-write
 power loss), runs it against a fresh FusedClusterNode data dir per run,
@@ -38,20 +40,31 @@ signature faults must have fired.  The TCP families cross real kernel
 sockets, so arrival interleaving is not virtualizable: their plan is
 deterministic and their invariants must hold, but the committed history
 is not bit-reproducible, so they run once.  The JAX package's other
-families (mesh_skew, procs, pod, replica, reshard, overload) need
-planes this port has not reached yet.
+families (mesh_skew, pod, replica, reshard) need planes this port has
+not reached yet.
 
---reads, --transfers and --quorum are the gauntlets: the family twice,
-then its falsification pairs (a deliberately broken lease bound,
-transfer kernel or quorum geometry must be CAUGHT by the invariants,
-and the same schedule with the correct setting must pass).  The
-process-plane arms of --reads and --transfers (the JAX package's
-process chaos runners, the remainder of ROADMAP Queue 1 item 8) are not
-ported yet: without --no-procs they raise NotImplementedError.
+--reads, --transfers, --quorum and --overload are the gauntlets: the
+family twice, then its falsification pairs (a deliberately broken lease
+bound, transfer kernel, quorum geometry or a missing admission bound
+must be CAUGHT by the invariants, and the same schedule with the
+correct setting must pass).  --reads and --transfers end with their
+process-plane legs (ProcReadChaosRunner, ProcTransferChaosRunner over
+generate_procs(seed, ticks=60)) unless --no-procs.
+
+--procs is the PROCESS plane: a seeded nemesis over real
+`raftsql_tpu_torch.server.main` OS processes — SIGKILL (leader-targeted
+and random), SIGSTOP/SIGCONT stalls, a rolling-restart storm and
+env-injected disk faults (RAFTSQL_FSIO_FAULTS: ENOSPC + a hard process
+exit at a WAL fsync) — under a live acked-PUT workload.  The seed runs
+twice; schedule and VERDICT digests must match (the committed history
+crosses real kernel scheduling and is not bit-reproducible).
+--proc-ticks (env PROC_TICKS, default 80) sizes its script.
 
 `--device` picks where the consensus state steps (default cuda; a
-missing card is an error) and `--commit-rule` the Phase-7 commit rule
-("pallas" runs the quorum kernels).
+missing card is an error; the process families' children step there
+too) and `--commit-rule` the Phase-7 commit rule of the in-process
+runners ("pallas" runs the quorum kernels; server children run the
+CLI's default rule).
 """
 from __future__ import annotations
 
@@ -60,6 +73,7 @@ import json
 import os
 import sys
 import tempfile
+import time
 
 
 def runner_class(plan):
@@ -69,7 +83,8 @@ def runner_class(plan):
     return {S.ChaosSchedule: C.FusedChaosRunner,
             S.ReadNemesisPlan: C.ReadNemesisRunner,
             S.QuorumNemesisPlan: C.QuorumChaosRunner,
-            S.TransferNemesisPlan: C.TransferChaosRunner}[type(plan)]
+            S.TransferNemesisPlan: C.TransferChaosRunner,
+            S.OverloadNemesisPlan: C.OverloadChaosRunner}[type(plan)]
 
 
 def run_fused(plan, steps: int = 1, device="cuda",
@@ -198,15 +213,6 @@ def run_matrix(seed: int, only=None, device="cuda",
     return 0 if ok else 1
 
 
-def _procs_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"the process-plane {what} nemesis (the JAX package's "
-        "chaos/proc.py ProcReadChaosRunner/ProcTransferChaosRunner) is "
-        "not ported yet (ROADMAP Queue 1 item 8, its remainder: the "
-        "process chaos runners); "
-        "pass --no-procs (with_procs=False) to run the fused arms")
-
-
 def falsification_arms(family: str) -> list:
     """The falsification pairs of a gauntlet: (arm, plan(seed, broken),
     marks one of which the broken run's violation must carry,
@@ -225,6 +231,10 @@ def falsification_arms(family: str) -> list:
                     lambda r: r["committed_entries"] > 0),
                    ("witness-lease", S.falsification_witness_plan, stale,
                     lambda r: r["lease_reads"] > 0)],
+        "overload": [("no-admission", S.falsification_overload_plan,
+                      ("OVERLOAD-MEMORY",),
+                      lambda r: r["committed_entries"] > 0
+                      and r["overload_rejected"] > 0)],
     }[family]
 
 
@@ -295,18 +305,91 @@ def _family_twice(name: str, seed: int, runs: int, key: str, **kw):
     return ok, reports
 
 
+# family -> (process runner, fired predicate(report, plan))
+def proc_family_specs():
+    from raftsql_tpu_torch.chaos import proc
+    return {
+        "procs": (proc.ProcChaosRunner,
+                  lambda r, p: r["kills"] >= len(p.kills)
+                  and r["stalls"] >= len(p.stalls)
+                  and r["storm_restarts"] >= p.peers * len(p.storms)
+                  and r["fsio_exits"] >= 1 and r["fatal_exits"] >= 1),
+        "reads": (proc.ProcReadChaosRunner,
+                  lambda r, p: r["linear_reads"] > 0
+                  and r["session_reads"] > 0
+                  and r["follower_reads"] > 0),
+        "transfers": (proc.ProcTransferChaosRunner,
+                      lambda r, p: r["transfers_requested"] > 0
+                      and r["transfers_completed"] > 0),
+    }
+
+
+def procs_gauntlet(family: str, seed: int, ticks: int, runs: int = 2,
+                   device="cuda"):
+    """Process-plane chaos: `family`'s runner (procs, reads or
+    transfers) over generate_procs(seed, ticks), `runs` times in fresh
+    work dirs, its server children on `device`.  Every run must pass
+    every invariant (violations raise), fire its families, and see no
+    server die of anything unscripted; all runs must agree on schedule
+    + verdict digests.  Returns (ok, reports), each report with its
+    run's wall time (`wall_s`)."""
+    from raftsql_tpu_torch.chaos.schedule import generate_procs
+    cls, fired = proc_family_specs()[family]
+    plan = generate_procs(seed, ticks=ticks)
+    ok = True
+    reports = []
+    for run in range(runs):
+        t0 = time.monotonic()
+        with tempfile.TemporaryDirectory(prefix="raftsql-procs-") as d:
+            r = cls(plan, d, device=device).run()
+        r["wall_s"] = time.monotonic() - t0
+        r["run"] = run
+        reports.append(r)
+        print(json.dumps(r, sort_keys=True))
+        ok &= _check(fired(r, plan), f"{family}: a scripted fault family "
+                                     f"never fired ({r})")
+        ok &= _check(r["unexpected_exits"] == 0,
+                     f"{family}: a server died of something unscripted "
+                     f"({r})")
+    digests = {(r["schedule_digest"], r["result_digest"])
+               for r in reports}
+    ok &= _check(len(digests) == 1,
+                 f"{family}: non-reproducible verdicts: {digests}")
+    return ok, reports
+
+
+def run_procs(seed: int, ticks: int = 80, runs: int = 2,
+              device="cuda") -> int:
+    """`--procs`: the process-plane nemesis (SIGKILL, SIGSTOP, restart
+    storms, env disk faults) over real `raftsql_tpu_torch.server.main`
+    processes on `device`, through procs_gauntlet."""
+    ok, reports = procs_gauntlet("procs", seed, ticks, runs=runs,
+                                 device=device)
+    if ok:
+        print(f"chaos procs ok: seed={seed} "
+              f"schedule={reports[0]['schedule_digest']} "
+              f"verdict={reports[0]['result_digest']} (x{runs} "
+              f"identical)")
+    return 0 if ok else 1
+
+
 def run_reads(seed: int, runs: int = 2, with_procs: bool = True,
               device="cuda", commit_rule=None) -> int:
     """The read-plane gauntlet: the fused read nemesis (family `reads`)
     `runs` times, then the lease falsification pair — the mis-sized
     lease bound under 4x skew must be caught as a stale lease read, and
-    the same schedule with a correctly sized bound must pass."""
-    if with_procs:
-        raise _procs_not_ported("read")
+    the same schedule with a correctly sized bound must pass — then,
+    unless `with_procs` is False, the process-plane read nemesis
+    (ProcReadChaosRunner: linear, session and follower HTTP reads race
+    the nemesis over real server processes) `runs` times, whose verdict
+    digests must reproduce.  `device` is also the children's."""
     kw = dict(device=device, commit_rule=commit_rule)
     ok, reports = _family_twice("reads", seed, runs, "schedule_digest",
                                 **kw)
     ok &= run_falsification("reads", seed, **kw)
+    if with_procs:
+        ok &= procs_gauntlet("reads", seed, 60, runs=runs,
+                             device=device)[0]
     if ok:
         print(f"chaos reads ok: seed={seed} "
               f"schedule={reports[0]['schedule_digest']} "
@@ -322,13 +405,17 @@ def run_transfers(seed: int, runs: int = 2, with_procs: bool = True,
     kernel (unsafe_transfer: abdicate before the target caught up) must
     be caught by TransferAvailability on a directed lagging-target
     schedule, and the correct kernel on the same schedule must pass
-    with the transfer completed."""
-    if with_procs:
-        raise _procs_not_ported("transfer")
+    with the transfer completed — then, unless `with_procs` is False,
+    the process-plane transfer nemesis (ProcTransferChaosRunner: POST
+    /transfer against real server processes under the seeded script)
+    `runs` times, whose verdict digests must reproduce."""
     kw = dict(device=device, commit_rule=commit_rule)
     ok, reports = _family_twice("transfers", seed, runs,
                                 "schedule_digest", **kw)
     ok &= run_falsification("transfers", seed, **kw)
+    if with_procs:
+        ok &= procs_gauntlet("transfers", seed, 60, runs=runs,
+                             device=device)[0]
     if ok:
         print(f"chaos transfers ok: seed={seed} "
               f"schedule={reports[0]['schedule_digest']} "
@@ -370,6 +457,77 @@ def run_quorum(seed: int, runs: int = 2, device="cuda",
     return 0 if ok else 1
 
 
+def overload_gauntlet(seed: int, runs: int = 2, device="cuda",
+                      commit_rule=None):
+    """The overload-control gauntlet.  The overload nemesis
+    (generate_overload: an open-loop producer at ~2x the engine's drain
+    rate with bursts, hot-group skew, device-step deadlines, slow-fsync
+    stalls and a crash+restart mid-overload, against the bounded
+    admission controller attached as the server attaches it) `runs`
+    times: plan + result digests must reproduce, refusals, stage-sheds,
+    stalls and the crash must fire, the propose backlog must stay at or
+    under the cap, and the goodput and starvation floors must hold.
+    Then the falsification pair: the same sustained 2x load with NO
+    admission controller must be caught as OVERLOAD-MEMORY, and the
+    bounded control must pass and refuse.  Returns (ok, reports), each
+    report with its run's wall time (`wall_s`)."""
+    from raftsql_tpu_torch.chaos import schedule as S
+    kw = dict(device=device, commit_rule=commit_rule)
+    plan = S.generate_overload(seed)
+    ok = True
+    reports = []
+    for run in range(runs):
+        t0 = time.monotonic()
+        r = run_fused(plan, **kw)
+        r["wall_s"] = time.monotonic() - t0
+        r["run"] = run
+        reports.append(r)
+        print(json.dumps(r, sort_keys=True))
+        ok &= _check(r["overload_rejected"] > 0
+                     and r["overload_shed_stage"] > 0
+                     and r["fsync_stalls"] > 0 and r["crashes"] >= 1,
+                     f"overload: a pressure family never fired ({r})")
+        ok &= _check(r["overload_depth_peak"] <= plan.total_cap,
+                     f"overload: backlog peak "
+                     f"{r['overload_depth_peak']} exceeded the cap "
+                     f"{plan.total_cap} without tripping the "
+                     f"invariant ({r})")
+        ok &= _check(
+            r["committed_entries"] >= plan.goodput_floor * plan.ticks,
+            f"overload: goodput floor missed — "
+            f"{r['committed_entries']} committed < "
+            f"{plan.goodput_floor * plan.ticks} ({r})")
+        ok &= _check(
+            min(r["group_commits"]) >= plan.starvation_floor,
+            f"overload: a group starved — per-group commits "
+            f"{r['group_commits']} < floor {plan.starvation_floor} "
+            f"({r})")
+    digests = {(r["plan_digest"], r["result_digest"]) for r in reports}
+    ok &= _check(len(digests) == 1,
+                 f"overload: non-reproducible: {digests}")
+    ok &= run_falsification("overload", seed, **kw)
+    return ok, reports
+
+
+def run_overload(seed: int, runs: int = 2, device="cuda",
+                 commit_rule=None) -> int:
+    """`--overload`: the overload-control gauntlet (overload_gauntlet)."""
+    from raftsql_tpu_torch.chaos.schedule import generate_overload
+    ok, reports = overload_gauntlet(seed, runs=runs, device=device,
+                                    commit_rule=commit_rule)
+    if ok:
+        r0 = reports[0]
+        cap = generate_overload(seed).total_cap
+        print(f"chaos overload ok: seed={seed} "
+              f"plan={r0['plan_digest']} "
+              f"result={r0['result_digest']} "
+              f"rejected={r0['overload_rejected']} "
+              f"shed_stage={r0['overload_shed_stage']} "
+              f"depth_peak={r0['overload_depth_peak']}"
+              f"/{cap} (x{runs} identical) falsification=caught")
+    return 0 if ok else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--seed", type=int,
@@ -394,10 +552,22 @@ def main(argv=None) -> int:
                     help="quorum-geometry gauntlet: the witness-cluster "
                          "family twice + the non-intersecting-geometry "
                          "and witness-lease falsification pairs")
+    ap.add_argument("--procs", action="store_true",
+                    help="process-plane nemesis over real server "
+                         "processes (SIGKILL, SIGSTOP, restart storms, "
+                         "env disk faults), run twice")
+    ap.add_argument("--overload", action="store_true",
+                    help="overload-control nemesis: open-loop 2x "
+                         "offered load with bursts, hot-group skew, "
+                         "deadlines and slow-fsync stalls against the "
+                         "bounded admission controller, run twice + the "
+                         "no-admission falsification pair")
     ap.add_argument("--no-procs", action="store_true",
-                    help="with --reads/--transfers: leave out the "
-                         "process-plane leg (not ported yet: without "
-                         "this flag those gauntlets raise)")
+                    help="with --reads/--transfers: skip the "
+                         "process-plane leg")
+    ap.add_argument("--proc-ticks", type=int,
+                    default=int(os.environ.get("PROC_TICKS", "80")),
+                    help="host ticks for the --procs script phase")
     ap.add_argument("--device", default="cuda",
                     help="torch device the consensus state steps on "
                          "(default cuda; 'cpu' runs the plain versions)")
@@ -417,6 +587,11 @@ def main(argv=None) -> int:
                              with_procs=not args.no_procs, **kw)
     if args.quorum:
         return run_quorum(args.seed, runs=args.runs, **kw)
+    if args.overload:
+        return run_overload(args.seed, runs=args.runs, **kw)
+    if args.procs:
+        return run_procs(args.seed, args.proc_ticks, runs=args.runs,
+                         device=args.device)
     if args.matrix or args.family:
         return run_matrix(args.seed, only=args.family, **kw)
 

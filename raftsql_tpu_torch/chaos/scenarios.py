@@ -3,12 +3,13 @@ schedules, injecting faults at every seam, checking invariants every
 tick.
 
 Port of the fused and node planes of raftsql_tpu/chaos/scenarios.py.
-The fused plane: `FusedChaosRunner` and the three nemesis runners built
+The fused plane: `FusedChaosRunner` and the four nemesis runners built
 on it — `ReadNemesisRunner` (every read mode under skew, partitions and
-crashes), `QuorumChaosRunner` (flexible quorums and a witness peer) and
+crashes), `QuorumChaosRunner` (flexible quorums and a witness peer),
 `TransferChaosRunner` (graceful leadership transfers under the same
-faults).  The node plane (the distributed runtime, runtime/node.py
-RaftNode): `NodeClusterChaosRunner` (a lockstep cluster over the
+faults) and `OverloadChaosRunner` (an open-loop producer at ~2x the
+drain rate against the bounded admission controller).  The node plane
+(the distributed runtime, runtime/node.py RaftNode): `NodeClusterChaosRunner` (a lockstep cluster over the
 loopback transport: crashes, partitions, skew, wire-frame corruption),
 `SnapshotChaosRunner` (compaction + InstallSnapshot + crashes, ending in
 the convergence invariant), `MembershipChaosRunner` (node replacement
@@ -245,9 +246,15 @@ class FusedChaosRunner:
 
     # -- lifecycle -----------------------------------------------------
 
-    def _boot(self, first: bool) -> FusedClusterNode:
-        node = FusedClusterNode(self.cfg, self.data_dir,
+    def _make_node(self) -> FusedClusterNode:
+        """Construct the engine under test on the runner's device;
+        OverloadChaosRunner overrides this to attach the admission
+        controller the way the server does."""
+        return FusedClusterNode(self.cfg, self.data_dir,
                                 seed=self.sched.seed, device=self.device)
+
+    def _boot(self, first: bool) -> FusedClusterNode:
+        node = self._make_node()
         if self.steps > 1:
             node._steps = self.steps
         node.publish_peers = self.PUBLISH_PEERS
@@ -1997,3 +2004,169 @@ class TcpRebindChaosRunner:
                 if n is not None:
                     n.stop()
         return {"plan_digest": self.plan.digest(), **self.report}
+
+
+class OverloadChaosRunner(FusedChaosRunner):
+    """Overload nemesis (overload/): an OPEN-LOOP producer offers
+    `offered_per_tick` writes every tick — roughly twice what the
+    engine drains — plus burst windows, hot-group skew, a fraction of
+    writes carrying device-step deadlines, slow-fsync stalls and a
+    mid-overload crash+restart.  The bounded admission controller is
+    attached to the engine exactly the way the server does it
+    (node.overload), so the nemesis exercises the REAL hot path:
+    admit() under _prop_lock, stage-shed of expired deadlines before
+    any WAL cost, drained() accounting, and the tick-fed drain EWMA.
+
+    Invariants on top of the standing suite (durability ledger +
+    restart replay, election safety, commit monotonicity, log
+    matching, linearizable reads):
+
+      OVERLOAD-MEMORY — the engine's ACTUAL propose backlog (every
+      queue of every peer, measured under _prop_lock each tick) never
+      exceeds the plan's hard cap.  This is the falsification seam:
+      with `unsafe_no_admission` the controller is NOT attached, the
+      producer outruns the drain, and this invariant MUST fire on the
+      identical schedule the bounded control survives.
+
+    Goodput and starvation floors are checked by chaos/run.py from
+    the report (committed totals are facts of the digested history,
+    not per-tick invariants).  Port of the JAX package's runner: for
+    the same plan the report equals the reference's key for key."""
+
+    def __init__(self, plan, data_dir: str, device="cuda",
+                 commit_rule: Optional[str] = None):
+        self.plan = plan
+        sched = ChaosSchedule(
+            seed=plan.seed, ticks=plan.ticks,
+            crashes=tuple(plan.crashes),
+            fsync_stalls=tuple(plan.fsync_stalls),
+            prop_rate=0.0, read_rate=0.0)   # workload is the open loop
+        cfg = RaftConfig(num_groups=plan.groups, num_peers=plan.peers,
+                         log_window=64, max_entries_per_msg=4,
+                         election_ticks=10, heartbeat_ticks=1,
+                         tick_interval_s=0.0)
+        super().__init__(sched, data_dir, cfg=cfg, device=device,
+                         commit_rule=commit_rule)
+        self._t = -1
+        self._ov_totals: Dict[str, int] = {
+            "admitted": 0, "rejected": 0, "shed_edge": 0,
+            "shed_ring": 0, "shed_stage": 0, "shed_commit_wait": 0,
+            "brownouts": 0, "queue_depth_peak": 0}
+        self.report.update({
+            "offered": 0, "overload_admitted": 0,
+            "overload_rejected": 0, "overload_shed_stage": 0,
+            "overload_brownouts": 0, "overload_depth_peak": 0})
+
+    # -- controller attachment (the server's wiring, replayed) ---------
+
+    def _make_node(self) -> FusedClusterNode:
+        from raftsql_tpu_torch.overload import OverloadController
+        node = super()._make_node()
+        if not self.plan.unsafe_no_admission:
+            node.overload = OverloadController(
+                self.cfg.num_groups,
+                group_cap=self.plan.group_cap,
+                total_cap=self.plan.total_cap,
+                seed=self.plan.seed,
+                tick_interval_s=0.001)
+        return node
+
+    def _harvest(self) -> None:
+        """Fold the dying (or finished) node's controller counters
+        into the run totals — the controller is re-attached fresh at
+        every restart, exactly as a restarted server would."""
+        node = self.node
+        ov = getattr(node, "overload", None) if node is not None else None
+        if ov is None:
+            return
+        doc = ov.metrics_doc()
+        for k in ("admitted", "rejected", "shed_edge", "shed_ring",
+                  "shed_stage", "shed_commit_wait", "brownouts"):
+            self._ov_totals[k] += int(doc[k])
+        self._ov_totals["queue_depth_peak"] = max(
+            self._ov_totals["queue_depth_peak"],
+            int(doc["queue_depth_peak"]))
+
+    def _crash_restart(self, tick: int, power_loss: bool = False,
+                       tear_peer: int = -1) -> None:
+        self._harvest()
+        super()._crash_restart(tick, power_loss, tear_peer)
+
+    # -- the open-loop workload ----------------------------------------
+
+    def _issue(self, rng: np.random.Generator) -> None:
+        from raftsql_tpu_torch.overload import Overloaded
+        self._t += 1
+        t = self._t
+        plan = self.plan
+        node = self.node
+        G = self.cfg.num_groups
+        offered = plan.offered_per_tick
+        for b in plan.bursts:
+            if b.start <= t < b.end:
+                offered += b.extra
+        keys_per_group = max(1, self.KEYS // G)
+        now_step = int(node._device_steps)
+        for _ in range(offered):
+            if rng.random() < plan.hot_share:
+                g = plan.hot_group % G
+            else:
+                g = int(rng.integers(0, G))
+            k = g + G * int(rng.integers(0, keys_per_group))
+            dstep = None
+            if rng.random() < plan.deadline_rate:
+                dstep = now_step + int(rng.integers(plan.deadline_lo,
+                                                    plan.deadline_hi + 1))
+            value = f"v{self._wseq}"
+            self._wseq += 1
+            self.report["offered"] += 1
+            try:
+                node.propose_many(g, [f"SET k{k} {value}".encode()],
+                                  deadline_step=dstep)
+            except Overloaded:
+                continue              # open loop: the producer moves on
+            # Only ADMITTED writes enter the linearizability register:
+            # a refused write was never acked and may never apply (a
+            # deadline-shed admitted write is a begun-but-unacked
+            # write, which the register models as forever-concurrent).
+            self.lin.begin_write(f"k{k}", value)
+        if rng.random() < plan.read_rate:
+            k = int(rng.integers(0, self.KEYS))
+            g = k % G
+            got = node.read_index(g)
+            if got:
+                target, _ = got
+                self._pending_reads.append(
+                    (f"k{k}", g, target, self.lin.begin_read(f"k{k}")))
+
+    # -- invariants ----------------------------------------------------
+
+    def _observe(self, t: int) -> None:
+        super()._observe(t)
+        node = self.node
+        with node._prop_lock:
+            depth = sum(len(q) for row in node._props for q in row)
+        if depth > self.report["overload_depth_peak"]:
+            self.report["overload_depth_peak"] = depth
+        if depth > self.plan.total_cap:
+            raise InvariantViolation(
+                f"OVERLOAD-MEMORY: tick {t}: propose backlog {depth} "
+                f"exceeds the hard cap {self.plan.total_cap} "
+                f"(admission "
+                f"{'OFF' if self.plan.unsafe_no_admission else 'on'}, "
+                f"offered so far {self.report['offered']})")
+
+    def _report(self) -> dict:
+        self._harvest()
+        self.report["overload_admitted"] = self._ov_totals["admitted"]
+        self.report["overload_rejected"] = self._ov_totals["rejected"]
+        self.report["overload_shed_stage"] = \
+            self._ov_totals["shed_stage"]
+        self.report["overload_brownouts"] = self._ov_totals["brownouts"]
+        r = super()._report()
+        r["plan_digest"] = self.plan.digest()
+        per = [0] * self.cfg.num_groups
+        for (g, _i) in self.ledger._committed:
+            per[g] += 1
+        r["group_commits"] = per
+        return r

@@ -7,7 +7,11 @@ window and fault dataclasses, `ChaosSchedule`, `generate(seed)`, the
 fused family generators, and the read, transfer and quorum nemesis plans
 with their falsification plans, and the node-plane plans of the
 distributed runtime's families (NodeChaosPlan, TcpChaosPlan,
-MembershipChaosPlan, TcpRebindPlan) with their generators.  Every
+MembershipChaosPlan, TcpRebindPlan) with their generators, the
+process-plane plan (ProcChaosPlan and its ProcKill, ProcStall,
+ProcRestartStorm and ProcFsioSpec events, `generate_procs`) and the
+overload nemesis plan (OverloadNemesisPlan, OverloadBurst,
+`generate_overload`, `falsification_overload_plan`).  Every
 schedule derives from one integer seed
 via `numpy.random.default_rng`, and `digest()` hashes the canonical
 JSON form with sha256 — the same bytes as the JAX package's, so a port
@@ -1071,3 +1075,229 @@ def generate_node_plan(seed: int, ticks: int = 320,
                          down=int(rng.integers(25, 40))))
     return NodeChaosPlan(seed=seed, ticks=ticks, partitions=parts,
                          crashes=crashes)
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcKill:
+    """PROCESS-plane crash: SIGKILL peer `peer` (0-based, or
+    LEADER_TARGET resolved via /healthz at fire time) at host tick
+    `tick`; the nemesis respawns it `down` ticks later on the SAME
+    ports and data dir."""
+    tick: int
+    peer: int
+    down: int = 10
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcStall:
+    """SIGSTOP peer `peer` at `tick`, SIGCONT `ticks` ticks later — the
+    GC-pause / VM-freeze failure mode.  A stalled LEADER must be
+    deposed while frozen and rejoin as a follower on SIGCONT, with
+    every write acked before the stall intact."""
+    tick: int
+    peer: int
+    ticks: int = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcRestartStorm:
+    """Rolling-restart storm starting at `tick`: each peer in turn gets
+    a clean SIGTERM stop and an immediate respawn (same port — every
+    respawn is also a same-port rebind), `gap` ticks apart — the
+    deploy-day scenario."""
+    tick: int
+    gap: int = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcFsioSpec:
+    """Env-injected storage faults for peer `peer`'s FIRST spawn: the
+    RAFTSQL_FSIO_FAULTS value (storage/fsio.py grammar).  Crash-point
+    specs (exit_fsync) hard-exit the child; the nemesis respawns it
+    WITHOUT the spec — the fault fired, the disk "recovered"."""
+    peer: int
+    spec: str
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcChaosPlan:
+    """Scripted scenario for a REAL multi-process cluster
+    (server/main.py children, TcpTransport, HTTP clients).  Host ticks
+    are wall-clock paced (`tick_s`), so this plane has the WEAKEST
+    determinism contract of the harness: the SCHEDULE is a pure
+    function of the seed (digest-compared), the invariant VERDICTS
+    must reproduce, but the committed history is scheduled by three
+    kernels' worth of real concurrency and is not bit-reproducible
+    (documented in the README fault matrix)."""
+    seed: int
+    ticks: int
+    peers: int = 3
+    kills: Tuple[ProcKill, ...] = ()
+    stalls: Tuple[ProcStall, ...] = ()
+    storms: Tuple[ProcRestartStorm, ...] = ()
+    fsio: Tuple[ProcFsioSpec, ...] = ()
+    heal_ticks: int = 40
+    tick_s: float = 0.25
+    groups: int = 1
+
+    def describe(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def digest(self) -> str:
+        blob = json.dumps(self.describe(), sort_keys=True,
+                          separators=(",", ":")).encode()
+        return hashlib.sha256(blob).hexdigest()[:16]
+
+
+
+
+def generate_procs(seed: int, ticks: int = 80,
+                   peers: int = 3) -> ProcChaosPlan:
+    """Derive a process-plane scenario from one seed, with every fault
+    family the acceptance gate names aboard: a leader-targeted SIGKILL,
+    a random SIGKILL, a leader SIGSTOP/SIGCONT stall, one rolling
+    restart storm, an env-injected ENOSPC on one peer's WAL and an
+    exit-at-fsync crash point on another.  Low fsio op counts fire the
+    storage faults within the warmup writes, before the first scripted
+    signal lands."""
+    rng = np.random.default_rng(seed ^ 0x90C)
+    warmup = max(10, ticks // 8)
+    t_kill0 = int(rng.integers(warmup, warmup + ticks // 4))
+    kill0 = ProcKill(t_kill0, LEADER_TARGET,
+                     down=int(rng.integers(8, 13)))
+    t_stall = int(rng.integers(t_kill0 + kill0.down + 4,
+                               t_kill0 + kill0.down + 4 + ticks // 4))
+    stall = ProcStall(t_stall, LEADER_TARGET,
+                      ticks=int(rng.integers(6, 10)))
+    t_kill1 = int(rng.integers(t_stall + stall.ticks + 4,
+                               t_stall + stall.ticks + 4 + ticks // 6))
+    kill1 = ProcKill(t_kill1, int(rng.integers(0, peers)),
+                     down=int(rng.integers(6, 11)))
+    t_storm = t_kill1 + kill1.down + int(rng.integers(4, 9))
+    storm = ProcRestartStorm(t_storm, gap=int(rng.integers(3, 6)))
+    # Two peers get env-injected disk faults; WAL write/fsync op counts
+    # accumulate with the warmup workload, so low-20s thresholds fire
+    # in the first seconds of serving.
+    p_enospc = int(rng.integers(0, peers))
+    p_exit = int((p_enospc + 1 + rng.integers(0, peers - 1)) % peers)
+    fsio = (
+        ProcFsioSpec(p_enospc,
+                     f"raftsql-{p_enospc + 1}:"
+                     f"enospc@{int(rng.integers(12, 25))}"),
+        ProcFsioSpec(p_exit,
+                     f"raftsql-{p_exit + 1}:"
+                     f"exit_fsync@{int(rng.integers(10, 20))}"),
+    )
+    total = max(ticks, t_storm + storm.gap * peers + 8)
+    return ProcChaosPlan(seed=seed, ticks=total, peers=peers,
+                         kills=(kill0, kill1), stalls=(stall,),
+                         storms=(storm,), fsio=fsio)
+
+
+@dataclasses.dataclass(frozen=True)
+class OverloadBurst:
+    """An offered-load burst: `extra` additional open-loop writes per
+    tick while the window is active, on top of the plan's baseline."""
+    start: int
+    end: int
+    extra: int
+
+
+@dataclasses.dataclass(frozen=True)
+class OverloadNemesisPlan:
+    """Scripted overload attack (fused plane, chaos/scenarios.py
+    OverloadChaosRunner): an OPEN-LOOP workload offers far more writes
+    per tick than the engine can drain (offered >> capacity), in
+    bursts, with hot-group skew and slow-fsync stalls — while the
+    bounded admission controller (overload/) is the only
+    thing standing between the propose queues and unbounded memory.
+
+    A SEPARATE plan class on purpose (same rule as every other
+    family): extending ChaosSchedule would change the asdict() digest
+    of every committed family.  The runner projects the fault fields
+    into a ChaosSchedule internally and drives the offered load
+    itself.
+
+    `unsafe_no_admission` is the falsification seam: the runner then
+    attaches NO controller, and the OVERLOAD-MEMORY invariant (propose
+    backlog > total_cap, measured against the engine's actual queues
+    every tick) MUST catch the identical schedule that the bounded
+    control survives."""
+    seed: int
+    ticks: int
+    groups: int = 4
+    peers: int = 3
+    group_cap: int = 24
+    total_cap: int = 48
+    offered_per_tick: int = 32      # ~2x the 4-group x 4-entry drain
+    hot_group: int = 0
+    hot_share: float = 0.5          # P(an offered write hits hot_group)
+    deadline_rate: float = 0.4      # P(a write carries a device-step
+    deadline_lo: int = 1            # deadline drawn in [lo, hi])
+    deadline_hi: int = 8
+    read_rate: float = 0.3
+    bursts: Tuple[OverloadBurst, ...] = ()
+    fsync_stalls: Tuple[FsyncStall, ...] = ()
+    crashes: Tuple[CrashEvent, ...] = ()
+    unsafe_no_admission: bool = False
+    # Acceptance floors (checked by chaos/run.py, not invariants):
+    # committed >= goodput_floor * ticks despite 2x offered load, and
+    # every group commits >= starvation_floor entries (no group is
+    # starved by the hot group's pressure).
+    goodput_floor: int = 2
+    starvation_floor: int = 8
+
+    def describe(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def digest(self) -> str:
+        blob = json.dumps(self.describe(), sort_keys=True,
+                          separators=(",", ":")).encode()
+        return hashlib.sha256(blob).hexdigest()[:16]
+
+
+def generate_overload(seed: int, ticks: int = 160) -> OverloadNemesisPlan:
+    """The overload nemesis family: sustained 2x offered load with two
+    burst windows (3x+), hot-group skew, two slow-fsync stall windows
+    (latency pressure, not failure), and one whole-cluster
+    crash+restart mid-overload so the durability audit replays WALs
+    written under admission pressure.  Admission is ON: the propose
+    backlog must never exceed total_cap, acked writes must survive the
+    restart, goodput must clear the floor and no group may starve —
+    and two runs must produce identical plan + result digests."""
+    rng = np.random.default_rng(seed ^ 0x10AD)
+    warmup = 30
+    b0 = int(rng.integers(warmup, warmup + ticks // 4))
+    b1 = int(rng.integers(ticks // 2, int(ticks * 0.7)))
+    bursts = (OverloadBurst(b0, b0 + int(rng.integers(10, 20)),
+                            int(rng.integers(16, 33))),
+              OverloadBurst(b1, b1 + int(rng.integers(10, 20)),
+                            int(rng.integers(16, 33))))
+    stalls = (FsyncStall(int(rng.integers(0, 3)),
+                         int(rng.integers(40, 80)), count=4,
+                         stall_s=0.01),
+              FsyncStall(int(rng.integers(0, 3)),
+                         int(rng.integers(120, 180)), count=4,
+                         stall_s=0.01))
+    crash = CrashEvent(int(rng.integers(int(ticks * 0.55),
+                                        int(ticks * 0.8))))
+    return OverloadNemesisPlan(
+        seed=seed, ticks=ticks, hot_group=int(rng.integers(0, 4)),
+        bursts=bursts, fsync_stalls=stalls, crashes=(crash,))
+
+
+def falsification_overload_plan(seed: int = 0,
+                                broken: bool = True
+                                ) -> OverloadNemesisPlan:
+    """DIRECTED unbounded-memory falsification: sustained 2x offered
+    load, no other faults.  broken=True attaches NO admission
+    controller (unsafe_no_admission): the open-loop producer outruns
+    the drain by ~16 entries/tick, so the propose backlog crosses
+    total_cap within a few ticks and the OVERLOAD-MEMORY invariant
+    MUST catch it.  The SAME schedule with the bounded controller
+    must pass — proving the harness detects exactly the missing
+    admission bound, not offered load in general."""
+    return OverloadNemesisPlan(
+        seed=seed, ticks=80, deadline_rate=0.0, read_rate=0.0,
+        unsafe_no_admission=broken,
+        goodput_floor=1, starvation_floor=1)

@@ -8,7 +8,8 @@ witness and transfer counter — must be equal, and the digests must be
 the constants chip_smoke.py holds the card to.  Then each gauntlet's
 falsification pairs run on the port: the broken lease bound, the
 unsafe transfer kernel and both quorum arms must be caught by the
-invariants, and their controls must pass.
+invariants, and their controls must pass.  The read and transfer
+gauntlets end with their process legs.
 """
 import json
 
@@ -62,8 +63,18 @@ def test_gauntlet_falsification_pairs_on_port(gauntlet, marks, capsys):
 
 
 @pytest.mark.parametrize("fn", [trun.run_reads, trun.run_transfers])
-def test_process_arms_raise_until_the_distributed_runtime(fn):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        fn(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        trun.main([f"--{fn.__name__[4:]}", "--device", "cpu"])
+def test_process_arms_raise_until_the_distributed_runtime(fn, capsys):
+    """The process arms are ported: without --no-procs the gauntlet
+    ends with its process leg (three server processes under the seeded
+    nemesis), whose verdict is the reference's all-pass verdict on
+    generate_procs(0, ticks=60) (chip_smoke.PROC_VERDICTS)."""
+    family = fn.__name__[4:]
+    assert trun.main([f"--{family}", "--runs", "1", "--device",
+                      "cpu"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[-1].startswith(f"chaos {family} ok: seed=0 ")
+    leg = [json.loads(line) for line in out if line.startswith("{")
+           and '"boot_s"' in line]             # a process runner's report
+    assert len(leg) == 1 and leg[0]["unexpected_exits"] == 0
+    assert (leg[0]["schedule_digest"], leg[0]["result_digest"]) \
+        == chip_smoke.PROC_VERDICTS[family]

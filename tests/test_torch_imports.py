@@ -59,7 +59,8 @@ def test_module_list_covers_the_slice():
               "placement", "placement.controller",
               "transport.base", "transport.codec", "transport.loopback",
               "transport.tcp", "runtime.node", "runtime.pipe",
-              "models.witness", "api.client", "chaos.proc"):
+              "models.witness", "api.client", "chaos.proc",
+              "overload", "overload.admission"):
         assert f"raftsql_tpu_torch.{m}" in MODULES, m
 
 
