@@ -23,7 +23,8 @@ exit, no result line) at the first phase that fails:
      G = 8192, each booted from the same seed, must be bit-identical;
      then the device event ring's cost at G = 100,000 ([64, 3, 100000,
      9] int32): the fused tick without and with a ring record per tick,
-     and the durable node's tick without and with enable_tracing;
+     and the durable node's tick (native WALs, G = 25,000: its elections
+     take 52 s at G = 100,000) without and with enable_tracing;
   5. the membership and transfer planes at G = 25,000 on 4 slots
      (voters {0,1,2}, a spare slot 3, durable FusedClusterNode,
      commit_rule="pallas"): after the elections slot 0 is replaced by
@@ -37,8 +38,8 @@ exit, no result line) at the first phase that fails:
      near half its time limit (the phase's host plane costs about
      1.5 s a tick and 73 s of set-up at G = 100,000);
   6. the fused durable SQL server (build_fused_node + the aio HTTP
-     plane): the reference curl recipe, concurrent acked PUTs, a close
-     and a resume=True reopen that replays the WALs;
+     plane) on native WALs: the reference curl recipe, concurrent acked
+     PUTs, a close and a resume=True reopen that replays the WALs;
   7. the same server with tracing on (the CLI's --trace): the PUT load
      again, GET /trace must pass validate_chrome_trace, and GET /events
      must show tracing on, device rows, and one full propose-to-ack
@@ -50,9 +51,9 @@ exit, no result line) at the first phase that fails:
      turns: placement must complete a transfer, every acked PUT is read
      back, p50/p99 of each;
   9. chaos: the default family at SEED=0 (240 ticks,
-     commit_rule="pallas") twice, the five fused families once each, and
-     the reads, quorum and transfers families twice each
-     (commit_rule="pallas"), through raftsql_tpu_torch.chaos.run; every
+     commit_rule="pallas"), the five fused families, and the reads,
+     quorum and transfers families (commit_rule="pallas"), once each
+     (RUNS), through raftsql_tpu_torch.chaos.run; every
      schedule and result digest must equal the JAX package's
      (CHAOS_DIGESTS), and K1 must launch in the default's and the
      nemesis families' runs; then the falsification pairs of the three
@@ -63,11 +64,13 @@ exit, no result line) at the first phase that fails:
      E = 8, tick_interval_s = 0, commit_rule="pallas", in lockstep
      through the elections, then 24 ticks draining E proposals per
      group per tick queued ahead: node 1's commits/s and per-phase ms
-     per tick; K1 must launch once per node tick, and one tick's K1
-     inputs (R = 10,000, one peer's rows) are copied, held to the plain
-     version and timed; then a card run and a CPU run of one lockstep
-     script at G = 512 must be bit-identical (packed info, commit
-     stream, WAL bytes);
+     per tick, every WAL native; K1 must launch once per node tick, and
+     one tick's K1 inputs (R = 10,000, one peer's rows) are copied, held
+     to the plain version and timed; then the same shape for 4 ticks on
+     the Python WAL backend (RAFTSQL_TPU_NATIVE=0), for node 1's ms per
+     tick by phase beside the native run's; then a card run and a CPU
+     run of one lockstep script at G = 512 must be bit-identical (packed
+     info, commit stream, WAL bytes);
  11. the Procfile cluster: three `python -m raftsql_tpu_torch.server.main
      --id I --cluster <3 urls> --port I2380 --groups 8 --resume`
      processes on the card (the Procfile's ports, default tick and
@@ -75,10 +78,11 @@ exit, no result line) at the first phase that fails:
      is down and its catch-up, PUT p50/p99 from 16 client threads over
      the 8 groups with every acked PUT read back at every node, no
      election during that load (node steps slower than the 10 ms tick
-     must not depose a leader), and each node's GET /metrics
-     phase_ms_per_tick;
+     must not depose a leader), each node's GET /metrics
+     phase_ms_per_tick, and every start of every child on native WALs
+     (its "WAL backend: native" log line);
  12. the node-plane chaos families: corrupt, snapshot and membership
-     twice each with commit_rule="pallas" (digests equal to the JAX
+     once each (RUNS) with commit_rule="pallas" (digests equal to the JAX
      package's, CHAOS_DIGESTS; K1 launches in corrupt and snapshot, K2
      in membership, where the inputs of its first call on joint masks,
      R = 2 rows of one peer at P = 4, are copied, held to the plain
@@ -92,26 +96,40 @@ exit, no result line) at the first phase that fails:
      the goodput and starvation floors met, the falsification pair
      caught and its control passed, and K1 launched once per device
      step (launches and dispatches zeroed just before, read just after);
+     the inputs of K1's first call with a leader row (R = 12, P = 3) are
+     copied, held to the plain version and timed;
  14. the process plane, every server child a CUDA process: the --procs
-     gauntlet at seed 0, 80 ticks, twice (every fault family fires, no
-     unexpected exit, both verdict digests the reference's all-pass
+     gauntlet at seed 0, 80 ticks, once (RUNS; every fault family fires,
+     no unexpected exit, the verdict digest the reference's all-pass
      digest, PROC_VERDICTS), the read and transfer arms once each on
      generate_procs(0, ticks=60), and a SIGSTOP probe (a stalled CUDA
      leader's survivors: device ms per node tick and ticks per second
      before and during the stall);
- 15. the kernels line (JSON: K1 as phase 4 measured it, K2 on phase 5's
+ 15. the durable storage plane at the bench's accelerator durable shape
+     (bench.py bench_durable_fused): FusedClusterNode, G = 10,000, P =
+     3, W = 64, E = 8, tick_interval_s = 0, commit_rule="pallas", WAL
+     group commit, publish_peers = {0}; arm (a) the native payload log
+     (RAFTSQL_FUSED_NATIVE_PLOG=1) with NativeKV applying peer 0's
+     stream, arm (b) the Python payload log with one KVStateMachine a
+     group draining it, in turns (a, then b), each booted from seed 0,
+     elected, then 24 ticks with E SET proposals a group a tick queued
+     ahead: every WAL native, the same commit indexes, KV state and WAL
+     records in both arms, K1 launched once per device step; commits/s
+     and ms per tick by phase of each arm;
+ 16. the kernels line (JSON: K1 as phase 4 measured it, K2 on phase 5's
      joint masks, launches summed over the paths, and each kernel's
      node-path launches and time: K1 at R = 10,000 from phase 10, K2 at
-     R = 2 from phase 12; K1's launches on the overload path of phase
-     13) and the result line.
+     R = 2 from phase 12; K1's launches and time on the overload path of
+     phase 13, R = 12; K1's launches in phase 15) and the result line.
 
-`--only 13,14` runs the build and the named phases (3-14) alone: a
+`--only 13,15` runs the build and the named phases (3-15) alone: a
 development run, with no result line.  It needs one card and writes
 under build/ of its checkout (and the chaos runs' data dirs under
 $TMPDIR, removed after each run).
 """
 from __future__ import annotations
 
+import dataclasses
 import http.client
 import json
 import os
@@ -163,6 +181,11 @@ CHAOS_DIGESTS = {
     # result as ac2d01c5e3007d01, the non-partitionable threefry run.
     "overload": ("993c8f68e0b1ac1a", "fadf1a8688e66fa1"),
 }
+# Runs of each seed-0 chaos family and of the --procs gauntlet (phases 9,
+# 12, 14).  One: every run's digests must equal the reference's constants
+# (CHAOS_DIGESTS, PROC_VERDICTS), which a second run only repeats; the
+# whole script must stay near half its 1,200 s limit.
+RUNS = 1
 REPLACES = {
     "pallas_quorum_commit_index":
         "raftsql_tpu/ops/pallas_quorum.py:72",
@@ -470,12 +493,12 @@ def main_path_kernels(card: str, captured: dict) -> dict:
         kern, plain, cand = _calls(args, masks, P, size)
         err = _equal(kern, plain, f"{name} on the main path's tensors")
         ms, plain_ms = time_ms(kern, reps=100), time_ms(plain)
-        dev_us = kernel_device_us(kern)
+        dev_us, h_us = kernel_device_us(kern), host_us(kern)
         bms, by, all_rows_ms = bound(args, masks, cand)
         leaders = int(args[5].sum())
         log(f"main path {name}: R={args[0].shape[0]} P={P} "
             f"W={args[1].shape[1]}, {leaders} leader rows; equal; "
-            f"{ms * 1e3:.1f} us per call (host {host_us(kern):.1f} us), "
+            f"{ms * 1e3:.1f} us per call (host {h_us:.1f} us), "
             f"device {_us(dev_us)}; plain {plain_ms * 1e3:.1f} us; bound "
             f"{bms * 1e3:.2f} us by {by} (all-rows count "
             f"{all_rows_ms * 1e3:.2f} us) on {card}")
@@ -496,7 +519,8 @@ def main_path_kernels(card: str, captured: dict) -> dict:
                 f"{k1_host_parts(args, size)} on {card}")
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bms, bound_by=by,
-                             rows=args[0].shape[0])
+                             rows=args[0].shape[0], device_us=dev_us,
+                             host_us=h_us)
     return results
 
 
@@ -658,14 +682,18 @@ def fused_tick(card: str, dev="cuda", G=100_000, g=8192) -> dict:
 
 
 def traced_tick(card: str, dev="cuda", G=100_000, ticks=64,
-                node_ticks=8) -> dict:
+                node_ticks=8, node_G=25_000) -> dict:
     """The event ring's cost at G = 100,000.  First on phase 4's fused
     tick: blocks of `ticks` ticks without and with a DeviceEventRing
     record per tick (one full drain per traced block), in turns.  Then
     on the durable node (FusedClusterNode: the fused tick plus the host
-    plane, idle after the elections) without and with enable_tracing,
-    in turns, `node_ticks` a block.  And the ring's slot write alone
-    (CUDA events) and one drain of the full ring."""
+    plane, idle after the elections, on native WALs) without and with
+    enable_tracing, in turns, `node_ticks` a block.  And the ring's slot
+    write alone (CUDA events) and one drain of the full ring.  The
+    durable node runs at node_G = 25,000, as phase 5 does: at G =
+    100,000 its elections took 52.1 s on native WALs too (the staging
+    and payload-log work per row stay in Python), against the 15 s that
+    would have kept it there."""
     from raftsql_tpu_torch.obs.device_ring import (DeviceEventRing,
                                                    _record_slot)
     from raftsql_tpu_torch.runtime.fused import FusedClusterNode
@@ -711,8 +739,13 @@ def traced_tick(card: str, dev="cuda", G=100_000, ticks=64,
 
     d = os.path.join(ROOT, "build", "chip_smoke_ring")
     shutil.rmtree(d, ignore_errors=True)
-    node = FusedClusterNode(cfg, d, device=dev)
+    G = node_G
+    node = FusedClusterNode(dataclasses.replace(cfg, num_groups=G), d,
+                            device=dev)
     try:
+        wals = node.wals
+        expect([w.is_native for w in wals], [True] * len(wals),
+               "the traced node's WALs are native")
         t0, n = time.monotonic(), 0
         while (node._hints < 0).any() and n < 300:
             node.tick()
@@ -721,7 +754,7 @@ def traced_tick(card: str, dev="cuda", G=100_000, ticks=64,
         if (node._hints < 0).any():
             raise AssertionError(f"{G} groups not elected in {n} ticks")
         log(f"traced node: {G} groups elected in {n} ticks "
-            f"({time.monotonic() - t0:.1f} s)")
+            f"({time.monotonic() - t0:.1f} s) on native WALs")
 
         def block():
             torch.cuda.synchronize()
@@ -994,6 +1027,9 @@ def server(card: str, dev="cuda") -> int:
     rdb, srv = _serve(groups, dev)
     try:
         port = srv.port
+        wals = rdb.pipe.node.wals
+        expect([w.is_native for w in wals], [True] * len(wals),
+               "the server's WALs are native")
         for g in range(groups):
             expect(_req(port, "PUT", b"CREATE TABLE main.t (name text)",
                         g), (204, b""), f"CREATE g{g}")
@@ -1026,8 +1062,8 @@ def server(card: str, dev="cuda") -> int:
     grew = pq.launches[k1] - base
     if grew <= 0:
         raise AssertionError("the server never launched K1")
-    log(f"server: reopen replayed the WALs, rows intact; K1 launches "
-        f"{grew} during the phase")
+    log(f"server: {len(wals)} native WALs; reopen replayed them, rows "
+        f"intact; K1 launches {grew} during the phase")
     shutil.rmtree(DATA, ignore_errors=True)
     return grew
 
@@ -1200,20 +1236,20 @@ def placement_server(card: str, dev="cuda", groups=8) -> dict:
 # ---- phase 9 ---------------------------------------------------------------
 
 def chaos(card: str, dev="cuda") -> dict:
-    """The seed-0 chaos digests on the card: the default family twice
-    with commit_rule="pallas", then each fused family once, then the
-    read, quorum and transfer nemesis families twice each with
-    commit_rule="pallas" (K1's launch count zeroed just before those
-    runs and read just after, twice: the default's and the nemesis
-    families'), then the falsification pairs of those three gauntlets,
-    which must be caught.  Returns the wall time of each run in seconds
-    and the K1 launches of each path."""
+    """The seed-0 chaos digests on the card: the default family with
+    commit_rule="pallas", then each fused family, then the read, quorum
+    and transfer nemesis families with commit_rule="pallas" (K1's
+    launch count zeroed just before those runs and read just after,
+    twice: the default's and the nemesis families'), each `RUNS` times,
+    then the falsification pairs of those three gauntlets, which must be
+    caught.  Returns the wall time of each run in seconds and the K1
+    launches of each path."""
     from raftsql_tpu_torch.chaos import run as crun
     from raftsql_tpu_torch.chaos.schedule import generate
     k1 = "pallas_quorum_commit_index"
     walls, launches = {}, {}
     pq.reset_launches()                       # the chaos path starts here
-    for i in range(2):
+    for i in range(RUNS):
         t0 = time.monotonic()
         r = crun.run_fused(generate(0, ticks=240), device=dev,
                            commit_rule="pallas")
@@ -1228,7 +1264,8 @@ def chaos(card: str, dev="cuda") -> dict:
     launches["default"] = pq.launches[k1]     # ... and ends here
     if launches["default"] <= 0:
         raise AssertionError("the chaos runs never launched K1")
-    log(f"chaos default: K1 launches {launches['default']} over both runs")
+    log(f"chaos default: K1 launches {launches['default']} over {RUNS} "
+        f"run(s)")
     nemesis = ("reads", "quorum", "transfers")
     specs = crun.family_specs()
     for name, (gen, fired) in specs.items():
@@ -1246,7 +1283,7 @@ def chaos(card: str, dev="cuda") -> dict:
     pq.reset_launches()                       # the nemesis path starts here
     for name in nemesis:
         gen, fired = specs[name]
-        for i in range(2):
+        for i in range(RUNS):
             t0 = time.monotonic()
             r = crun.run_fused(gen(0), device=dev, commit_rule="pallas")
             walls[f"{name}#{i + 1}"] = time.monotonic() - t0
@@ -1262,7 +1299,7 @@ def chaos(card: str, dev="cuda") -> dict:
     if launches["nemesis"] <= 0:
         raise AssertionError("the nemesis families never launched K1")
     log(f"chaos nemesis families: K1 launches {launches['nemesis']} over "
-        f"six runs")
+        f"{3 * RUNS} runs")
     for name in nemesis:
         t0 = time.monotonic()
         ok = crun.run_falsification(name, 0, device=dev,
@@ -1364,6 +1401,21 @@ def node_lockstep(dev, G, ticks, d) -> tuple:
     return infos, commits, wal
 
 
+def _load_nodes(nodes, G, n_cmds) -> None:
+    """Queue n_cmds proposals at each group's leader (as node 1 knows
+    it) and zero every node's phase clocks."""
+    hints = nodes[0]._last_hint.copy()
+    cmds = [f"SET k{i} v".encode() for i in range(n_cmds)]
+    for g in range(G):
+        nodes[int(hints[g])].propose_many(g, cmds)
+    for n in nodes:
+        _node_drain(n, plain=True)
+        m = n.metrics
+        m.ticks = 0
+        m.t_stage_ms = m.t_device_ms = m.t_wal_ms = 0.0
+        m.t_send_ms = m.t_publish_ms = 0.0
+
+
 def node_cluster(card: str, dev="cuda", G=10_000, ticks=24,
                  g_cmp=512) -> dict:
     """The distributed runtime at the bench's node shape (bench.py
@@ -1385,18 +1437,11 @@ def node_cluster(card: str, dev="cuda", G=10_000, ticks=24,
     t0 = time.monotonic()
     nodes = _boot_nodes(cfg, d, dev, codec=False)
     try:
+        expect([n.wal.is_native for n in nodes], [True] * 3,
+               "the node cluster's WALs are native")
         n_elect = _elect(nodes, cfg)
         t_elect = time.monotonic() - t0
-        hints = nodes[0]._last_hint.copy()
-        cmds = [f"SET k{i} v".encode() for i in range(ticks * E)]
-        for g in range(G):
-            nodes[int(hints[g])].propose_many(g, cmds)
-        for n in nodes:
-            _node_drain(n, plain=True)
-            m = n.metrics
-            m.ticks = 0
-            m.t_stage_ms = m.t_device_ms = m.t_wal_ms = 0.0
-            m.t_send_ms = m.t_publish_ms = 0.0
+        _load_nodes(nodes, G, ticks * E)
         captured = {}
         real = getattr(pq, k1)
 
@@ -1436,7 +1481,7 @@ def node_cluster(card: str, dev="cuda", G=10_000, ticks=24,
         f"drained {committed} commits at node 1 in {dt:.2f} s: "
         f"{committed / dt:.0f} commits/s, {dt / ticks * 1e3:.1f} ms per "
         f"cluster tick; node 1 ms per tick {phase}; K1 launches "
-        f"{launches[k1]} on {card}")
+        f"{launches[k1]}; native WALs on {card}")
     t2 = time.monotonic()
     got = node_lockstep(dev, g_cmp, 60, d)
     want = node_lockstep("cpu", g_cmp, 60, d)
@@ -1456,6 +1501,42 @@ def node_cluster(card: str, dev="cuda", G=10_000, ticks=24,
         f"{time.monotonic() - t2:.1f} s")
     return {"launches": launches, "captured": captured,
             "commits_per_s": committed / dt, "phase_ms": phase}
+
+
+def node_wal_python(card: str, dev="cuda", G=10_000, ticks=4) -> dict:
+    """Phase 10's shape again on the Python WAL backend
+    (RAFTSQL_TPU_NATIVE=0), `ticks` ticks after the elections: node 1's
+    ms per tick by phase, beside the native run's in the same call."""
+    E = 8
+    cfg = RaftConfig(num_groups=G, num_peers=3, log_window=64,
+                     max_entries_per_msg=E, tick_interval_s=0.0,
+                     commit_rule="pallas")
+    d = os.path.join(ROOT, "build", "chip_smoke_node_python")
+    old = os.environ.get("RAFTSQL_TPU_NATIVE")
+    os.environ["RAFTSQL_TPU_NATIVE"] = "0"
+    nodes = []
+    try:
+        nodes = _boot_nodes(cfg, d, dev, codec=False)
+        expect([n.wal.is_native for n in nodes], [False] * 3,
+               "RAFTSQL_TPU_NATIVE=0 selects the Python WAL")
+        _elect(nodes, cfg)
+        _load_nodes(nodes, G, ticks * E)
+        for _ in range(ticks):
+            for n in nodes:
+                n.tick()
+            _node_drain(nodes[0], plain=True)
+        phase = nodes[0].metrics.snapshot()["phase_ms_per_tick"]
+    finally:
+        for n in nodes:
+            n.stop()
+        if old is None:
+            del os.environ["RAFTSQL_TPU_NATIVE"]
+        else:
+            os.environ["RAFTSQL_TPU_NATIVE"] = old
+        shutil.rmtree(d, ignore_errors=True)
+    log(f"node cluster G={G} on the Python WAL backend, {ticks} ticks: "
+        f"node 1 ms per tick {phase} on {card}")
+    return phase
 
 
 # ---- phase 11 --------------------------------------------------------------
@@ -1589,6 +1670,15 @@ def procfile_cluster(card: str, dev="cuda", groups=8, threads=16,
         for i, ph in enumerate(phases):
             log(f"procfile cluster node {i + 1} GET /metrics "
                 f"phase_ms_per_tick {ph}")
+        # Every start of every child logged a native WAL backend (node 2
+        # started twice).
+        for i, starts in enumerate((1, 2, 1)):
+            with open(os.path.join(work, f"node{i + 1}.log")) as f:
+                text = f.read()
+            expect((text.count("WAL backend: native"),
+                    "WAL backend: python" in text), (starts, False),
+                   f"node {i + 1}'s WAL backend at each start")
+        log("procfile cluster: every child started on native WALs")
     except BaseException:
         for i in range(3):
             log(f"--- node {i + 1} log tail ---\n{c.log_tail(i, 3000)}")
@@ -1605,7 +1695,7 @@ def procfile_cluster(card: str, dev="cuda", groups=8, threads=16,
 
 def node_chaos(card: str, dev="cuda") -> dict:
     """The node-plane chaos families on the card: corrupt, snapshot and
-    membership twice each with commit_rule="pallas" (their plan and
+    membership `RUNS` times each with commit_rule="pallas" (their plan and
     result digests must equal the JAX package's, CHAOS_DIGESTS; K1 must
     launch in each family's runs and K2 in membership's, whose conf
     entries switch every node to the masked rule), then tcp and
@@ -1630,7 +1720,7 @@ def node_chaos(card: str, dev="cuda") -> dict:
     for name in ("corrupt", "snapshot", "membership"):
         fired = specs[name][3]
         pq.reset_launches()                    # this family starts here
-        for i in range(2):
+        for i in range(RUNS):
             t0 = time.monotonic()
             if name == "membership" and i == 0:
                 setattr(pq, k2, spy)
@@ -1683,19 +1773,28 @@ def overload(card: str, dev="cuda") -> int:
     under the cap and the goodput and starvation floors hold (the
     gauntlet's own checks), and K1 must launch once per device step:
     the launch count and the dispatch count are zeroed just before the
-    gauntlet and read just after.  Returns K1's launches."""
+    gauntlet and read just after.  The inputs of K1's first call with a
+    leader row (R = 12 rows, P = 3) are copied.  Returns K1's launches
+    and the copy."""
     from raftsql_tpu_torch.chaos import run as crun
     from raftsql_tpu_torch.runtime.hostplane import ClusterHostPlane
     k1 = "pallas_quorum_commit_index"
     steps = [0]
     real = ClusterHostPlane._readback       # one call per device dispatch
+    real_k1, captured = getattr(pq, k1), {}
 
     def counted(*a, **kw):
         steps[0] += 1
         return real(*a, **kw)
 
+    def spy(*args, **kw):
+        if k1 not in captured and bool(args[5].any()):
+            captured[k1] = ([a.clone() for a in args], dict(kw))
+        return real_k1(*args, **kw)
+
     pq.reset_launches()                       # the overload path starts here
     ClusterHostPlane._readback = staticmethod(counted)
+    setattr(pq, k1, spy)
     try:
         t0 = time.monotonic()
         ok, reports = crun.overload_gauntlet(0, runs=2, device=dev,
@@ -1703,6 +1802,7 @@ def overload(card: str, dev="cuda") -> int:
         wall = time.monotonic() - t0
     finally:
         ClusterHostPlane._readback = staticmethod(real)
+        setattr(pq, k1, real_k1)
     launches = pq.launches[k1]                # ... and ends here
     if not ok:
         raise AssertionError("the overload gauntlet failed (see CHAOS FAIL "
@@ -1719,12 +1819,12 @@ def overload(card: str, dev="cuda") -> int:
         expect(got, CHAOS_DIGESTS["overload"], "overload digests")
     expect(launches, steps[0], "K1 launches against device steps on the "
                                "overload path")
-    if launches <= 0:
+    if launches <= 0 or k1 not in captured:
         raise AssertionError("the overload path never launched K1")
     log(f"overload: K1 launches {launches} = device steps {steps[0]} over "
         f"both runs and the falsification pair; falsification caught, "
         f"control passed; gauntlet {wall:.2f} s on {card}")
-    return launches
+    return launches, captured
 
 
 # ---- phase 14 --------------------------------------------------------------
@@ -1830,15 +1930,15 @@ def stall_probe(card: str, dev="cuda", writes=60) -> None:
 def proc_chaos(card: str, dev="cuda") -> None:
     """The process plane on the card, every server child a CUDA process
     (`--device cuda`, the CLI's default point rule): run_procs's
-    gauntlet at seed 0, 80 ticks, twice (every family fires, no
-    unexpected exit, schedule digest fb868899b7dbd88a, both verdict
-    digests the reference's all-pass digest), the read arm and the
+    gauntlet at seed 0, 80 ticks, RUNS times (every family fires, no
+    unexpected exit, schedule digest fb868899b7dbd88a, every verdict
+    digest the reference's all-pass digest), the read arm and the
     transfer arm once each on generate_procs(0, ticks=60) (linear,
     session and follower reads above 0 with no stale session read; a
     transfer completed), then the SIGSTOP probe."""
     from raftsql_tpu_torch.chaos import run as crun
     runs = []
-    for family, ticks, n in (("procs", 80, 2), ("reads", 60, 1),
+    for family, ticks, n in (("procs", 80, RUNS), ("reads", 60, 1),
                              ("transfers", 60, 1)):
         ok, reports = crun.procs_gauntlet(family, 0, ticks, runs=n,
                                           device=dev)
@@ -1870,6 +1970,211 @@ def proc_chaos(card: str, dev="cuda") -> None:
     stall_probe(card, dev)
 
 
+# ---- phase 15 --------------------------------------------------------------
+
+def record_streams(blob: bytes) -> dict:
+    """The framed records of one WAL file (u32 crc | u32 len | body) as
+    {group id: [record, ...]} in file order (epoch markers, which carry
+    no group, under None); the whole file must parse."""
+    out, off = {}, 0
+    while off < len(blob):
+        n = int.from_bytes(blob[off + 4: off + 8], "little")
+        rec = blob[off: off + 8 + n]
+        key = None if rec[8] == 6 else int.from_bytes(rec[9:13], "little")
+        out.setdefault(key, []).append(rec)
+        off += 8 + n
+    if off != len(blob):
+        raise AssertionError("a WAL file ends in a torn record")
+    return out
+
+
+def _dir_files(d: str) -> dict:
+    out = {}
+    for root, _, files in os.walk(d):
+        for f in files:
+            with open(os.path.join(root, f), "rb") as fh:
+                out[os.path.relpath(os.path.join(root, f), d)] = fh.read()
+    return out
+
+
+def durable_arm(card, dev, native_plog, G, ticks, E=8, seed=0) -> dict:
+    """One arm of phase 15: the bench's fused durable shape
+    (bench.py bench_durable_fused: FusedClusterNode, P = 3, W = 64, E,
+    tick_interval_s = 0, WAL group commit, publish_peers = {0}) with
+    commit_rule="pallas", booted from `seed`, elected, then `ticks`
+    ticks draining E `SET k<i> v<t>` proposals a group a tick queued
+    ahead.  native_plog: RAFTSQL_FUSED_NATIVE_PLOG=1 and NativeKV
+    applying peer 0's stream inside the publish (the bench's default);
+    else the Python payload log and one KVStateMachine a group draining
+    peer 0's commit queue (BENCH_DURABLE_APPLY=python).  K1's launches
+    and the device steps (ClusterHostPlane._readback, one a dispatch)
+    are zeroed just before the boot and read just after the run."""
+    from raftsql_tpu_torch.models.kv_native import NativeKV
+    from raftsql_tpu_torch.models.kv_sm import KVStateMachine
+    from raftsql_tpu_torch.runtime.db import (iter_plain_batches,
+                                              iter_plain_entries)
+    from raftsql_tpu_torch.runtime.fused import FusedClusterNode
+    from raftsql_tpu_torch.runtime.hostplane import ClusterHostPlane
+    cfg = RaftConfig(num_groups=G, num_peers=3, log_window=max(64, 4 * E),
+                     max_entries_per_msg=E, tick_interval_s=0.0,
+                     commit_rule="pallas")
+    name = "native" if native_plog else "python"
+    d = os.path.join(ROOT, "build", f"chip_smoke_durable_{name}")
+    shutil.rmtree(d, ignore_errors=True)
+    steps = [0]
+    real = ClusterHostPlane._readback
+
+    def counted(*a, **kw):
+        steps[0] += 1
+        return real(*a, **kw)
+
+    sms = [KVStateMachine() for _ in range(G)] if not native_plog else None
+
+    def drain():
+        q = node.commit_q(0)
+        per_g = {}
+        while not q.empty():
+            item = q.get_nowait()
+            if not isinstance(item, tuple):
+                continue
+            for g, base, datas in iter_plain_batches(item):
+                per_g.setdefault(g, []).extend(
+                    (cmd, idx) for idx, cmd in iter_plain_entries(base,
+                                                                 datas))
+        if sms is not None:
+            for g, items in per_g.items():
+                for err in sms[g].apply_batch(items):
+                    if err is not None:
+                        raise AssertionError(f"apply g{g}: {err}")
+
+    old_env = os.environ.get("RAFTSQL_FUSED_NATIVE_PLOG")
+    os.environ["RAFTSQL_FUSED_NATIVE_PLOG"] = "1" if native_plog else "0"
+    pq.reset_launches()                       # this arm's path starts here
+    ClusterHostPlane._readback = staticmethod(counted)
+    kv = node = None
+    try:
+        t0 = time.monotonic()
+        node = FusedClusterNode(cfg, d, group_commit=True, seed=seed,
+                                device=dev)
+        node.publish_peers = {0}
+        if native_plog:
+            kv = NativeKV(G, node._plog_lib)
+            node.native_kv = kv
+        expect([w.is_native for w in node.wals], [True] * 3,
+               f"arm {name}: native WALs")
+        expect(all(hasattr(pl, "handle") for pl in node.plogs), native_plog,
+               f"arm {name}: native payload logs")
+        n_elect = 0
+        while (node._hints < 0).any() and n_elect < 40 * cfg.election_ticks:
+            node.tick()
+            drain()
+            n_elect += 1
+        if (node._hints < 0).any():
+            raise AssertionError(f"arm {name}: not every group elected")
+        node.publish_flush()
+        drain()
+        t_elect = time.monotonic() - t0
+        for g in range(G):
+            node.propose_many(g, [f"SET k{i} v{t}".encode()
+                                  for t in range(ticks) for i in range(E)])
+        m = node.metrics
+        m.ticks = 0
+        m.t_device_ms = m.t_wal_ms = m.t_publish_ms = 0.0
+        applied0 = int(node._applied[0].sum())
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        for _ in range(ticks):
+            node.tick()
+            drain()
+        node.publish_flush()
+        drain()
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t1
+        committed = int(node._applied[0].sum()) - applied0
+        phase = {"device": m.t_device_ms / ticks, "wal": m.t_wal_ms / ticks,
+                 "publish": m.t_publish_ms / ticks}
+        launches = pq.launches["pallas_quorum_commit_index"]
+        commit = node._applied[0].copy()
+        if native_plog:
+            state = [(kv.applied_index(g), kv.count(g),
+                      [kv.get(g, f"k{i}") for i in range(E)])
+                     for g in range(G)]
+        else:
+            state = [(sm.applied_index(), len(sm.snapshot()),
+                      [sm.query(f"GET k{i}") or None for i in range(E)])
+                     for sm in sms]
+    finally:
+        if node is not None:
+            node.stop()
+        ClusterHostPlane._readback = staticmethod(real)
+        if old_env is None:
+            del os.environ["RAFTSQL_FUSED_NATIVE_PLOG"]
+        else:
+            os.environ["RAFTSQL_FUSED_NATIVE_PLOG"] = old_env
+        if kv is not None:
+            kv.close()
+    files = _dir_files(d)
+    shutil.rmtree(d, ignore_errors=True)
+    expect(launches, steps[0], f"arm {name}: K1 launches against device "
+                               f"steps")
+    if committed <= 0:
+        raise AssertionError(f"arm {name}: nothing committed")
+    log(f"durable plane arm {name} G={G} P=3 W={cfg.log_window} E={E} "
+        f"pallas, group commit: elected in {n_elect} ticks "
+        f"({t_elect:.1f} s with boot); {ticks} ticks drained {committed} "
+        f"commits in {dt:.2f} s: {committed / dt:.0f} commits/s, "
+        f"{dt / ticks * 1e3:.1f} ms per tick; ms per tick: device "
+        f"{phase['device']:.2f}, wal {phase['wal']:.2f}, publish "
+        f"{phase['publish']:.2f}; K1 launches {launches} = device steps "
+        f"{steps[0]}; every WAL native on {card}")
+    return {"commits_per_s": committed / dt, "ms_per_tick": dt / ticks * 1e3,
+            "phase": phase, "launches": launches, "commit": commit,
+            "state": state, "files": files}
+
+
+def durable_plane(card: str, dev="cuda", G=10_000, ticks=24) -> dict:
+    """The durable storage plane at the bench's accelerator durable shape
+    (bench.py bench_durable_fused, G = 10,000): arm (a) the native
+    payload log with NativeKV applying peer 0's stream, arm (b) the
+    Python payload log with KVStateMachine draining it, run in turns
+    (a, then b).  Every WAL in both arms must be native; both arms must
+    commit the same indexes and hold the same KV state group by group
+    (applied index, key count, the value of every key), and write the
+    same WAL records: under group commit the shared log's records of
+    each group in the same order and the files the same size (the
+    parallel per-peer mirror of arm (a) interleaves different groups'
+    records as its threads run, as in the JAX package).  Returns the
+    arms' numbers and the K1 launches over both runs."""
+    a = durable_arm(card, dev, True, G, ticks)
+    b = durable_arm(card, dev, False, G, ticks)
+    if not np.array_equal(a["commit"], b["commit"]):
+        raise AssertionError("durable arms committed different indexes")
+    if a["state"] != b["state"]:
+        bad = next(g for g, (x, y) in enumerate(zip(a["state"], b["state"]))
+                   if x != y)
+        raise AssertionError(f"durable arms' KV state differs at g{bad}: "
+                             f"{a['state'][bad]} != {b['state'][bad]}")
+    expect(sorted(a["files"]), sorted(b["files"]), "WAL file names")
+    same_bytes = a["files"] == b["files"]
+    for f, blob in a["files"].items():
+        expect(len(blob), len(b["files"][f]), f"{f} size")
+        if record_streams(blob) != record_streams(b["files"][f]):
+            raise AssertionError(f"{f}: a group's WAL records differ "
+                                 f"between the durable arms")
+    log(f"durable plane G={G}: native plog + NativeKV "
+        f"{a['commits_per_s']:.0f} commits/s, Python plog + "
+        f"KVStateMachine {b['commits_per_s']:.0f} commits/s "
+        f"({a['commits_per_s'] / b['commits_per_s']:.2f}x); the same "
+        f"commit indexes, KV state and WAL records per group "
+        f"({len(a['files'])} WAL files, "
+        f"{'byte-identical' if same_bytes else 'groups interleaved differently in the shared log'}"
+        f") on {card}")
+    return {"commits_per_s": {"native": a["commits_per_s"],
+                              "python": b["commits_per_s"]},
+            "phase": {"native": a["phase"], "python": b["phase"]},
+            "launches": a["launches"] + b["launches"]}
+
+
 # ---- main ------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -1879,7 +2184,7 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="smoke run on one CUDA card")
     ap.add_argument("--only", default="",
-                    help="comma separated phases (3-14) to run after the "
+                    help="comma separated phases (3-15) to run after the "
                          "build; no result line is printed")
     only = {int(x) for x in ap.parse_args(argv).only.split(",") if x}
     t_start = time.monotonic()
@@ -1926,6 +2231,7 @@ def main(argv=None) -> int:
         node = node_cluster(card)
         # K1 on one peer's rows: R = 10,000, P = 3, one leader row in 3.
         node_kern.update(main_path_kernels(card, node.pop("captured")))
+        node["python_phase_ms"] = node_wal_python(card)
         done("node cluster")
     if want(11):
         procs = procfile_cluster(card)
@@ -1937,11 +2243,16 @@ def main(argv=None) -> int:
         node_kern.update(main_path_kernels(card, nch.pop("captured")))
         done("node chaos")
     if want(13):
-        k1_overload = overload(card)
+        k1_overload, cap = overload(card)
+        # K1 on the overload family's fused steps: R = 12 rows, P = 3.
+        over_kern = main_path_kernels(card, cap)
         done("overload")
     if want(14):
         proc_chaos(card)
         done("proc chaos")
+    if want(15):
+        durable = durable_plane(card)
+        done("durable plane")
     if only:
         log(f"development run of phases {sorted(only)}: no result line")
         return 0
@@ -1953,16 +2264,23 @@ def main(argv=None) -> int:
     launches = {
         k1: (tick["launches"][k1] + k1_server + place["launches"]
              + ch["launches"]["default"] + ch["launches"]["nemesis"]
-             + node_launches[k1] + k1_overload),
+             + node_launches[k1] + k1_overload + durable["launches"]),
         k2: tick["launches"][k2] + mem["launches"][k2] + node_launches[k2]}
     log(f"launches by path: fused tick {tick['launches']}, membership "
         f"node {mem['launches']}, server K1 {k1_server}, placement "
         f"server K1 {place['launches']}, chaos K1 {ch['launches']}, node "
         f"cluster {node['launches']}, node chaos {nch['launches']}, "
-        f"overload K1 {k1_overload}")
+        f"overload K1 {k1_overload}, durable plane K1 "
+        f"{durable['launches']}")
     log(f"procfile cluster PUT p50 {procs['p50']:.2f} ms p99 "
         f"{procs['p99']:.2f} ms; node cluster "
-        f"{node['commits_per_s']:.0f} commits/s on {card}")
+        f"{node['commits_per_s']:.0f} commits/s (node 1 WAL "
+        f"{node['phase_ms']['wal']:.1f} ms per node tick, "
+        f"{node['python_phase_ms']['wal']:.1f} on the Python backend); "
+        f"durable plane "
+        f"commits/s native plog + NativeKV "
+        f"{durable['commits_per_s']['native']:.0f}, Python plog + "
+        f"KVStateMachine {durable['commits_per_s']['python']:.0f} on {card}")
     rows = []
     for name, r in kern.items():
         row = {"name": name, "route": "cuda",
@@ -1974,14 +2292,16 @@ def main(argv=None) -> int:
                "bound_by": r["bound_by"], "library_ms": None,
                "node_path_launches": node_launches[name],
                "overload_path_launches":
-                   k1_overload if name == k1 else 0}
-        if name in node_kern:
-            n = node_kern[name]
-            row["node_path"] = {"rows": n["rows"], "ms": n["ms"],
-                                "plain_ms": n["plain_ms"],
-                                "bound_ms": n["bound_ms"],
-                                "bound_by": n["bound_by"],
-                                "max_abs_err": n["max_abs_err"]}
+                   k1_overload if name == k1 else 0,
+               "durable_plane_launches":
+                   durable["launches"] if name == k1 else 0}
+        for path, got in (("node_path", node_kern),
+                          ("overload_path", over_kern)):
+            if name in got:
+                n = got[name]
+                row[path] = {k: n[k] for k in (
+                    "rows", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "max_abs_err", "device_us", "host_us")}
         rows.append(row)
     log(json.dumps({"kernels": rows}))
     log(card)

@@ -5,8 +5,8 @@ device call sites differ: the boot stack (tensors on `device`), the
 per-dispatch readback (ONE device-to-host copy, into pinned memory on
 CUDA), the device event ring (obs/device_ring.py, on `device`) and the
 membership and transfer patches (in-place index writes on the stacked
-state, core/state.py).  The native payload log (RAFTSQL_FUSED_NATIVE_PLOG,
-ROADMAP Queue 1 item 9) is not ported yet and raises NotImplementedError.
+state, core/state.py).  The WALs, the payload logs and the KV apply
+plane run on the port's own build of native/wal.cc (native/build.py).
 
 runtime/fused.py (one chip) and the JAX package's runtime/mesh.py (a
 device mesh) run the same per-tick contract (reference raft.go:227-235: wal.Save →
@@ -75,18 +75,14 @@ from raftsql_tpu_torch.runtime.node import (CLOSED, RAW_MANY, RAW_PLAIN,
 from raftsql_tpu_torch.transport.codec import (CONF_PREFIX as _CONF_PREFIX,
                                                decode_conf_entry,
                                                is_conf_entry)
+from raftsql_tpu_torch.native.build import load_native_plog
 from raftsql_tpu_torch.storage import fsio
-from raftsql_tpu_torch.storage.log import PayloadLog
-from raftsql_tpu_torch.storage.wal import WAL, split_uniform_runs, wal_exists
+from raftsql_tpu_torch.storage.log import NativePayloadLog, PayloadLog
+from raftsql_tpu_torch.storage.wal import (WAL, split_uniform_runs,
+                                           wal_exists, wal_mirror_all)
 from raftsql_tpu_torch.utils.metrics import GroupTraffic, NodeMetrics
 
 _C = {n: i for i, n in enumerate(INFO_FIELDS)}
-
-
-def _not_ported(plane: str, item: str):
-    return NotImplementedError(
-        f"{plane} is not ported to raftsql_tpu_torch yet "
-        f"(ROADMAP Queue 1 {item})")
 
 
 def _read_committed_epoch(path: str) -> int:
@@ -108,6 +104,19 @@ def _read_committed_epoch(path: str) -> int:
         if zlib.crc32(blob[off:off + 8]) == crc:
             no = n
     return no
+
+
+def _expand_ranges(groups, starts, counts):
+    """Per-entry (group, index) columns from per-range lists — the
+    fallback form for WAL.append_entries when a combined native call is
+    unavailable."""
+    ca = np.asarray(counts)
+    sa = np.asarray(starts)
+    offs = np.cumsum(ca) - ca
+    tot = int(ca.sum())
+    ga = np.repeat(np.asarray(groups), ca)
+    ia = np.arange(tot) - np.repeat(offs, ca) + np.repeat(sa, ca)
+    return ga, ia, ca
 
 
 class ClusterHostPlane:
@@ -163,6 +172,7 @@ class ClusterHostPlane:
         # t's).  _pending_tick tags the deferred-publish pinfo.
         self._prof_tick = 0
         self._pending_tick = 0
+        self._fsync_dur = np.zeros(P, np.float64)   # parallel-path syncs
         self._fsync_span: Optional[tuple] = None    # (t0, dur) last tick
         self.dirs = [os.path.join(data_dir, f"p{i + 1}") for i in range(P)]
         # WAL group commit: multiplex all P peers' records into ONE
@@ -242,6 +252,11 @@ class ClusterHostPlane:
         # materialized (cursor-advance only in _publish_shard) and
         # placement/transfer refuse them as leadership targets.
         self.witness_peers: frozenset = cfg.witness_set
+        # Native KV apply plane (models/kv_native.py): when set AND the
+        # payload plane is native, peer 0's committed ranges are applied
+        # inside one C call per publish instead of being materialized as
+        # Python bytes for a queue consumer.
+        self.native_kv = None
         # Overload-control plane (raftsql_tpu/overload/), attachment-
         # gated: None keeps propose_many and the
         # staging path byte-identical to the pre-overload code (the
@@ -293,11 +308,11 @@ class ClusterHostPlane:
         from concurrent.futures import ThreadPoolExecutor
         self._sync_pool = ThreadPoolExecutor(
             max_workers=P, thread_name_prefix="wal-sync")
-        # Host-plane parallelism (the async publish workers): only pays
-        # when the host has cores to run them on — on a 1-core host the
-        # threads just time-slice the tick thread's core and the serial
-        # path wins.  RAFTSQL_FUSED_PARALLEL=1/0 overrides the
-        # autodetect.
+        # Host-plane parallelism (per-peer mirror/hardstate/fsync
+        # workers + the async publishers): only pays when the host has
+        # cores to run them on — on a 1-core host the same threads just
+        # time-slice the tick thread's core and the serial path wins.
+        # RAFTSQL_FUSED_PARALLEL=1/0 overrides the autodetect.
         par_env = os.environ.get("RAFTSQL_FUSED_PARALLEL", "")
         self._host_parallel = (par_env == "1"
                                or (par_env != "0"
@@ -347,9 +362,18 @@ class ClusterHostPlane:
         # the next tick(); plumbed through the runtime's per-peer
         # timer_inc (core/cluster.py, parallel/sharded.py).
         self.timer_inc: Optional[np.ndarray] = None
-        if os.environ.get("RAFTSQL_FUSED_NATIVE_PLOG") == "1":
-            raise _not_ported("the native payload log "
-                              "(RAFTSQL_FUSED_NATIVE_PLOG)", "item 9")
+        # Native payload plane (native/wal.cc): combined WAL+payload-log
+        # C calls, OPT-IN via RAFTSQL_FUSED_NATIVE_PLOG=1.  The JAX
+        # package measured it LOSING to the columnar Python payload log
+        # on a Python consumer: the C store must materialize fresh bytes
+        # objects on every publish, while the Python store hands the
+        # consumer the very objects it already holds.  It wins only once
+        # the apply plane itself is C++-resident (native_kv reads bytes
+        # in place) — kept for that path, and every call site degrades
+        # per-call to the Python forms.
+        self._plog_lib = (load_native_plog()
+                          if os.environ.get("RAFTSQL_FUSED_NATIVE_PLOG")
+                          == "1" else None)
 
         # Double-buffered dispatch (RAFTSQL_OVERLAP_DISPATCH, default
         # on): tick t's heavy durable phase (WAL writes + the fsync
@@ -410,7 +434,9 @@ class ClusterHostPlane:
             else:
                 os.makedirs(d, exist_ok=True)
                 self.wals.append(self._new_wal(d))
-                self.plogs.append(PayloadLog(G))
+                self.plogs.append(
+                    NativePayloadLog(G, self._plog_lib)
+                    if self._plog_lib is not None else PayloadLog(G))
                 states.append(None)
             # Replay-complete sentinel, replayed-or-not (the reference's
             # nil on commitC, raft.go:131-132).
@@ -517,7 +543,9 @@ class ClusterHostPlane:
         self._replayed_conf[p] = {g: gl.conf for g, gl in logs.items()
                                   if gl.conf is not None}
         self.wals.append(self._new_wal(d))
-        plog = PayloadLog(self.cfg.num_groups)
+        plog = (NativePayloadLog(self.cfg.num_groups, self._plog_lib)
+                if self._plog_lib is not None
+                else PayloadLog(self.cfg.num_groups))
         self.plogs.append(plog)
         log_terms: Dict[int, list] = {}
         hard: Dict[int, tuple] = {}
@@ -1190,7 +1218,8 @@ class ClusterHostPlane:
         """Write peer p's changed hard states (term/vote/commit) to its
         WAL, AFTER the tick's entry records (etcd wal.Save order: a
         torn tail can then never leave a hard state referencing lost
-        entries).  True when anything changed."""
+        entries).  Shared by the serial phase 2c and the parallel
+        per-peer workers; True when anything changed."""
         col = pinfo[p]
         hs = np.stack([col[:, _C["term"]], col[:, _C["voted_for"]],
                        col[:, _C["commit"]]], axis=1)
@@ -1596,7 +1625,7 @@ class ClusterHostPlane:
         (mirror ranges were composed from the source's ring at the end
         of the PREVIOUS step), and the only same-step writes that can
         truncate or overwrite a mirrored range are OTHER MIRRORS, which
-        2b stages fully before writing.  Any future 2a change
+        both 2b paths stage fully before writing.  Any future 2a change
         that is not a pure tail append breaks this argument and must
         move 2a after 2b's staging.
 
@@ -1641,9 +1670,11 @@ class ClusterHostPlane:
 
         # Phase 2a: leader appends (fresh-leader no-ops + accepted
         # proposals) as uniform-term RANGES per peer — the write plan
-        # was staged (and the payloads popped) by _stage_ranges: one
-        # framed RANGE record per (group, start, term) run, then the
-        # payload-log range.
+        # was staged (and the payloads popped) by _stage_ranges; one
+        # combined native call writes the WAL records and the
+        # payload-log range (wal.append_ranges_uniform); the fallback
+        # expands ranges to per-entry numpy columns for the classic
+        # two-call path.
         tick_active = bool(m_peer)
         for p in range(P):
             r_g, r_start, r_count, r_term, w_d = staged[p]
@@ -1651,69 +1682,169 @@ class ClusterHostPlane:
                 continue
             tick_active = True
             self._ensure_epoch_begin(p)
-            self.wals[p].append_ranges(r_g, r_start, r_count, r_term, w_d)
-            puts = []
-            pos = 0
-            for g, s, c, tm in zip(r_g, r_start, r_count, r_term):
-                puts.append((g, s, w_d[pos: pos + c], [tm] * c, None))
-                pos += c
-            self.plogs[p].put_ranges(puts)
+            plog_native = (self.plogs[p]
+                           if hasattr(self.plogs[p], "handle") else None)
+            wrote = False
+            if plog_native is not None:
+                blob = b"".join(w_d)
+                lens = np.fromiter(map(len, w_d), np.uint32, len(w_d))
+                wrote = self.wals[p].append_ranges_uniform(
+                    plog_native, r_g, r_start, r_count, r_term, blob,
+                    lens)
+            if not wrote:
+                # Python plog path: RANGE records — one framed record
+                # per (group, start, term) run, not one per entry.
+                self.wals[p].append_ranges(r_g, r_start, r_count,
+                                           r_term, w_d)
+                puts = []
+                pos = 0
+                for g, s, c, tm in zip(r_g, r_start, r_count, r_term):
+                    puts.append((g, s, w_d[pos: pos + c], [tm] * c,
+                                 None))
+                    pos += c
+                self.plogs[p].put_ranges(puts)
 
-        # Phase 2b: follower mirrors, two-pass — ALL source reads first
-        # (the staging contract), then one batched write per peer.
-        if m_peer:
+        # Phases 2b+2c+fsync, PARALLEL per peer when the native plane
+        # is up: worker p runs [mirrors INTO peer p] + [peer p's hard
+        # states] + [peer p's fsync].  Safe to run concurrently: phase
+        # 2a's appends are complete; a group's mirror source (its
+        # leader's plog) and dest (a follower's) are different peers,
+        # and since a group has ONE leader, worker A writing group g'
+        # into plog[X] can never touch the group-g ranges worker B
+        # reads FROM plog[X] — per-group data is disjoint across
+        # workers, and every C structure carries its own mutex.  This
+        # overlaps the 3x payload memcpy + write + fsync across cores
+        # instead of serializing them on the tick thread.
+        par_ok = (final
+                  and self._host_parallel
+                  and self.wals
+                  and self.wals[0]._lib is not None
+                  and hasattr(self.wals[0]._lib, "walplog_mirror_all")
+                  and all(w._lib is not None for w in self.wals)
+                  and all(hasattr(pl, "handle") for pl in self.plogs))
+        if par_ok and m_peer:
+            # Per-group disjointness holds per LEADER, and a leader can
+            # change within a tick: group g's old leader X may accept
+            # from new leader Y (mirror INTO plog[X], with truncation)
+            # in the same tick another peer still mirrors g FROM
+            # plog[X].  Concurrent workers would then write a source
+            # mid-read.  Detect it (a group whose mirror source is also
+            # one of its mirror dests) and take the serial staged path
+            # for this tick — it is an election-tick rarity.
+            dests: Dict[int, set] = {}
+            for g, p in zip(m_g, m_peer):
+                dests.setdefault(g, set()).add(p)
+            for g, s in zip(m_g, m_src):
+                if s in dests.get(g, ()):
+                    par_ok = False
+                    break
+        if par_ok:
+            by_peer: List[List[int]] = [[] for _ in range(P)]
+            for i, mp in enumerate(m_peer):
+                by_peer[mp].append(i)
+
+            import time as _t
+
+            def _host_peer(p: int) -> bool:
+                idx = by_peer[p]
+                if idx:
+                    self._ensure_epoch_begin(p)
+                    wal_mirror_all(
+                        self.wals, self.plogs,
+                        [m_peer[i] for i in idx],
+                        [m_src[i] for i in idx],
+                        [m_g[i] for i in idx],
+                        [m_start[i] for i in idx],
+                        [m_count[i] for i in idx],
+                        [m_newlen[i] for i in idx])
+                changed = self._save_hard(p, pinfo)
+                if self._ep_begun[p]:
+                    self.wals[p].epoch_mark(self._ep_no_this, end=True)
+                if not self._gc_mode:
+                    ts = _t.monotonic()
+                    self.wals[p].sync()
+                    self._fsync_dur[p] = _t.monotonic() - ts
+                return changed
+
+            tm0 = _t.monotonic()
+            for act in self._sync_pool.map(_host_peer, range(P)):
+                tick_active = tick_active or act
+            if self._gc_mode:
+                # Group commit: every view writes the one shared WAL,
+                # and its sync may rotate the segment, which closes (and
+                # frees) the native handle.  A worker syncing while
+                # another still wrote through that handle freed it under
+                # the write (heap corruption on the card, G = 10,000), so
+                # the one group-commit fsync runs here, after every
+                # worker's records.
+                tm0 = _t.monotonic()
+                self.wals[0].sync()
+                self._fsync_span = (tm0, _t.monotonic() - tm0)
+            else:
+                # The barrier cost is max, not sum: the per-peer syncs
+                # ran concurrently on the pool (see _finish_durable's
+                # profiler attribution).
+                self._fsync_span = (tm0,
+                                    float(self._fsync_dur[:P].max()))
+        elif m_peer:
             for p in sorted(set(m_peer)):
                 self._ensure_epoch_begin(p)
-            reads = [self.plogs[s].slice_columns(g, st, c)
-                     if c else ([], [])
-                     for (s, g, st, c) in zip(m_src, m_g, m_start,
-                                              m_count)]
-            for p in range(P):
-                b_g: List[int] = []
-                b_start: List[int] = []
-                b_count: List[int] = []
-                b_terms: List[int] = []
-                b_d: List[bytes] = []
-                puts = []
-                for (mp, g, st, c, nl), (terms, datas) in zip(
-                        zip(m_peer, m_g, m_start, m_count, m_newlen),
-                        reads):
-                    if mp != p:
-                        continue
-                    puts.append((g, st, datas, terms, nl))
-                    if c:
-                        b_g.append(g)
-                        b_start.append(st)
-                        b_count.append(c)
-                        b_terms.extend(terms)
-                        b_d.extend(datas)
-                if puts:
-                    self.plogs[p].put_ranges(puts)
-                if b_g:
-                    # Mirrored batches may cross term boundaries; RANGE
-                    # records are uniform-term, so split each mirror at
-                    # its term changes (rare: elections).
-                    s_g: List[int] = []
-                    s_start: List[int] = []
-                    s_count: List[int] = []
-                    s_term: List[int] = []
-                    pos = 0
-                    for g, st0, c in zip(b_g, b_start, b_count):
-                        for (rs, rc, rt) in split_uniform_runs(
-                                st0, b_terms[pos: pos + c]):
-                            s_g.append(g)
-                            s_start.append(rs)
-                            s_count.append(rc)
-                            s_term.append(rt)
-                        pos += c
-                    self.wals[p].append_ranges(s_g, s_start, s_count,
-                                               s_term, b_d)
+            if not wal_mirror_all(self.wals, self.plogs, m_peer, m_src,
+                                  m_g, m_start, m_count, m_newlen):
+                # Python two-pass fallback: ALL source reads first (the
+                # staging contract), then one batched write per peer.
+                reads = [self.plogs[s].slice_columns(g, st, c)
+                         if c else ([], [])
+                         for (s, g, st, c) in zip(m_src, m_g, m_start,
+                                                  m_count)]
+                for p in range(P):
+                    b_g: List[int] = []
+                    b_start: List[int] = []
+                    b_count: List[int] = []
+                    b_terms: List[int] = []
+                    b_d: List[bytes] = []
+                    puts = []
+                    for (mp, g, st, c, nl), (terms, datas) in zip(
+                            zip(m_peer, m_g, m_start, m_count,
+                                m_newlen), reads):
+                        if mp != p:
+                            continue
+                        puts.append((g, st, datas, terms, nl))
+                        if c:
+                            b_g.append(g)
+                            b_start.append(st)
+                            b_count.append(c)
+                            b_terms.extend(terms)
+                            b_d.extend(datas)
+                    if puts:
+                        self.plogs[p].put_ranges(puts)
+                    if b_g:
+                        # Mirrored batches may cross term boundaries;
+                        # RANGE records are uniform-term, so split each
+                        # mirror at its term changes (rare: elections).
+                        s_g: List[int] = []
+                        s_start: List[int] = []
+                        s_count: List[int] = []
+                        s_term: List[int] = []
+                        pos = 0
+                        for g, st0, c in zip(b_g, b_start, b_count):
+                            for (rs, rc, rt) in split_uniform_runs(
+                                    st0, b_terms[pos: pos + c]):
+                                s_g.append(g)
+                                s_start.append(rs)
+                                s_count.append(rc)
+                                s_term.append(rt)
+                            pos += c
+                        self.wals[p].append_ranges(s_g, s_start, s_count,
+                                                   s_term, b_d)
 
-        # Phase 2c: hard states after every ENTRY record of the tick
-        # (etcd wal.Save order: a torn tail can then never leave a hard
-        # state referencing lost entries), then the per-peer fsync that
-        # is the durable barrier before the next dispatch.
-        if final:
+        # Phase 2c (serial path only — the parallel path folded hard
+        # states + fsync into its per-peer workers): hard states after
+        # every ENTRY record of the tick (etcd wal.Save order: a torn
+        # tail can then never leave a hard state referencing lost
+        # entries), then the per-peer fsync that is the durable barrier
+        # before the next dispatch.
+        if final and not par_ok:
             for p in range(P):
                 tick_active = self._save_hard(p, pinfo) or tick_active
             if self._ep_active:
@@ -1724,9 +1855,9 @@ class ClusterHostPlane:
             # The durable barrier: every peer fsynced before this
             # tick's messages can be observed (the next dispatch).  The
             # P fsyncs are independent files — run them concurrently
-            # (os.fsync releases the GIL), so the barrier costs one
-            # fsync wall-time, not P.  A peer with nothing pending
-            # returns immediately.
+            # (os.fsync and the native wal_sync both release the GIL),
+            # so the barrier costs one fsync wall-time, not P.  A peer
+            # with nothing pending returns immediately.
             import time as _t
             tf0 = _t.monotonic()
             list(self._sync_pool.map(lambda w: w.sync(), self.wals))
@@ -1785,21 +1916,44 @@ class ClusterHostPlane:
                     self._note_commits(int(deltas.sum()))
                 self._applied[p][ready] = commit[ready]
                 continue
-            sl = self.plogs[p].slice
+            plog = self.plogs[p]
             gl = ready.tolist()
             cl = commit[ready].tolist()
             al = self._applied[p][ready].tolist()
+            if p == 0 and self.native_kv is not None \
+                    and self.membership is None:
+                # C-resident apply: one call, zero Python per entry.
+                self.native_kv.apply_plog(
+                    plog.handle, gl, [a + 1 for a in al],
+                    [c - a for c, a in zip(cl, al)])
+                self._applied[p][ready] = commit[ready]
+                deltas = commit[ready] - np.asarray(al)
+                self.traffic.add_commit(ready, deltas)
+                self._note_commits(int(deltas.sum()))
+                continue
             items = []
-            for g, a, c in zip(gl, al, cl):
-                datas = sl(g, a + 1, c - a)
-                if len(datas) != c - a:
-                    raise RuntimeError(
-                        f"peer {p} g{g}: payload log shorter than "
-                        f"commit ({a}+{len(datas)} < {c})")
-                if self.membership is not None:
-                    datas = self._scrub_conf(g, a, datas)
-                if any(datas):
-                    items.append((g, a, datas))
+            if hasattr(plog, "read_groups"):
+                # Native plog: every ready range in TWO ctypes calls.
+                per_range = plog.read_groups(
+                    gl, [a + 1 for a in al],
+                    [c - a for c, a in zip(cl, al)])
+                for g, a, datas in zip(gl, al, per_range):
+                    if self.membership is not None:
+                        datas = self._scrub_conf(g, a, list(datas))
+                    if any(datas):
+                        items.append((g, a, datas))
+            else:
+                sl = plog.slice
+                for g, a, c in zip(gl, al, cl):
+                    datas = sl(g, a + 1, c - a)
+                    if len(datas) != c - a:
+                        raise RuntimeError(
+                            f"peer {p} g{g}: payload log shorter than "
+                            f"commit ({a}+{len(datas)} < {c})")
+                    if self.membership is not None:
+                        datas = self._scrub_conf(g, a, datas)
+                    if any(datas):
+                        items.append((g, a, datas))
             if items:
                 self._commit_qs[p].put((RAW_MANY, items))
             self._applied[p][ready] = commit[ready]

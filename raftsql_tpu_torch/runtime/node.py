@@ -399,6 +399,14 @@ class RaftNode:
                 # the above-floor pids on top in index order.
                 self._dedup[g].restore(gl.dedup[1])
         self._replay_groups = groups
+        # GET /healthz's view (status): role, hint and hard state of ONE
+        # tick, swapped in whole at the end of each tick.  The WAL phase
+        # moves _hard_np mid-tick, before _last_role, so reading the two
+        # apart could show a leader deposed this tick as the leader of
+        # the new term (a false two-leaders report to the process chaos
+        # runners' election-safety check).
+        self._status_view = (self._last_role, self._last_hint,
+                             self._hard_np.copy())
         self.wal = WAL(data_dir, segment_bytes=cfg.wal_segment_bytes)
         # Re-seed the fresh handle's dedup baseline (it survives only
         # in-memory per handle, like the conf baseline — which
@@ -814,9 +822,8 @@ class RaftNode:
         leader (1-based, 0 unknown), term, and commit index.  Reads only
         the host-side per-tick caches (same client-thread contract as
         leader_of) — a readiness probe must never touch device state."""
-        roles = self._last_role.tolist()
-        hints = self._last_hint.tolist()
-        hard = self._hard_np
+        roles, hints, hard = self._status_view
+        roles, hints = roles.tolist(), hints.tolist()
         return {
             str(g): {"role": _ROLE_NAMES.get(roles[g], "unknown"),
                      "leader": hints[g] + 1,
@@ -1451,6 +1458,7 @@ class RaftNode:
         self._prev_role = role
         self._last_role = role
         self._last_hint = np.asarray(info.leader_hint)
+        self._status_view = (role, self._last_hint, self._hard_np.copy())
         self._tick_no += 1
         m.ticks += 1
         # Resolve read batches against the freshest role/echo state:

@@ -364,6 +364,11 @@ def main(argv=None) -> None:
                          witnesses=tuple(args.witness),
                          device=args.device)
     _watch_fatal(rdb)
+    node = rdb.pipe.node
+    wals = node.wals if args.fused else [node.wal]
+    logging.getLogger("raftsql.server").info(
+        "WAL backend: %s", "native" if all(w.is_native for w in wals)
+        else "python")
     if args.overload_cap or args.overload_group_cap \
             or args.brownout_hi is not None:
         from raftsql_tpu_torch.overload import OverloadController

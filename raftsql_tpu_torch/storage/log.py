@@ -1,8 +1,5 @@
 """Host-side payload log: entry (term, bytes) per (group, index).
 
-Copy of raftsql_tpu/storage/log.py with the Python store only (the
-native `NativePayloadLog` over wal.cc is not ported yet).
-
 The device log (core/state.py) stores only the last-W entry *terms* in a
 ring; the bytes of each proposal (SQL text) — and the full term history,
 which the device ring forgets once an index slides out of the window —
@@ -225,3 +222,159 @@ class PayloadLog:
         if new_len is not None and new_len - off < len(dl):
             del tl[max(new_len - off, 0):]
             del dl[max(new_len - off, 0):]
+
+
+class NativePayloadLog:
+    """ctypes-backed PayloadLog (native/wal.cc `Plog`): same surface,
+    entry bytes live in C++.  Paired with WAL.append_ranges_uniform and
+    storage.wal.wal_mirror_all, the fused runtime's payload plane does
+    no per-entry Python at all on the write side; reads (publish,
+    replay, catch-up) come back as one blob + lens and split into bytes
+    objects only where a consumer needs them."""
+
+    def __init__(self, num_groups: int, lib):
+        import ctypes
+        self._c = ctypes
+        self._lib = lib
+        self._h = lib.plog_new(num_groups)
+        self._G = num_groups
+
+    @property
+    def handle(self):
+        return self._h
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.plog_free(self._h)
+            self._h = None
+
+    def length(self, group: int) -> int:
+        return int(self._lib.plog_length(self._h, group))
+
+    def start(self, group: int) -> int:
+        return int(self._lib.plog_start(self._h, group))
+
+    def set_start(self, group: int, start: int, start_term: int) -> None:
+        rc = self._lib.plog_set_start(self._h, group, start, start_term)
+        if rc != 0:
+            raise RuntimeError("set_start on non-empty group")
+
+    def term_of(self, group: int, index: int) -> int:
+        t = int(self._lib.plog_term_of(self._h, group, index))
+        if t == (1 << 64) - 1:      # explicit: survives python -O
+            raise IndexError(f"term_of out of range (g{group} "
+                             f"idx {index})")
+        return t
+
+    def try_term_of(self, group: int, index: int) -> Optional[int]:
+        t = int(self._lib.plog_term_of(self._h, group, index))
+        return None if t == (1 << 64) - 1 else t
+
+    def compact(self, group: int, upto: int, boundary_term: int) -> None:
+        rc = self._lib.plog_compact(self._h, group, upto, boundary_term)
+        if rc != 0:
+            raise RuntimeError(f"compact past tail (g{group} "
+                               f"upto {upto})")
+
+    def put(self, group: int, start: int, payloads: Sequence[bytes],
+            terms: Sequence[int], new_len: Optional[int] = None) -> None:
+        import numpy as np
+        c = self._c
+        n = len(payloads)
+        blob = b"".join(payloads)
+        lens = np.fromiter(map(len, payloads), np.uint32, n)
+        ta = np.asarray(terms, np.uint64)
+        rc = self._lib.plog_put_range(
+            self._h, group, start, n,
+            ta.ctypes.data_as(c.POINTER(c.c_uint64)), blob,
+            lens.ctypes.data_as(c.POINTER(c.c_uint32)),
+            -1 if new_len is None else new_len)
+        if rc != 0:
+            raise ValueError(f"payload gap: group {group} at {start}")
+
+    def put_ranges(self, items) -> None:
+        for (group, start, payloads, terms, new_len) in items:
+            self.put(group, start, payloads, terms, new_len)
+
+    def _read(self, group: int, start: int, n: int, want_terms: bool):
+        import numpy as np
+        c = self._c
+        total = int(self._lib.plog_range_bytes(self._h, group, start, n))
+        if total == (1 << 64) - 1:
+            return None
+        blob = c.create_string_buffer(total)
+        lens = np.zeros(n, np.uint32)
+        terms = np.zeros(n, np.uint64) if want_terms else None
+        rc = self._lib.plog_read_range(
+            self._h, group, start, n,
+            c.cast(blob, c.POINTER(c.c_uint8)),
+            lens.ctypes.data_as(c.POINTER(c.c_uint32)),
+            terms.ctypes.data_as(c.POINTER(c.c_uint64))
+            if want_terms else None)
+        if rc != 0:
+            return None
+        raw = blob.raw
+        out, off = [], 0
+        for ln in lens.tolist():
+            out.append(raw[off: off + ln])
+            off += ln
+        return (out, terms.tolist()) if want_terms else out
+
+    def slice(self, group: int, start: int, n: int) -> List[bytes]:
+        got = self._read(group, start, n, want_terms=False)
+        if got is None:             # explicit: survives python -O
+            raise RuntimeError("slice below compaction floor")
+        return got
+
+    def try_slice(self, group: int, start: int, n: int
+                  ) -> Optional[List[bytes]]:
+        return self._read(group, start, n, want_terms=False)
+
+    def read_groups(self, groups, starts, counts):
+        """Batched multi-range read: [(payloads...)] per range, in TWO
+        ctypes calls total — the publish hot path reads every ready
+        group of a tick at once (per-range ctypes calls cost more than
+        the payloads themselves)."""
+        import numpy as np
+        c = self._c
+        n_ranges = len(groups)
+        ga = np.asarray(groups, np.uint32)
+        sa = np.asarray(starts, np.uint64)
+        ca = np.asarray(counts, np.uint32)
+        gp = ga.ctypes.data_as(c.POINTER(c.c_uint32))
+        sp = sa.ctypes.data_as(c.POINTER(c.c_uint64))
+        cp = ca.ctypes.data_as(c.POINTER(c.c_uint32))
+        total = int(self._lib.plog_ranges_bytes(self._h, n_ranges,
+                                                gp, sp, cp))
+        if total == (1 << 64) - 1:  # explicit: survives python -O
+            raise RuntimeError("read_groups: range below compaction "
+                               "floor or past tail")
+        blob = c.create_string_buffer(total)
+        n_entries = int(ca.sum())
+        lens = np.zeros(n_entries, np.uint32)
+        rc = self._lib.plog_read_groups(
+            self._h, n_ranges, gp, sp, cp,
+            c.cast(blob, c.POINTER(c.c_uint8)),
+            lens.ctypes.data_as(c.POINTER(c.c_uint32)))
+        if rc != 0:                 # explicit: survives python -O
+            raise RuntimeError("read_groups raced a truncation")
+        raw = blob.raw
+        out, off, li = [], 0, 0
+        lens_l = lens.tolist()
+        for cnt in ca.tolist():
+            datas = []
+            for _ in range(cnt):
+                ln = lens_l[li]
+                datas.append(raw[off: off + ln])
+                off += ln
+                li += 1
+            out.append(datas)
+        return out
+
+    def slice_columns(self, group: int, start: int, n: int
+                      ) -> Tuple[List[int], List[bytes]]:
+        got = self._read(group, start, n, want_terms=True)
+        if got is None:             # explicit: survives python -O
+            raise RuntimeError("slice below compaction floor")
+        datas, terms = got
+        return terms, datas

@@ -11,9 +11,8 @@ Differences from etcd/wal, by design:
     a single fsync batches the tick's appends across every group — the
     group-commit analog of batching consensus math on device.
   - Records are fixed-layout little-endian structs (struct-of-arrays
-    friendly).  This copy of raftsql_tpu/storage/wal.py keeps the Python
-    backend only: the JAX package's C++ fast path (native/wal.cc) writes
-    the same bytes and is not ported yet.
+    friendly, shared with the C++ fast path in native/wal.cc, built and
+    loaded by native/build.py).
 
 Segmentation (the same shape as etcd/wal's segment directory, which the
 reference opens at raft.go:99-117): the log is a directory of bounded
@@ -204,6 +203,70 @@ def split_uniform_runs(start: int, terms) -> List[Tuple[int, int, int]]:
             for a, b in zip(edges[:-1], edges[1:])]
 
 
+def wal_mirror_all(wals, plogs, peers, srcs, groups, starts, counts,
+                   new_lens) -> bool:
+    """Cluster-wide follower mirror in ONE native call
+    (walplog_mirror_all): phase A stages every source range (the
+    read-all-before-write-all contract that makes same-tick source
+    truncation safe), phase B writes each destination peer's WAL ENTRY
+    records + payload-log range + truncation.  Returns False when the
+    native path is unavailable on any peer (caller falls back).
+
+    Destination WALs may be group-commit views (GroupCommitWAL below):
+    their `group_bias` flattens the record's group id into the shared
+    multiplexed stream, applied on the WAL side only."""
+    if not wals:
+        return True
+    lib = wals[0]._lib
+    if lib is None or not hasattr(lib, "walplog_mirror_all"):
+        return False
+    if any(w._lib is None for w in wals) \
+            or any(not hasattr(p, "handle") for p in plogs):
+        return False
+    import ctypes
+
+    import numpy as np
+    n = len(peers)
+    if n == 0:
+        return True
+    P = len(wals)
+    wh = (ctypes.c_void_p * P)(*[w._h for w in wals])
+    ph = (ctypes.c_void_p * P)(*[p.handle for p in plogs])
+    biases = np.asarray([getattr(w, "group_bias", 0) for w in wals],
+                        np.uint32)
+    pa = np.asarray(peers, np.uint32)
+    sa = np.asarray(srcs, np.uint32)
+    ga = np.asarray(groups, np.uint32)
+    ia = np.asarray(starts, np.uint64)
+    ca = np.asarray(counts, np.uint32)
+    na = np.asarray(new_lens, np.int64)
+    per_bytes = np.zeros(P, np.uint64)
+    rc = lib.walplog_mirror_all(
+        wh, ph, n,
+        pa.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        sa.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        ga.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        ia.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        ca.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        na.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        per_bytes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        biases.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)))
+    if rc != 0:
+        raise ValueError("walplog_mirror_all: source range unavailable")
+    for i in range(n):
+        c = int(ca[i])
+        if c:
+            w = wals[int(pa[i])]
+            w._active_stats.bump(
+                int(ga[i]) + int(biases[int(pa[i])]), int(ia[i]) + c - 1)
+    for p in range(P):
+        b = int(per_bytes[p])
+        if b:
+            wals[p]._pending = True
+            wals[p]._bytes += b
+    return True
+
+
 def wal_exists(dirname: str) -> bool:
     return bool(_segment_paths(dirname))
 
@@ -215,14 +278,19 @@ class WAL:
         wal.append_entry(...); wal.set_hardstate(...)
         wal.sync()              # durable point — only now send/publish
 
-    Python backend only (the JAX package's native/wal.cc writes the same
-    bytes; `replay` reads either).
+    The write path is the C++ fast path (native/wal.cc — framing, CRC,
+    buffered write, fdatasync behind one ctypes call) or the Python
+    writer; both produce byte-identical files, and `replay` reads either.
+    `native=None` takes the C++ path unless an fsio fault injector is
+    active or RAFTSQL_TPU_NATIVE=0; True/False force.  A native path
+    that was asked for and cannot be built, loaded or opened raises: it
+    never falls back to Python (native/build.py).
 
     NOT thread-safe: callers serialize all writes, sync, and compact (the
     node holds its _wal_lock across every call).
     """
 
-    def __init__(self, dirname: str,
+    def __init__(self, dirname: str, native: Optional[bool] = None,
                  segment_bytes: int = DEFAULT_SEGMENT_BYTES):
         os.makedirs(dirname, exist_ok=True)
         self.dirname = dirname
@@ -230,6 +298,9 @@ class WAL:
         segs = _segment_paths(dirname)
         self._seq = segs[-1][0] if segs else 0
         self.path = os.path.join(dirname, f"wal-{self._seq}.log")
+        self._native_pref = native
+        self._lib = None
+        self._h = None
         self._f = None
         self._pending = False
         self.last_sync_s = 0.0
@@ -284,7 +355,26 @@ class WAL:
         return off
 
     def _open_active(self) -> None:
-        self._f = open(self.path, "ab")
+        # An active storage-fault injector (chaos scenarios) forces the
+        # Python backend: the C++ fast path frames and fdatasyncs behind
+        # one ctypes call, invisible to the fsio seam.  Both backends
+        # write byte-identical files.
+        if self._native_pref is not False and not fsio.active():
+            from raftsql_tpu_torch.native.build import load_native_wal
+            lib = load_native_wal()
+            if lib is not None:
+                h = lib.wal_open(self.path.encode())
+                if not h:
+                    raise OSError(f"native WAL: cannot open {self.path}")
+                self._lib, self._h = lib, h
+            elif self._native_pref is True:
+                raise RuntimeError("native WAL requested but "
+                                   "RAFTSQL_TPU_NATIVE=0")
+        self._f = None if self._lib else open(self.path, "ab")
+
+    @property
+    def is_native(self) -> bool:
+        return self._lib is not None
 
     # -- write path ------------------------------------------------------
 
@@ -305,11 +395,58 @@ class WAL:
     def append_entry(self, group: int, index: int, term: int,
                      data: bytes) -> None:
         self._active_stats.bump(group, index)
+        if self._lib is not None:
+            self._lib.wal_append_entry(self._h, group, index, term,
+                                       data, len(data))
+            self._pending = True
+            self._bytes += _HDR.size + _ENTRY.size + len(data)
+            return
         self._write(_ENTRY.pack(REC_ENTRY, group, index, term) + data)
 
     def append_entries(self, groups, indexes, terms, datas) -> None:
-        for g, i, t, d in zip(groups, indexes, terms, datas):
-            self.append_entry(g, i, t, d)
+        """Batched append — one native call for a whole tick's records.
+
+        Callers (the tick's WAL phase) emit per-group ranges with
+        ascending indexes, but the stats pass below does not rely on
+        that — it computes each run's true max."""
+        if self._lib is None:
+            for g, i, t, d in zip(groups, indexes, terms, datas):
+                self.append_entry(g, i, t, d)
+            return
+        import ctypes
+
+        import numpy as np
+        n = len(groups)
+        if n == 0:
+            return
+        blob = b"".join(datas)
+        # numpy list→array conversion marshals the parallel arrays ~5x
+        # faster than ctypes (c_uint32 * n)(*list) star-unpacking.
+        ga = np.asarray(groups, np.uint32)
+        ia = np.asarray(indexes, np.uint64)
+        ta = np.asarray(terms, np.uint64)
+        # Segment stats (per-group max index) per contiguous RUN, not per
+        # record: maximum.reduceat computes each run's true max whatever
+        # the intra-run order (no reliance on the ascending-batch
+        # contract), and bump()'s compare arbitrates across runs of the
+        # same group.  The per-record dict pass this replaces was ~8% of
+        # the WAL phase.
+        ends = np.nonzero(np.diff(ga))[0]
+        run_starts = np.concatenate(([0], ends + 1))
+        run_max = np.maximum.reduceat(ia, run_starts)
+        bump = self._active_stats.bump
+        for s, m in zip(run_starts.tolist(), run_max.tolist()):
+            bump(int(ga[s]), int(m))
+        la = np.fromiter(map(len, datas), np.uint32, n)
+        self._lib.wal_append_entries(
+            self._h, n,
+            ga.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+            ia.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+            ta.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+            blob,
+            la.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)))
+        self._pending = True
+        self._bytes += n * (_HDR.size + _ENTRY.size) + len(blob)
 
     def append_ranges(self, groups, starts, counts, terms, datas) -> None:
         """Batched RANGE append: one type-5 record per (group, start,
@@ -336,6 +473,25 @@ class WAL:
         bump = self._active_stats.bump
         for g, s, c in zip(groups, starts, counts):
             bump(int(g), int(s) + int(c) - 1)
+        if self._lib is not None:
+            import ctypes
+            ga = np.asarray(groups, np.uint32)
+            sa = np.asarray(starts, np.uint64)
+            ta = np.asarray(terms, np.uint64)
+            ca = np.asarray(counts, np.uint32)
+            blob = b"".join(datas)
+            self._lib.wal_append_ranges(
+                self._h, n,
+                ga.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+                sa.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+                ta.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+                ca.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+                blob,
+                la.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)))
+            self._pending = True
+            self._bytes += (n * (_HDR.size + _RANGE.size)
+                            + 4 * len(datas) + len(blob))
+            return
         pos = 0
         lens = la.tobytes()      # little-endian u32, matches the format
         for g, s, c, t in zip(groups, starts, counts, terms):
@@ -345,21 +501,106 @@ class WAL:
             pos += c
             self._write(body)
 
+    def append_ranges_uniform(self, plog, groups, starts, counts, terms,
+                              blob: bytes, lens,
+                              group_bias: int = 0) -> bool:
+        """Combined native write (walplog_put_uniform): for each range
+        (group, start, count, term) write ONE WAL RANGE record AND the
+        native payload-log range, all in one C call — zero per-entry
+        Python.  `blob` concatenates every range's payload bytes in
+        order; `lens` is per-entry.  Returns False when the native
+        combined path is unavailable (caller falls back to
+        append_entries + plog.put_ranges).  `group_bias` offsets the
+        WAL records' group ids only (the group-commit multiplexed
+        layout); the payload log is indexed by the raw group."""
+        if self._lib is None or plog is None \
+                or not hasattr(self._lib, "walplog_put_uniform"):
+            return False
+        import ctypes
+
+        import numpy as np
+        n_ranges = len(groups)
+        if n_ranges == 0:
+            return True
+        ga = np.asarray(groups, np.uint32)
+        sa = np.asarray(starts, np.uint64)
+        ca = np.asarray(counts, np.uint32)
+        ta = np.asarray(terms, np.uint64)
+        la = np.asarray(lens, np.uint32)
+        rc = self._lib.walplog_put_uniform(
+            self._h, plog.handle, n_ranges,
+            ga.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+            sa.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+            ca.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+            ta.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+            blob,
+            la.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+            group_bias)
+        if rc != 0:
+            raise ValueError("walplog_put_uniform: payload gap")
+        bump = self._active_stats.bump
+        live = 0
+        for g, s, c in zip(ga.tolist(), sa.tolist(), ca.tolist()):
+            if c:             # native side skips empty runs entirely
+                bump(g + group_bias, s + c - 1)
+                live += 1
+        self._pending = True
+        # One RANGE record per non-empty run (native writes type-5 —
+        # keep _bytes matched to the file so rotation fires where
+        # segment_bytes intends).
+        self._bytes += live * (_HDR.size + _RANGE.size) \
+            + 4 * int(ca.sum()) + len(blob)
+        return True
+
     def set_hardstate(self, group: int, term: int, vote: int,
                       commit: int) -> None:
         self._active_stats.hs.add(group)
+        if self._lib is not None:
+            self._lib.wal_set_hardstate(self._h, group, term, vote, commit)
+            self._pending = True
+            self._bytes += _HDR.size + _HARD.size
+            return
         self._write(_HARD.pack(REC_HARDSTATE, group, term, vote, commit))
 
     def set_hardstates(self, groups, terms, votes, commits) -> None:
-        """Batched hard-state records from parallel arrays."""
-        for g, t, v, c in zip(groups, terms, votes, commits):
-            self.set_hardstate(int(g), int(t), int(v), int(c))
+        """Batched hard-state records from parallel arrays — one native
+        call for the whole tick (under saturation EVERY group's commit
+        advances per tick, and a per-group ctypes round trip was ~40% of
+        the durable WAL phase)."""
+        n = len(groups)
+        if n == 0:
+            return
+        if self._lib is None:
+            for g, t, v, c in zip(groups, terms, votes, commits):
+                self.set_hardstate(int(g), int(t), int(v), int(c))
+            return
+        import ctypes
+
+        import numpy as np
+        ga = np.ascontiguousarray(groups, np.uint32)
+        self._active_stats.hs.update(ga.tolist())
+        ta = np.ascontiguousarray(terms, np.uint64)
+        va = np.ascontiguousarray(votes, np.int64)
+        ca = np.ascontiguousarray(commits, np.uint64)
+        self._lib.wal_set_hardstates(
+            self._h, n,
+            ga.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+            ta.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+            va.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            ca.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)))
+        self._pending = True
+        self._bytes += n * (_HDR.size + _HARD.size)
 
     def set_snapshot(self, group: int, index: int, term: int) -> None:
         """InstallSnapshot boundary marker: on replay, entries of `group`
         at or below `index` AND the retained suffix are dropped — the
         installed state's history supersedes the whole local log."""
         self._active_stats.bump(group, index)
+        if self._lib is not None:
+            self._lib.wal_set_snapshot(self._h, group, index, term)
+            self._pending = True
+            self._bytes += _HDR.size + _SNAP.size
+            return
         self._write(_SNAP.pack(REC_SNAPSHOT, group, index, term))
 
     def set_conf(self, group: int, index: int, kind: int, voters: int,
@@ -370,7 +611,13 @@ class WAL:
 
         Durability ride-along: the record lands before the NEXT sync
         barrier; a crash before it replays the same conf from the still
-        -committed log entry, so no extra fsync is needed here."""
+        -committed log entry, so no extra fsync is needed here.  The
+        native C fast path has no conf writer — returns False there
+        (recovery then depends on the retained entries; the membership
+        runtimes force the Python backend via their chaos/fsio posture,
+        and document the native gap)."""
+        if self._lib is not None:
+            return False
         self._conf_latest[group] = (index, kind, voters, joint, learners)
         self._active_stats.hs.add(group)   # re-assert like a hard state
         self._write(_CONFREC.pack(REC_CONF, group, index, kind,
@@ -387,7 +634,13 @@ class WAL:
         scrubs the same forward-retry duplicates its live peers do.
 
         Durability ride-along like set_conf: the caller's compaction /
-        install barrier syncs it."""
+        install barrier syncs it.  The native C fast path has no dedup
+        writer — returns False there (the chaos/fsio posture forces the
+        Python backend wherever this invariant is exercised; native
+        deployments keep the pre-record behavior and the documented
+        gap)."""
+        if self._lib is not None:
+            return False
         body = b"".join(
             [_DEDUPHDR.pack(REC_DEDUP, group, floor, len(pairs))]
             + [_DEDUPPAIR.pack(i, p) for (i, p) in pairs])
@@ -401,6 +654,11 @@ class WAL:
         the dispatch's first record, END after its last (including the
         hard states).  Replay ignores them; repair_epochs() drops a
         trailing dispatch whose epoch was never cluster-committed."""
+        if self._lib is not None and hasattr(self._lib, "wal_epoch"):
+            self._lib.wal_epoch(self._h, no, 1 if end else 0)
+            self._pending = True
+            self._bytes += _HDR.size + _EPOCH.size
+            return
         self._write(_EPOCH.pack(REC_EPOCH, 1 if end else 0, no))
 
     @staticmethod
@@ -451,6 +709,11 @@ class WAL:
 
     def _write_compact_rec(self, group: int, index: int, term: int) -> None:
         self._active_stats.bump(group, index)
+        if self._lib is not None:
+            self._lib.wal_set_compact(self._h, group, index, term)
+            self._pending = True
+            self._bytes += _HDR.size + _SNAP.size
+            return
         self._write(_SNAP.pack(REC_COMPACT, group, index, term))
 
     def mark_compact(self, group: int, index: int, term: int) -> None:
@@ -472,7 +735,15 @@ class WAL:
             return
         import time as _t
         t0 = _t.monotonic()
-        fsio.fsync_file(self._f)
+        if self._lib is not None:
+            if self._lib.wal_sync(self._h) != 0:
+                raise OSError("native WAL sync failed")
+            # The count that decides rotation, exact at the barrier: the
+            # parallel workers of a group-commit log add to it from
+            # several threads without a lock, and an update can be lost.
+            self._bytes = os.path.getsize(self.path)
+        else:
+            fsio.fsync_file(self._f)
         self.last_sync_s = _t.monotonic() - t0
         if self.obs is not None:
             self.obs.note_event("wal.fsync", dur_s=self.last_sync_s,
@@ -495,13 +766,21 @@ class WAL:
         _fsync_dir(self.dirname)
 
     def _close_handle(self) -> None:
+        if self._lib is not None:
+            lib, self._lib = self._lib, None
+            rc = lib.wal_close(self._h)
+            self._h = None
+            if rc != 0:
+                raise OSError("native WAL close failed (unsynced records "
+                              "may be lost)")
+            return
         if self._f is not None:
             f, self._f = self._f, None
             fsio.fsync_file(f)
             f.close()
 
     def close(self) -> None:
-        if self._f is None:
+        if self._lib is None and self._f is None:
             return
         self._close_handle()
         self._pending = False
@@ -604,13 +883,13 @@ class WAL:
             if g in floors:
                 self._write_compact_rec(g, *floors[g])
             conf = self._conf_latest.get(g)
-            if conf is not None:
+            if conf is not None and self._lib is None:
                 # The membership baseline must survive the unlink too:
                 # the conf ENTRY that built it may live only in the
                 # doomed segments.
                 self._write(_CONFREC.pack(REC_CONF, g, *conf))
             dd = self._dedup_latest.get(g)
-            if dd is not None:
+            if dd is not None and self._lib is None:
                 # Likewise the dedup baseline: the doomed segments may
                 # hold the only record scrubbing a compacted-away
                 # forward-retry duplicate.
@@ -642,7 +921,8 @@ class WAL:
         new_seq = (segs[-1][0] + 1) if segs else 0
         path = os.path.join(dirname, f"wal-{new_seq}.log")
         tmp = path + ".rewrite"
-        w = WAL.__new__(WAL)                      # bare WAL over tmp
+        w = WAL.__new__(WAL)                      # bare python-backend WAL
+        w._lib = w._h = None
         w.path = tmp
         w._f = open(tmp, "wb")
         w._pending = False
@@ -926,8 +1206,21 @@ class WALGroupView:
         self.peer = peer
         self.group_bias = peer * owner.num_groups
 
-    # Shared-state delegation: `_pending`/`_bytes`/stats live on the one
-    # shared base WAL.
+    # Shared-state delegation: the native mirror path (wal_mirror_all)
+    # talks to `_lib`/`_h` and writes `_pending`/`_bytes`/stat bumps —
+    # all live on the one shared base WAL.
+    @property
+    def _lib(self):
+        return self._owner.base._lib
+
+    @property
+    def _h(self):
+        return self._owner.base._h
+
+    @property
+    def is_native(self) -> bool:
+        return self._owner.base.is_native
+
     @property
     def _f(self):
         return self._owner.base._f
@@ -987,6 +1280,13 @@ class WALGroupView:
         self._owner.base.append_ranges(
             [int(g) + self.group_bias for g in groups], starts, counts,
             terms, datas)
+
+    def append_ranges_uniform(self, plog, groups, starts, counts, terms,
+                              blob, lens) -> bool:
+        self._touch()
+        return self._owner.base.append_ranges_uniform(
+            plog, groups, starts, counts, terms, blob, lens,
+            group_bias=self.group_bias)
 
     def set_hardstate(self, group, term, vote, commit) -> None:
         self._touch()

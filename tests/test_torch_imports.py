@@ -1,6 +1,6 @@
 """raftsql_tpu_torch stands alone: every module imports in a fresh
-interpreter with neither jax nor raftsql_tpu loaded, and the kernels
-are not built at import time."""
+interpreter with neither jax nor raftsql_tpu loaded, and neither the
+kernels nor the native storage plane are built at import time."""
 import json
 import os
 import pkgutil
@@ -30,7 +30,9 @@ for name in sys.argv[1:]:
     importlib.import_module(name)
     out["modules"][name] = sorted(foreign() - seen)
 from raftsql_tpu_torch.ops import pallas_quorum
+from raftsql_tpu_torch.native import build as native_build
 out["built_at_import"] = pallas_quorum._lib is not None
+out["native_built_at_import"] = bool(native_build._libs)
 print(json.dumps(out))
 """
 
@@ -44,6 +46,7 @@ def probe():
     got = json.loads(r.stdout.strip().splitlines()[-1])
     assert got["preloaded"] == [], got["preloaded"]
     assert not got["built_at_import"]
+    assert not got["native_built_at_import"]
     return got["modules"]
 
 
@@ -60,7 +63,8 @@ def test_module_list_covers_the_slice():
               "transport.base", "transport.codec", "transport.loopback",
               "transport.tcp", "runtime.node", "runtime.pipe",
               "models.witness", "api.client", "chaos.proc",
-              "overload", "overload.admission"):
+              "overload", "overload.admission", "native", "native.build",
+              "storage.log", "models.kv_sm", "models.kv_native"):
         assert f"raftsql_tpu_torch.{m}" in MODULES, m
 
 

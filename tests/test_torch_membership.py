@@ -38,6 +38,7 @@ from raftsql_tpu_torch.core import state as tstate
 from raftsql_tpu_torch.membership import MembershipError as TMembershipError
 from raftsql_tpu_torch.membership import MembershipManager as TManager
 from raftsql_tpu_torch.runtime.fused import FusedClusterNode as TNode
+from raftsql_tpu_torch.storage import fsio as tfsio
 
 torch.set_num_threads(1)
 
@@ -266,12 +267,13 @@ def test_fused_lifecycle_and_restart_equal_jax(tmp_path, monkeypatch,
 
     monkeypatch.setattr(pq, "pallas_quorum_commit_index", spy_k1)
     monkeypatch.setattr(pq, "pallas_masked_quorum_commit_index", spy_k2)
-    got = _lifecycle(TNode, TConfig, t_drain, str(tmp_path / "port"), rule,
-                     device="cpu")
-    # The JAX package writes REC_CONF baselines from its Python WAL
-    # backend only (its native backend documents the gap); an installed
-    # storage injector with no rules selects that backend, as its own
-    # membership runtimes do.  The port has only the Python backend.
+    # Both packages write REC_CONF baselines from their Python WAL
+    # backends only (the native backends document the gap); an installed
+    # storage injector with no rules selects that backend on each side,
+    # as the JAX package's own membership runtimes do.
+    with tfsio.installed(tfsio.StorageFaultInjector()):
+        got = _lifecycle(TNode, TConfig, t_drain, str(tmp_path / "port"),
+                         rule, device="cpu")
     with jfsio.installed(jfsio.StorageFaultInjector()):
         want = _lifecycle(JNode, JConfig, j_drain, str(tmp_path / "jax"),
                           rule)

@@ -12,8 +12,10 @@ zero.  At the end every node's WAL directory must hold the same files
 with the same bytes.
 
 The JAX side runs under an installed (rule-free) storage injector,
-which selects its Python WAL backend: the port has only that backend,
-and the JAX package's native one writes no REC_CONF baseline.
+which selects its Python WAL backend, and the port's side on its default
+native backend: the two backends write the same bytes.  Where a test
+replays REC_CONF baselines, which neither package's native backend
+writes, the port's side runs under its own injector too.
 """
 import itertools
 import json

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from raftsql_tpu.storage import fsio as jfsio
+from raftsql_tpu_torch.storage import fsio as tfsio
 from raftsql_tpu_torch.ops import pallas_quorum as pq
 from test_torch_node import JAX, PORT, Side, _propose, _tick_both
 # raftlint: disable=unused-import -- counted_ids is a pytest fixture
@@ -45,7 +46,11 @@ def test_lifecycle_equal(tmp_path, counted_ids, monkeypatch, rule):
                tick_interval_s=0.0, initial_voters=(0, 1, 2),
                commit_rule=rule)
     docs = []
-    with jfsio.installed(jfsio.StorageFaultInjector()):
+    # Both sides on their Python WAL backends (a rule-free injector each):
+    # the lifecycle's restart replays REC_CONF baselines, which the native
+    # backends of both packages do not write.
+    with jfsio.installed(jfsio.StorageFaultInjector()), \
+            tfsio.installed(tfsio.StorageFaultInjector()):
         sides = (Side(JAX, cfg, str(tmp_path / "jax")),
                  Side(PORT, cfg, str(tmp_path / "port")))
         j = sides[0]

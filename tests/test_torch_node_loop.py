@@ -12,6 +12,8 @@ immediately — plus the replay/publish contract (committed prefix only).
 import queue
 import time
 
+import numpy as np
+
 from raftsql_tpu_torch.config import NO_VOTE, RaftConfig
 from raftsql_tpu_torch.runtime.node import CLOSED, RaftNode
 from raftsql_tpu_torch.transport.loopback import LoopbackHub, LoopbackTransport
@@ -134,6 +136,7 @@ def test_forward_reclaimed_when_follower_becomes_leader(tmp_path):
     nodes = [RaftNode(i + 1, 3, cfg, LoopbackTransport(hub),
                       str(tmp_path / f"n{i + 1}"), device="cpu")
              for i in range(3)]
+    dead = None
     try:
         for n in nodes:
             n.start(threaded=False)
@@ -187,12 +190,8 @@ def test_forward_reclaimed_when_follower_becomes_leader(tmp_path):
         for n in nodes:
             if n is not None:
                 n.stop()
-        # The crashed node is abandoned like a killed process, not
-        # stopped: hard_crash_node pointed its WAL fd at /dev/null,
-        # where the Python backend's closing fsync fails (the port has
-        # no native WAL, whose handle the reference's crash leaves
-        # alone).
-        del dead
+        if dead is not None:
+            dead.stop()
 
 
 def test_replay_scrubs_duplicate_whose_first_copy_was_compacted(tmp_path):
@@ -214,7 +213,7 @@ def test_replay_scrubs_duplicate_whose_first_copy_was_compacted(tmp_path):
         # Floor at 2: the duplicate's first copy (applied at index 1)
         # is gone.  The retained suffix holds its re-proposed copy at
         # index 3 plus an ordinary entry at 4; both are committed.
-        w = WAL(str(d))         # the port's WAL is the Python backend
+        w = WAL(str(d), native=False)
         w.mark_compact(0, 2, 1)
         if with_baseline:
             assert w.set_dedup(0, 2, [(1, DUP_PID)])
@@ -249,3 +248,53 @@ def test_replay_scrubs_duplicate_whose_first_copy_was_compacted(tmp_path):
     assert replayed_sqls(tmp_path / "bare") == [
         "SET k stale-dup", "SET k fresh"]
     assert replayed_sqls(tmp_path / "pinned") == ["SET k fresh"]
+
+
+def test_status_reports_one_ticks_role_and_term(tmp_path):
+    """GET /healthz (RaftNode.status) shows role and hard state of ONE
+    tick.  Read mid-tick (from the send phase, after the WAL phase moved
+    the hard state) it must still equal the previous tick's view: a
+    leader deposed by a leadership transfer is never reported as the
+    leader of the new term, which the process chaos runners'
+    election-safety check would count as a second leader in that term."""
+    from raftsql_tpu_torch.config import LEADER
+    cfg = RaftConfig(num_groups=2, num_peers=3, log_window=32,
+                     max_entries_per_msg=4, election_ticks=10,
+                     heartbeat_ticks=1, tick_interval_s=0.0)
+    hub = LoopbackHub()
+    nodes = [RaftNode(i + 1, 3, cfg, LoopbackTransport(hub),
+                      str(tmp_path / f"n{i + 1}"), device="cpu")
+             for i in range(3)]
+    mid = {}
+    for i, n in enumerate(nodes):
+        send = n._send_phase
+
+        def spy(outbox, info, i=i, n=n, send=send):
+            mid[i] = n.status()
+            return send(outbox, info)
+
+        n._send_phase = spy
+    try:
+        for n in nodes:
+            n.start(threaded=False)
+        end = [n.status() for n in nodes]
+        deposed = 0
+        for t in range(80):
+            if t == 40:
+                lead = nodes[0].leader_of(0)
+                assert lead >= 0
+                nodes[lead].transfer_leadership(0, (lead + 1) % 3)
+            for i, n in enumerate(nodes):
+                n.tick()
+                assert mid[i] == end[i], (t, i, mid[i], end[i])
+                now = n.status()
+                deposed += (end[i]["0"]["role"] == "leader"
+                            and now["0"]["role"] != "leader"
+                            and now["0"]["term"] > end[i]["0"]["term"])
+                end[i] = now
+        assert deposed == 1
+        assert (np.stack([n._last_role for n in nodes]) == LEADER).sum(0) \
+            .tolist() == [1, 1]
+    finally:
+        for n in nodes:
+            n.stop()
