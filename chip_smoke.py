@@ -23,9 +23,10 @@ exit, no result line) at the first phase that fails:
      G = 8192, each booted from the same seed, must be bit-identical;
      then the device event ring's cost at G = 100,000 ([64, 3, 100000,
      9] int32): the fused tick without and with a ring record per tick,
-     and the durable node's tick (native WALs, G = 25,000: its elections
-     take 52 s at G = 100,000) without and with enable_tracing;
-  5. the membership and transfer planes at G = 25,000 on 4 slots
+     and the durable node's tick (native WALs, G = 10,000: its elections
+     take 52 s at G = 100,000, 14.6 s at 25,000) without and with
+     enable_tracing;
+  5. the membership and transfer planes at G = 10,000 on 4 slots
      (voters {0,1,2}, a spare slot 3, durable FusedClusterNode,
      commit_rule="pallas"): after the elections slot 0 is replaced by
      slot 3 (add_learner, promote, remove through joint consensus) on 64
@@ -33,10 +34,10 @@ exit, no result line) at the first phase that fails:
      must end on its expected config or leader and every other group on
      {0,1,2}; K2 must launch on every tick after enable_membership, and
      on one tick with joint masks live its inputs are copied: K2 is held
-     against its plain version and timed on them (R = 100,000, P = 4);
+     against its plain version and timed on them (R = 40,000, P = 4);
      G is cut from the bench headline's 100,000 to keep the whole run
-     near half its time limit (the phase's host plane costs about
-     1.5 s a tick and 73 s of set-up at G = 100,000);
+     under its time limit (the phase's host plane costs about 1.5 s a
+     tick and 73 s of set-up at G = 100,000; 37 s in all at 25,000);
   6. the fused durable SQL server (build_fused_node + the aio HTTP
      plane) on native WALs: the reference curl recipe, concurrent acked
      PUTs, a close and a resume=True reopen that replays the WALs;
@@ -116,19 +117,61 @@ exit, no result line) at the first phase that fails:
      ahead: every WAL native, the same commit indexes, KV state and WAL
      records in both arms, K1 launched once per device step; commits/s
      and ms per tick by phase of each arm;
- 16. the kernels line (JSON: K1 as phase 4 measured it, K2 on phase 5's
+ 16. the mesh tick (BASELINE config 5, bench.py bench_multichip): G =
+     32,768 (8,192 a group shard), P = 4, W = 64, E = 8 on a 2 x 4 mesh
+     whose eight shards share the card, commit_rule="pallas": the sharded
+     host step and the fused cluster_step_host in lockstep from boot
+     (at least 48 ticks, until every group has a leader; packed info and
+     busy bit equal every tick), then blocks of 32
+     ticks in turns (fused, mesh, mesh, fused) for ms per tick, the final
+     states equal; K1 launched pp x gg = 8 times a mesh step (counts
+     zeroed before the first mesh block, read after); one shard's K1
+     inputs copied (R = 16,384, P = 4); then voter masks (K2, 8 a step,
+     one shard's inputs copied); then a card mesh and a CPU mesh run one
+     48-tick lockstep script with skew at G = 512, bit-identical;
+ 17. the durable mesh node (bench.py's runtime="mesh" rung): G = 10,000,
+     P = 3, W = 64, E = 8 over 8 group shards on the card, native WALs
+     per shard dir, the rung's queue-drain KV apply, booted from seed 0,
+     elected, 24 ticks with E SETs a group queued ahead: commits/s and ms
+     per tick by phase beside phase 15's arm (b), the same commit indexes
+     and KV state per group, K1 launched 8 times a device step;
+ 18. the mesh server: `python -m raftsql_tpu_torch.server.main --mesh
+     --groups 8 --group-shards 4 --resume` on the card with 4 shard
+     slots: the curl recipe, 16 client threads of acked PUTs read back
+     (p50/p99), a clean stop and a --resume reopen from the per-shard
+     WALs with every row intact, native WALs at both starts;
+ 19. mesh chaos: mesh_skew at seed 0, RUNS times, commit_rule="pallas",
+     8 shard slots: digests equal to the fused skew family's
+     (CHAOS_DIGESTS["mesh_skew"]), K1 launched once per shard per step;
+ 20. the pod: two `--pod --pod-procs 2` server processes on the card (8
+     groups, --group-shards 2): writes through a client at host 0 that
+     follows the 421 to the owner, every acked PUT read back from its
+     owner, PUT p50/p99; then `pod.dryrun --mode equiv` with 2 processes
+     (G = 1024 over 8 shards, commit_rule="pallas") equal to the
+     single-controller run in this process (the pod path's K1 count, 8 a
+     device step, and one shard's K1 inputs, R = 384, P = 3); then the
+     pod gauntlet at seed 0, RUNS times (every fault fires, no unexpected
+     exit, PROC_VERDICTS["pod"]) and its falsification pair;
+ 21. the kernels line (JSON: K1 as phase 4 measured it, K2 on phase 5's
      joint masks, launches summed over the paths, and each kernel's
      node-path launches and time: K1 at R = 10,000 from phase 10, K2 at
      R = 2 from phase 12; K1's launches and time on the overload path of
-     phase 13, R = 12; K1's launches in phase 15) and the result line.
+     phase 13, R = 12; K1's launches in phase 15; K1 and K2 on the mesh
+     path of phases 16, 17 and 19 and K1 on the pod path of phase 20,
+     with their per-shard times) and the result line.
 
-`--only 13,15` runs the build and the named phases (3-15) alone: a
+The mesh and pod phases share one card among their shards: they measure
+whether the sharded program is right on the card and what it costs
+there, not scaling across cards.
+
+`--only 13,15` runs the build and the named phases (3-20) alone: a
 development run, with no result line.  It needs one card and writes
 under build/ of its checkout (and the chaos runs' data dirs under
 $TMPDIR, removed after each run).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import http.client
 import json
@@ -180,6 +223,11 @@ CHAOS_DIGESTS = {
     # digest) of a live JAX run.  bench_logs/chaos_digests.json pins the
     # result as ac2d01c5e3007d01, the non-partitionable threefry run.
     "overload": ("993c8f68e0b1ac1a", "fadf1a8688e66fa1"),
+    # The skew schedule on the mesh runtime (MeshChaosRunner): sharding
+    # is an execution detail, so its digests are the fused skew
+    # family's; a live JAX MeshChaosRunner run on 8 forced host devices
+    # gave the same pair.
+    "mesh_skew": ("4b1508ca5ccc18d0", "74bb6ca5cda40817"),
 }
 # Runs of each seed-0 chaos family and of the --procs gauntlet (phases 9,
 # 12, 14).  One: every run's digests must equal the reference's constants
@@ -682,7 +730,7 @@ def fused_tick(card: str, dev="cuda", G=100_000, g=8192) -> dict:
 
 
 def traced_tick(card: str, dev="cuda", G=100_000, ticks=64,
-                node_ticks=8, node_G=25_000) -> dict:
+                node_ticks=8, node_G=10_000) -> dict:
     """The event ring's cost at G = 100,000.  First on phase 4's fused
     tick: blocks of `ticks` ticks without and with a DeviceEventRing
     record per tick (one full drain per traced block), in turns.  Then
@@ -690,10 +738,11 @@ def traced_tick(card: str, dev="cuda", G=100_000, ticks=64,
     plane, idle after the elections, on native WALs) without and with
     enable_tracing, in turns, `node_ticks` a block.  And the ring's slot
     write alone (CUDA events) and one drain of the full ring.  The
-    durable node runs at node_G = 25,000, as phase 5 does: at G =
+    durable node runs at node_G = 10,000, as phase 5 does: at G =
     100,000 its elections took 52.1 s on native WALs too (the staging
-    and payload-log work per row stay in Python), against the 15 s that
-    would have kept it there."""
+    and payload-log work per row stay in Python), 14.6 s at 25,000; the
+    whole script must stay under its time limit with the mesh and pod
+    phases."""
     from raftsql_tpu_torch.obs.device_ring import (DeviceEventRing,
                                                    _record_slot)
     from raftsql_tpu_torch.runtime.fused import FusedClusterNode
@@ -797,7 +846,7 @@ def traced_tick(card: str, dev="cuda", G=100_000, ticks=64,
 
 # ---- phase 5 ---------------------------------------------------------------
 
-def membership_node(card: str, dev="cuda", G=25_000, n=64) -> dict:
+def membership_node(card: str, dev="cuda", G=10_000, n=64) -> dict:
     """The membership and transfer planes: a durable FusedClusterNode of
     G groups on 4 slots, voters {0,1,2}
     and a live spare slot 3 (the JAX package's node-replacement layout),
@@ -1835,6 +1884,10 @@ def overload(card: str, dev="cuda") -> int:
 # docstring says): the --procs family at 80 ticks, and the read and
 # transfer arms on generate_procs(0, ticks=60).
 PROC_VERDICTS = {
+    # The pod gauntlet's nemesis (chaos/pod.py PodChaosRunner over
+    # generate_pod(0)): (plan digest, all-pass verdict digest), equal to
+    # a live run of the JAX package's runner.
+    "pod": ("a3effdcab6da10bd", "0acaa0bc4bc11569"),
     "procs": ("fb868899b7dbd88a", "3b7df695ba0107b3"),
     "reads": ("14e0b1d3918591ef", "95fa6c73158c79e6"),
     "transfers": ("14e0b1d3918591ef", "05aec3f72b210740"),
@@ -1997,7 +2050,8 @@ def _dir_files(d: str) -> dict:
     return out
 
 
-def durable_arm(card, dev, native_plog, G, ticks, E=8, seed=0) -> dict:
+def durable_arm(card, dev, native_plog, G, ticks, E=8, seed=0,
+                mesh=None) -> dict:
     """One arm of phase 15: the bench's fused durable shape
     (bench.py bench_durable_fused: FusedClusterNode, P = 3, W = 64, E,
     tick_interval_s = 0, WAL group commit, publish_peers = {0}) with
@@ -2008,7 +2062,11 @@ def durable_arm(card, dev, native_plog, G, ticks, E=8, seed=0) -> dict:
     else the Python payload log and one KVStateMachine a group draining
     peer 0's commit queue (BENCH_DURABLE_APPLY=python).  K1's launches
     and the device steps (ClusterHostPlane._readback, one a dispatch)
-    are zeroed just before the boot and read just after the run."""
+    are zeroed just before the boot and read just after the run.
+    `mesh` (a parallel/sharded.py Mesh) runs the bench's runtime="mesh"
+    rung instead: MeshClusterNode over the mesh (per-shard WAL dirs, one
+    publish worker per group shard, no group commit), K1 launched once
+    per shard per device step."""
     from raftsql_tpu_torch.models.kv_native import NativeKV
     from raftsql_tpu_torch.models.kv_sm import KVStateMachine
     from raftsql_tpu_torch.runtime.db import (iter_plain_batches,
@@ -2018,7 +2076,8 @@ def durable_arm(card, dev, native_plog, G, ticks, E=8, seed=0) -> dict:
     cfg = RaftConfig(num_groups=G, num_peers=3, log_window=max(64, 4 * E),
                      max_entries_per_msg=E, tick_interval_s=0.0,
                      commit_rule="pallas")
-    name = "native" if native_plog else "python"
+    name = ("mesh" if mesh is not None
+            else "native" if native_plog else "python")
     d = os.path.join(ROOT, "build", f"chip_smoke_durable_{name}")
     shutil.rmtree(d, ignore_errors=True)
     steps = [0]
@@ -2054,8 +2113,12 @@ def durable_arm(card, dev, native_plog, G, ticks, E=8, seed=0) -> dict:
     kv = node = None
     try:
         t0 = time.monotonic()
-        node = FusedClusterNode(cfg, d, group_commit=True, seed=seed,
-                                device=dev)
+        if mesh is not None:
+            from raftsql_tpu_torch.runtime.mesh import MeshClusterNode
+            node = MeshClusterNode(cfg, d, mesh, seed=seed)
+        else:
+            node = FusedClusterNode(cfg, d, group_commit=True, seed=seed,
+                                    device=dev)
         node.publish_peers = {0}
         if native_plog:
             kv = NativeKV(G, node._plog_lib)
@@ -2081,17 +2144,29 @@ def durable_arm(card, dev, native_plog, G, ticks, E=8, seed=0) -> dict:
         m.ticks = 0
         m.t_device_ms = m.t_wal_ms = m.t_publish_ms = 0.0
         applied0 = int(node._applied[0].sum())
+        fsync = [0.0]
+
+        def barrier():
+            # The fsync barrier of the durable phase that just ran (the
+            # host plane's _fsync_span), read once: the WAL phase's
+            # share that waits on the disk.
+            fs, node._fsync_span = node._fsync_span, None
+            fsync[0] += fs[1] if fs is not None else 0.0
+
         torch.cuda.synchronize()
         t1 = time.monotonic()
         for _ in range(ticks):
             node.tick()
+            barrier()
             drain()
         node.publish_flush()
+        barrier()
         drain()
         torch.cuda.synchronize()
         dt = time.monotonic() - t1
         committed = int(node._applied[0].sum()) - applied0
         phase = {"device": m.t_device_ms / ticks, "wal": m.t_wal_ms / ticks,
+                 "fsync": fsync[0] * 1e3 / ticks,
                  "publish": m.t_publish_ms / ticks}
         launches = pq.launches["pallas_quorum_commit_index"]
         commit = node._applied[0].copy()
@@ -2115,18 +2190,22 @@ def durable_arm(card, dev, native_plog, G, ticks, E=8, seed=0) -> dict:
             kv.close()
     files = _dir_files(d)
     shutil.rmtree(d, ignore_errors=True)
-    expect(launches, steps[0], f"arm {name}: K1 launches against device "
-                               f"steps")
+    per_step = 1 if mesh is None else mesh.size
+    expect(launches, steps[0] * per_step,
+           f"arm {name}: K1 launches against device steps x shards")
     if committed <= 0:
         raise AssertionError(f"arm {name}: nothing committed")
     log(f"durable plane arm {name} G={G} P=3 W={cfg.log_window} E={E} "
-        f"pallas, group commit: elected in {n_elect} ticks "
+        f"pallas, "
+        f"{'group commit' if mesh is None else f'{mesh.size} group shards'}"
+        f": elected in {n_elect} ticks "
         f"({t_elect:.1f} s with boot); {ticks} ticks drained {committed} "
         f"commits in {dt:.2f} s: {committed / dt:.0f} commits/s, "
         f"{dt / ticks * 1e3:.1f} ms per tick; ms per tick: device "
-        f"{phase['device']:.2f}, wal {phase['wal']:.2f}, publish "
+        f"{phase['device']:.2f}, wal {phase['wal']:.2f} (of it the fsync "
+        f"barrier {phase['fsync']:.2f}), publish "
         f"{phase['publish']:.2f}; K1 launches {launches} = device steps "
-        f"{steps[0]}; every WAL native on {card}")
+        f"{steps[0]} x {per_step}; every WAL native on {card}")
     return {"commits_per_s": committed / dt, "ms_per_tick": dt / ticks * 1e3,
             "phase": phase, "launches": launches, "commit": commit,
             "state": state, "files": files}
@@ -2172,7 +2251,688 @@ def durable_plane(card: str, dev="cuda", G=10_000, ticks=24) -> dict:
     return {"commits_per_s": {"native": a["commits_per_s"],
                               "python": b["commits_per_s"]},
             "phase": {"native": a["phase"], "python": b["phase"]},
-            "launches": a["launches"] + b["launches"]}
+            "launches": a["launches"] + b["launches"], "arm_b": b}
+
+
+# ---- phases 16-20: the mesh and pod runtimes ---------------------------------
+
+@contextlib.contextmanager
+def slots_env(n: int):
+    """RAFTSQL_SHARD_SLOTS=n inside the block: the card counts as n shard
+    slots (the JAX package's forced host devices); restored after."""
+    old = os.environ.get("RAFTSQL_SHARD_SLOTS")
+    os.environ["RAFTSQL_SHARD_SLOTS"] = str(n)
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["RAFTSQL_SHARD_SLOTS"]
+        else:
+            os.environ["RAFTSQL_SHARD_SLOTS"] = old
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _device_busy_ms(fn, ticks: int):
+    """(wall ms, device busy ms) per tick of `ticks` calls of fn() under
+    torch.profiler: busy is the sum of the kernels' self time; None
+    where the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.monotonic()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(ticks):
+            fn()
+        torch.cuda.synchronize()
+    wall = (time.monotonic() - t0) / ticks * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(_self_device_us(e) for e in kern) / ticks / 1e3
+    return wall, (busy if kern else None), \
+        sum(e.count for e in kern) // ticks
+
+
+def mesh_tick(card: str, dev="cuda", G=32_768, g=512, T=32) -> dict:
+    """BASELINE config 5 at its own shape (bench.py bench_multichip): G =
+    32,768 groups (8,192 a group shard), P = 4, W = 64, E = 8 over a 2 x
+    4 mesh whose eight shards share the card, commit_rule="pallas".
+    From boot until every group has a leader (at least 48 ticks) the
+    sharded host step and the fused cluster_step_host run in lockstep,
+    packed info and busy bit equal every tick; then blocks of T ticks in turns (fused, sharded,
+    sharded, fused) on the same proposals, the final states equal, for
+    ms per tick; K1 must launch pp x gg times a sharded step (counts
+    zeroed just before the first sharded block, read just after); one
+    shard's K1 inputs are copied; then the same with voter masks (K2
+    per shard).  Then one lockstep script at G = `g` on a card mesh and
+    a CPU mesh must be bit-identical."""
+    from raftsql_tpu_torch.parallel import (make_mesh,
+                                            make_sharded_cluster_step_host,
+                                            shard_cluster_arrays)
+    P, W, E, pp, gg = 4, 64, 8, 2, 4
+    cfg = RaftConfig(num_groups=G, num_peers=P, log_window=W,
+                     max_entries_per_msg=E, commit_rule="pallas")
+    mesh = make_mesh(pp, gg, devices=[torch.device(dev)] * (pp * gg))
+    step = make_sharded_cluster_step_host(cfg, mesh)
+    fs = cluster.init_cluster_state(cfg, device=dev)
+    fi = cluster.empty_cluster_inbox(cfg, device=dev)
+    ss, si = shard_cluster_arrays(
+        mesh, cluster.init_cluster_state(cfg, device=dev),
+        cluster.empty_cluster_inbox(cfg, device=dev))
+    ones = torch.ones((P,), dtype=torch.int32, device=dev)
+    rng = np.random.default_rng(16)
+
+    def props(n):
+        return torch.from_numpy(rng.integers(
+            0, E + 1, (n, P, G)).astype(np.int32)).to(dev)
+
+    # Lockstep from boot until every group has a leader (split votes
+    # among 4 peers can take a few election rounds), at least 48 ticks.
+    lock = leaders = 0
+    while lock < 48 or (leaders < G and lock < 240):
+        for pn in props(16):
+            fs, fi, finfo, fbusy = cluster.cluster_step_host(cfg, fs, fi,
+                                                             pn, ones)
+            ss, si, sinfo, sbusy = step(ss, si, pn, ones)
+            if not torch.equal(finfo, sinfo) \
+                    or bool(fbusy) != bool(sbusy):
+                raise AssertionError(f"mesh tick != fused tick at tick "
+                                     f"{lock}")
+            lock += 1
+        leaders = int(((fs.role == 2).sum(0) > 0).sum())
+    if leaders < G:
+        raise AssertionError(f"only {leaders} of {G} groups elected")
+
+    def fused_block(pb):
+        nonlocal fs, fi
+        for pn in pb:
+            fs, fi, _, _ = cluster.cluster_step_host(cfg, fs, fi, pn, ones)
+        _sync(dev)
+
+    def mesh_block(pb):
+        nonlocal ss, si
+        for pn in pb:
+            ss, si, _, _ = step(ss, si, pn, ones)
+        _sync(dev)
+
+    b1, b2 = props(T), props(T)
+    k1 = "pallas_quorum_commit_index"
+    times = {"fused": [], "mesh": []}
+    t0 = time.monotonic()
+    fused_block(b1)
+    times["fused"].append(time.monotonic() - t0)
+    pq.reset_launches()                        # the mesh path starts here
+    t0 = time.monotonic()
+    mesh_block(b1)
+    times["mesh"].append(time.monotonic() - t0)
+    launches = pq.launches[k1]                 # ... and ends here
+    t0 = time.monotonic()
+    mesh_block(b2)
+    times["mesh"].append(time.monotonic() - t0)
+    t0 = time.monotonic()
+    fused_block(b2)
+    times["fused"].append(time.monotonic() - t0)
+    for k, v in convert.to_numpy(fs).items():
+        if not np.array_equal(v, convert.to_numpy(ss.gather())[k]):
+            raise AssertionError(f"mesh and fused states differ: {k}")
+    expect(launches, pp * gg * T, "K1 launches in a block of mesh steps")
+    ms = {k: min(v) / T * 1e3 for k, v in times.items()}
+    mwall, mbusy, mkern = _device_busy_ms(
+        lambda: mesh_block(props(1)), 3)
+    fwall, fbusy, fkern = _device_busy_ms(
+        lambda: fused_block(props(1)), 3)
+    log(f"mesh tick G={G} P={P} W={W} E={E} pallas, {pp}x{gg} mesh, "
+        f"{pp * gg} shards on one card: bit-identical to the fused tick "
+        f"for {lock} ticks from boot ({leaders} leaders) and after "
+        f"{2 * T} more; ms/tick mesh {ms['mesh']:.2f}, fused "
+        f"{ms['fused']:.2f} (best of 2 blocks of {T}, in turns); K1 "
+        f"launches {launches} in {T} mesh steps ({launches // T} a step) "
+        f"on {card}")
+    log(f"mesh tick profile (3 ticks, profiler on): mesh wall "
+        f"{mwall:.2f} ms/tick, device busy {_ms(mbusy)}, {mkern} "
+        f"kernels/tick; fused wall {fwall:.2f} ms/tick, device busy "
+        f"{_ms(fbusy)}, {fkern} kernels/tick on {card}")
+    captured = {}
+    real = pq.pallas_quorum_commit_index
+
+    def spy(*args, **kw):                      # keeps the last shard's
+        captured[k1] = ([a.clone() for a in args], dict(kw))
+        return real(*args, **kw)
+
+    pq.pallas_quorum_commit_index = spy
+    try:
+        mesh_block(props(1))
+    finally:
+        pq.pallas_quorum_commit_index = real
+    # Voter masks: every shard's Phase 7 runs K2.
+    k2 = "pallas_masked_quorum_commit_index"
+    dcfg = dataclasses.replace(cfg, dynamic_membership=True)
+    dstep = make_sharded_cluster_step_host(dcfg, mesh)
+    real2 = pq.pallas_masked_quorum_commit_index
+
+    def spy2(*args, **kw):
+        captured[k2] = ([a.clone() for a in args],
+                        {k: v.clone() if torch.is_tensor(v) else v
+                         for k, v in kw.items()})
+        return real2(*args, **kw)
+
+    pq.reset_launches()                        # the mesh K2 path
+    t0 = time.monotonic()
+    for pn in props(T):
+        ss, si, _, _ = dstep(ss, si, pn, ones)
+    _sync(dev)
+    dms = (time.monotonic() - t0) / T * 1e3
+    k2_launches = pq.launches[k2]
+    expect(k2_launches, pp * gg * T, "K2 launches in mesh steps")
+    pq.pallas_masked_quorum_commit_index = spy2
+    try:
+        ss, si, _, _ = dstep(ss, si, props(1)[0], ones)
+    finally:
+        pq.pallas_masked_quorum_commit_index = real2
+    log(f"mesh tick dynamic_membership: {dms:.2f} ms/tick, K2 launches "
+        f"{k2_launches} in {T} steps on {card}")
+    del fs, fi, ss, si
+
+    # Card vs CPU: one lockstep script (proposals and per-peer skew) on a
+    # 2 x 4 mesh of the card and a 2 x 4 mesh of the CPU.
+    scfg = dataclasses.replace(cfg, num_groups=g)
+    out = []
+    for d in (dev, "cpu"):
+        m = make_mesh(pp, gg, devices=[torch.device(d)] * (pp * gg))
+        st_, ib_ = shard_cluster_arrays(
+            m, cluster.init_cluster_state(scfg, device=d),
+            cluster.empty_cluster_inbox(scfg, device=d))
+        sstep = make_sharded_cluster_step_host(scfg, m)
+        r = np.random.default_rng(5)
+        infos = []
+        for _ in range(48):
+            pn = r.integers(0, E + 1, (P, g)).astype(np.int32)
+            ti = r.integers(0, 3, (P,)).astype(np.int32)
+            st_, ib_, pinfo, busy = sstep(st_, ib_, pn, ti)
+            infos.append((pinfo.cpu().numpy(), bool(busy)))
+        out.append((infos, convert.to_numpy(st_.gather())))
+    for t, ((a, ba), (b, bb)) in enumerate(zip(out[0][0], out[1][0])):
+        if not np.array_equal(a, b) or ba != bb:
+            raise AssertionError(f"card and CPU mesh differ at tick {t}")
+    for k in out[0][1]:
+        if not np.array_equal(out[0][1][k], out[1][1][k]):
+            raise AssertionError(f"card and CPU mesh states differ: {k}")
+    log(f"mesh tick card vs CPU at G={g}: 48 ticks with skew "
+        f"bit-identical")
+    return {"ms_per_tick": ms, "launches": {k1: launches, k2: k2_launches},
+            "captured": captured, "busy_ms": (mbusy, fbusy)}
+
+
+def _ms(x) -> str:
+    return "not measured" if x is None else f"{x:.2f} ms"
+
+
+# ---- phase 17 ---------------------------------------------------------------
+
+def durable_mesh(card: str, dev="cuda", G=10_000, ticks=24,
+                 arm_b=None) -> dict:
+    """The bench's runtime="mesh" durable rung (bench.py
+    bench_durable_fused, runtime="mesh"): G = 10,000, P = 3, W = 64,
+    E = 8 over 8 group shards sharing the card, native WALs per shard
+    dir, the rung's queue-drain KV apply (Python payload log,
+    KVStateMachine per group), booted from seed 0, elected, then 24
+    ticks with E SETs a group queued ahead.  The KV state and commit
+    indexes per group must equal phase 15's arm (b) (the fused runtime,
+    Python payload log, KVStateMachine), run again here when phase 15
+    did not run."""
+    from raftsql_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(1, 8, devices=[torch.device(dev)] * 8)
+    if arm_b is None:
+        arm_b = durable_arm(card, dev, False, G, ticks)
+    m = durable_arm(card, dev, False, G, ticks, mesh=mesh)
+    if not np.array_equal(m["commit"], arm_b["commit"]):
+        raise AssertionError("mesh and fused arms committed different "
+                             "indexes")
+    if m["state"] != arm_b["state"]:
+        bad = next(i for i, (x, y) in enumerate(zip(m["state"],
+                                                    arm_b["state"]))
+                   if x != y)
+        raise AssertionError(f"mesh KV state differs from arm (b) at "
+                             f"g{bad}")
+    log(f"durable mesh G={G}: {m['commits_per_s']:.0f} commits/s, "
+        f"{m['ms_per_tick']:.1f} ms/tick (device "
+        f"{m['phase']['device']:.2f}, wal {m['phase']['wal']:.2f}, fsync "
+        f"barrier {m['phase']['fsync']:.2f}, publish "
+        f"{m['phase']['publish']:.2f}) against arm (b) "
+        f"{arm_b['commits_per_s']:.0f} commits/s, "
+        f"{arm_b['ms_per_tick']:.1f} ms/tick (device "
+        f"{arm_b['phase']['device']:.2f}, wal {arm_b['phase']['wal']:.2f},"
+        f" fsync barrier {arm_b['phase']['fsync']:.2f}, publish "
+        f"{arm_b['phase']['publish']:.2f}); the same commit "
+        f"indexes and KV state per group on {card}")
+    return {"commits_per_s": m["commits_per_s"],
+            "ms_per_tick": m["ms_per_tick"], "phase": m["phase"],
+            "launches": m["launches"],
+            "fused_commits_per_s": arm_b["commits_per_s"]}
+
+
+# ---- phases 18 and 20: server processes -------------------------------------
+
+def _spawn(args, work, name, env_extra) -> subprocess.Popen:
+    env = dict(os.environ, PYTHONPATH=ROOT, **env_extra)
+    logf = open(os.path.join(work, f"{name}.log"), "ab")
+    try:
+        return subprocess.Popen(
+            [sys.executable, "-m", "raftsql_tpu_torch.server.main", *args],
+            cwd=work, env=env, stdout=logf, stderr=subprocess.STDOUT)
+    finally:
+        logf.close()
+
+
+def _tail(work, name, n=3000) -> str:
+    try:
+        with open(os.path.join(work, f"{name}.log"), "rb") as f:
+            return f.read()[-n:].decode("utf-8", "replace")
+    except OSError:
+        return ""
+
+
+def _stop(p, timeout=60) -> int:
+    if p.poll() is None:
+        p.terminate()
+    try:
+        return p.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        return p.wait(timeout=15)
+
+
+def _client_load(addrs, groups, threads, per, tag, dl=120.0):
+    """`threads` RaftSQLClients over `addrs` PUT `per` unique rows each
+    across the groups (following 421s to the serving host); returns the
+    acked (group, value) pairs and the PUT latencies in seconds."""
+    from raftsql_tpu_torch.api.client import RaftSQLClient
+    lat, errs, acked = [], [], []
+    mu = threading.Lock()
+
+    def client(i):
+        my = RaftSQLClient(addrs, timeout_s=15.0)
+        try:
+            my.refresh_hints(timeout_s=5.0)
+            for k in range(per):
+                g = (i + k) % groups
+                v = f"{tag}-c{i}-{k}"
+                t1 = time.monotonic()
+                try:
+                    my.put(f'INSERT INTO main.t (name) VALUES ("{v}")',
+                           group=g, deadline_s=dl)
+                except Exception as e:               # noqa: BLE001
+                    with mu:
+                        errs.append(repr(e))
+                    continue
+                with mu:
+                    lat.append(time.monotonic() - t1)
+                    acked.append((g, v))
+        finally:
+            my.close()
+
+    ths = [threading.Thread(target=client, args=(i,))
+           for i in range(threads)]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join()
+    expect(errs, [], f"{tag}: PUTs")
+    lat.sort()
+    return acked, lat
+
+
+def _read_back(cli, node_of, groups, want_extra, acked, what):
+    """Every acked value of every group read back at `node_of(g)`."""
+    for g in range(groups):
+        want = sorted(f"|{v}|" for v in
+                      [v for (gg, v) in acked if gg == g] + want_extra(g))
+        until = time.monotonic() + 60.0
+        while True:
+            st, _, body = cli.raw(node_of(g), "GET", "/",
+                                  "SELECT name FROM main.t",
+                                  headers={"X-Raft-Group": str(g)})
+            got = sorted(x for x in body.strip().split("\n") if x)
+            if st == 200 and got == want:
+                break
+            if time.monotonic() > until:
+                expect((st, len(got)), (200, len(want)),
+                       f"{what}: acked PUTs of g{g} read back")
+            time.sleep(0.1)
+
+
+def mesh_server(card: str, dev="cuda", groups=8, threads=16,
+                per=25) -> dict:
+    """`python -m raftsql_tpu_torch.server.main --mesh --groups 8
+    --group-shards 4 --resume` on the card with 4 shard slots: the
+    reference curl recipe, concurrent acked PUTs from `threads` clients
+    read back, a clean stop, then a --resume reopen from the per-shard
+    WALs with every row intact; every start on native WALs."""
+    from raftsql_tpu_torch.api.client import RaftSQLClient
+    work = os.path.join(ROOT, "build", "chip_smoke_mesh")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    port = _free_port()
+    args = ["--mesh", "--groups", str(groups), "--group-shards", "4",
+            "--port", str(port), "--resume", "--device", dev]
+    env = {"RAFTSQL_SHARD_SLOTS": "4"}
+    t0 = time.monotonic()
+    p = _spawn(args, work, "mesh", env)
+    cli = RaftSQLClient([f"127.0.0.1:{port}"], timeout_s=15.0)
+    try:
+        cli.wait_healthy(0, deadline_s=120.0)
+        t_up = time.monotonic() - t0
+        for g in range(groups):
+            expect(_req(port, "PUT", b"CREATE TABLE main.t (name text)",
+                        g), (204, b""), f"CREATE g{g}")
+            expect(_req(port, "PUT",
+                        b'INSERT INTO main.t (name) VALUES ("abc")', g),
+                   (204, b""), f"INSERT g{g}")
+            expect(_req(port, "GET", b"SELECT * FROM main.t", g),
+                   (200, b"|abc|\n"), f"SELECT g{g}")
+        expect(_req(port, "POST", b"SELECT 1")[0], 405, "POST")
+        expect(_req(port, "PUT", b"NOT SQL")[0], 400, "bad SQL")
+        acked, lat = _client_load([f"127.0.0.1:{port}"], groups, threads,
+                                  per, "mesh")
+        _read_back(cli, lambda g: 0, groups, lambda g: ["abc"], acked,
+                   "mesh server")
+        doc = json.loads(cli.raw(0, "GET", "/metrics")[2])
+    except BaseException:
+        log(f"--- mesh server log tail ---\n{_tail(work, 'mesh')}")
+        raise
+    finally:
+        cli.close()
+        code = _stop(p)
+    if code != 0:
+        log(f"--- mesh server log tail ---\n{_tail(work, 'mesh')}")
+    expect(code, 0, "mesh server clean stop")
+    p = _spawn(args, work, "mesh", env)         # reopen: replay the WALs
+    cli = RaftSQLClient([f"127.0.0.1:{port}"], timeout_s=15.0)
+    try:
+        cli.wait_healthy(0, deadline_s=120.0)
+        _read_back(cli, lambda g: 0, groups, lambda g: ["abc"], acked,
+                   "mesh server after --resume")
+        expect(_req(port, "PUT", b'INSERT INTO main.t (name) VALUES '
+                    b'("again")')[0], 204, "PUT after reopen")
+    except BaseException:
+        log(f"--- mesh server log tail ---\n{_tail(work, 'mesh')}")
+        raise
+    finally:
+        cli.close()
+        code = _stop(p)
+    if code != 0:
+        log(f"--- mesh server log tail ---\n{_tail(work, 'mesh')}")
+    expect(code, 0, "mesh server clean stop after reopen")
+    text = _tail(work, "mesh", 1 << 20)
+    expect((text.count("WAL backend: native"), "WAL backend: python"
+            in text), (2, False), "mesh server WAL backend at each start")
+    expect(text.count("mesh deployment: 1x4 shard slots"), 2,
+           "mesh server shard slots")
+    p50, p99 = lat[len(lat) // 2] * 1e3, lat[int(len(lat) * 0.99)] * 1e3
+    log(f"mesh server: up {t_up:.1f} s after spawn; curl recipe ok; "
+        f"{len(lat)} PUTs from {threads} threads over {groups} groups "
+        f"(4 group shards on the card) acked and read back, PUT p50 "
+        f"{p50:.2f} ms p99 {p99:.2f} ms; phase_ms_per_tick "
+        f"{doc['phase_ms_per_tick']}; a --resume reopen replayed the "
+        f"per-shard WALs, rows intact; native WALs at both starts on "
+        f"{card}")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"p50": p50, "p99": p99, "phase": doc["phase_ms_per_tick"]}
+
+
+# ---- phase 19 ---------------------------------------------------------------
+
+def mesh_chaos(card: str, dev="cuda") -> dict:
+    """The mesh_skew family (chaos.run run_mesh: MeshChaosRunner over the
+    skew schedule) at seed 0, RUNS times, commit_rule="pallas", on 8
+    shard slots of the card (4 groups: 4 group shards): schedule and
+    result digests equal the fused skew family's (CHAOS_DIGESTS), K1
+    launched once per shard per device step."""
+    from raftsql_tpu_torch.chaos import run as crun
+    from raftsql_tpu_torch.chaos.schedule import generate_skew
+    from raftsql_tpu_torch.runtime.hostplane import ClusterHostPlane
+    steps = [0]
+    real = ClusterHostPlane._readback
+
+    def counted(*a, **kw):
+        steps[0] += 1
+        return real(*a, **kw)
+
+    k1 = "pallas_quorum_commit_index"
+    pq.reset_launches()                        # the mesh chaos path
+    ClusterHostPlane._readback = staticmethod(counted)
+    try:
+        with slots_env(8):
+            reps = []
+            for _ in range(RUNS):
+                t0 = time.monotonic()
+                r = crun.run_mesh(generate_skew(0), device=dev,
+                                  commit_rule="pallas")
+                r["wall_s"] = time.monotonic() - t0
+                reps.append(r)
+    finally:
+        ClusterHostPlane._readback = staticmethod(real)
+    launches = pq.launches[k1]
+    for r in reps:
+        expect((r["schedule_digest"], r["result_digest"]),
+               CHAOS_DIGESTS["mesh_skew"], "mesh_skew digests")
+        if not (r["skew_ticks"] > 0 and r["crashes"] >= 1):
+            raise AssertionError(f"mesh_skew: faults never fired ({r})")
+    expect(launches, 4 * steps[0], "mesh chaos K1 launches against device "
+                                   "steps x 4 group shards")
+    log(f"mesh chaos mesh_skew seed 0 x{RUNS}: digests "
+        f"{CHAOS_DIGESTS['mesh_skew']} (= skew), skew ticks "
+        f"{reps[0]['skew_ticks']}, crashes {reps[0]['crashes']}, K1 "
+        f"launches {launches} = {steps[0]} device steps x 4 shards, "
+        f"{reps[0]['wall_s']:.1f} s on {card}")
+    return {"launches": launches}
+
+
+# ---- phase 20 ---------------------------------------------------------------
+
+def pod_servers(card: str, dev="cuda", groups=8, threads=16,
+                per=25) -> dict:
+    """Two `python -m raftsql_tpu_torch.server.main --pod --pod-procs 2`
+    processes on the card (8 groups, --group-shards 2, 2 shard slots
+    each): writes go through a client pointed at host 0, which follows
+    the 421 to the owner; every acked PUT is read back from its owner
+    (host 0 owns groups 0-3, host 1 groups 4-7); a misdirected write
+    answers 421 naming the owner; host 0, stopped first, exits 0, and
+    host 1 exits 0 or the pod-wide fail-stop code."""
+    from raftsql_tpu_torch.api.client import RaftSQLClient
+    from raftsql_tpu_torch.server.main import EXIT_CODE_FATAL
+    work = os.path.join(ROOT, "build", "chip_smoke_pod")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    ports = [_free_port(), _free_port()]
+    coord = f"127.0.0.1:{_free_port()}"
+    hosts = ",".join(f"127.0.0.1:{p}" for p in ports)
+    t0 = time.monotonic()
+    procs = [_spawn(["--pod", "--pod-procs", "2", "--pod-id", str(i),
+                     "--pod-coord", coord, "--pod-hosts", hosts,
+                     "--port", str(p), "--groups", str(groups),
+                     "--group-shards", "2", "--device", dev],
+                    work, f"pod{i}", {"RAFTSQL_SHARD_SLOTS": "2"})
+             for i, p in enumerate(ports)]
+    cli = RaftSQLClient([f"127.0.0.1:{ports[0]}"], timeout_s=15.0)
+    owner = lambda g: 0 if g < groups // 2 else 1  # noqa: E731
+    try:
+        cli.wait_healthy(0, deadline_s=180.0)
+        t_up = time.monotonic() - t0
+        expect(cli.refresh_hints(timeout_s=5.0), groups, "pod hints")
+        expect(len(cli.nodes), 2, "host 1 adopted from /healthz")
+        for g in range(groups):
+            cli.put("CREATE TABLE main.t (name text)", group=g,
+                    deadline_s=120.0)
+        st, hdrs, _ = cli.raw(0, "PUT", "/",
+                              'INSERT INTO main.t (name) VALUES ("x")',
+                              headers={"X-Raft-Group": str(groups - 1)})
+        expect((st, hdrs.get("X-Raft-Leader")), (421, "2"),
+               "misdirected pod write")
+        acked, lat = _client_load([f"127.0.0.1:{ports[0]}"], groups,
+                                  threads, per, "pod")
+        _read_back(cli, owner, groups, lambda g: [], acked,
+                   "pod servers")
+        docs = [json.loads(cli.raw(i, "GET", "/metrics")[2])
+                for i in range(2)]
+    except BaseException:
+        for i in range(2):
+            log(f"--- pod host {i} log tail ---\n{_tail(work, f'pod{i}')}")
+        raise
+    finally:
+        cli.close()
+        codes = [_stop(p) for p in procs]
+    # Host 0 (the coordinator) is stopped first, with host 1 still up,
+    # so it must stop clean; host 1 then loses the coordinator and may
+    # fail-stop before its own SIGTERM lands.
+    if codes[0] != 0 or codes[1] not in (0, EXIT_CODE_FATAL):
+        raise AssertionError(f"pod server exit codes {codes}")
+    p50, p99 = lat[len(lat) // 2] * 1e3, lat[int(len(lat) * 0.99)] * 1e3
+    log(f"pod servers: up {t_up:.1f} s after spawn; {len(lat)} PUTs from "
+        f"{threads} threads through host 0 (421s followed to the owner) "
+        f"acked and read back from their owners, PUT p50 {p50:.2f} ms "
+        f"p99 {p99:.2f} ms; pod gathers "
+        f"{[d['pod']['gathers'] for d in docs]}, proposals routed "
+        f"{[d['pod']['proposals_routed'] for d in docs]}, phase_ms_per_"
+        f"tick host 0 {docs[0]['phase_ms_per_tick']}; exit codes {codes} "
+        f"on {card}")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"p50": p50, "p99": p99}
+
+
+def pod_dryrun(card: str, dev="cuda", groups=1024, ticks=60) -> dict:
+    """`pod.dryrun --mode equiv` with 2 processes on the card (G = 1024
+    over 8 group shards, 8 shard slots each, commit_rule="pallas"), and
+    the single-controller run of the same workload in this process (a
+    procs == 1 pod): every dump's digest must be equal.  The in-process
+    run is the pod path's K1 count: one launch per shard per device
+    step; one shard's K1 inputs are copied."""
+    from raftsql_tpu_torch.pod.dryrun import (build_pod_node, drain_commits,
+                                              seeded_workload, state_doc)
+    from raftsql_tpu_torch.runtime.hostplane import ClusterHostPlane
+    work = os.path.join(ROOT, "build", "chip_smoke_pod_dryrun")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    coord = f"127.0.0.1:{_free_port()}"
+    env = dict(os.environ, PYTHONPATH=ROOT, RAFTSQL_SHARD_SLOTS="8")
+    t0 = time.monotonic()
+    procs = []
+    for i in range(2):
+        with open(os.path.join(work, f"h{i}.log"), "ab") as logf:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "raftsql_tpu_torch.pod.dryrun",
+                 "--procs", "2", "--proc-id", str(i), "--coord", coord,
+                 "--data-dir", os.path.join(work, f"h{i}"),
+                 "--groups", str(groups), "--group-shards", "8",
+                 "--ticks", str(ticks), "--seed", "0",
+                 "--commit-rule", "pallas", "--device", dev,
+                 "--out", os.path.join(work, f"h{i}.json")],
+                cwd=work, env=env, stdout=logf, stderr=subprocess.STDOUT))
+
+    class _A:
+        procs = 1
+        proc_id = 0
+        coord = ""
+        data_dir = os.path.join(work, "ref")
+        peers = 3
+        group_shards = 8
+        connect_timeout = 30.0
+        commit_rule = "pallas"
+        device = dev
+    _A.groups = groups
+
+    steps = [0]
+    real = ClusterHostPlane._readback
+
+    def counted(*a, **kw):
+        steps[0] += 1
+        return real(*a, **kw)
+
+    k1 = "pallas_quorum_commit_index"
+    captured = {}
+    real_k1 = pq.pallas_quorum_commit_index
+
+    def spy(*args, **kw):
+        captured[k1] = ([a.clone() for a in args], dict(kw))
+        return real_k1(*args, **kw)
+
+    with slots_env(8):
+        node, cfg = build_pod_node(_A)
+    applied = []
+    wl = seeded_workload(0, ticks, groups)
+    pq.reset_launches()                        # the pod path starts here
+    ClusterHostPlane._readback = staticmethod(counted)
+    try:
+        t1 = time.monotonic()
+        for t in range(ticks):
+            for _i, g, payload in wl[t]:
+                node.pod_propose(g, [payload])
+            if t == ticks - 1:                 # copy the last shard's
+                pq.pallas_quorum_commit_index = spy
+            node.tick()
+            applied.extend(drain_commits(node))
+        dt = time.monotonic() - t1
+        launches = pq.launches[k1]             # ... and ends here
+        ref = state_doc(node, applied)
+    finally:
+        pq.pallas_quorum_commit_index = real_k1
+        ClusterHostPlane._readback = staticmethod(real)
+        node.stop()
+    codes = [p.wait(timeout=300) for p in procs]
+    if codes != [0, 0]:
+        for i in range(2):
+            log(f"--- pod dryrun host {i} log tail ---\n"
+                f"{_tail(work, f'h{i}')}")
+        raise AssertionError(f"pod dryrun exit codes {codes}")
+    docs = []
+    for i in range(2):
+        with open(os.path.join(work, f"h{i}.json")) as f:
+            docs.append(json.load(f))
+    expect([d["digest"] for d in docs], [ref["digest"]] * 2,
+           "pod dryrun dumps against the single-controller run")
+    expect(launches, 8 * steps[0], "pod path K1 launches against device "
+                                   "steps x 8 shards")
+    log(f"pod dryrun equiv G={groups} over 8 shards, 2 processes on the "
+        f"card: both dumps digest {docs[0]['digest']}, "
+        f"{len(docs[0]['kv_stream'])} applied rows, equal to the "
+        f"single-controller run's; single controller "
+        f"{dt / ticks * 1e3:.1f} ms/tick, K1 launches {launches} "
+        f"({time.monotonic() - t0:.1f} s with the children) on {card}")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"launches": launches, "captured": captured, "steps": steps[0]}
+
+
+def pod_chaos(card: str, dev="cuda") -> None:
+    """The pod gauntlet (chaos.run pod_gauntlet, what --pod runs) at seed
+    0, RUNS times, every child a CUDA process over 8 shard slots: every
+    scripted fault fires, no child dies of anything unscripted, writes
+    are acked, and (plan, verdict) equals the JAX package's all-pass
+    digests (PROC_VERDICTS["pod"]); then the falsification pair: the
+    premature ack is caught and the honest control passes."""
+    from raftsql_tpu_torch.chaos import run as crun
+    t0 = time.monotonic()
+    # Its RUNS nemesis runs and the falsification pair run at once.
+    ok, reports = crun.pod_gauntlet(0, runs=RUNS, device=dev,
+                                    workers=RUNS + 2)
+    if not ok:
+        raise AssertionError("the pod gauntlet failed (see CHAOS FAIL "
+                             "above)")
+    for r in reports:
+        expect((r["plan_digest"], r["result_digest"]), PROC_VERDICTS["pod"],
+               "pod gauntlet digests")
+        log(f"pod chaos: plan={r['plan_digest']} verdict="
+            f"{r['result_digest']} acked {r['acked']}, kills "
+            f"{r['kills']} (coordinator {r['coord_kills']}), pod-lost "
+            f"exits {r['pod_lost_exits']}, cut deferred "
+            f"{r['cut_deferred']}, re-offered {r['reoffered']}, "
+            f"unexpected {r['unexpected_exits']}; {r['wall_s']:.1f} s "
+            f"on {card}")
+    log(f"pod chaos: the falsification pair caught the premature ack "
+        f"and its control passed; gauntlet {time.monotonic() - t0:.1f} s "
+        f"on {card}")
 
 
 # ---- main ------------------------------------------------------------------
@@ -2184,7 +2944,7 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="smoke run on one CUDA card")
     ap.add_argument("--only", default="",
-                    help="comma separated phases (3-15) to run after the "
+                    help="comma separated phases (3-20) to run after the "
                          "build; no result line is printed")
     only = {int(x) for x in ap.parse_args(argv).only.split(",") if x}
     t_start = time.monotonic()
@@ -2211,7 +2971,7 @@ def main(argv=None) -> int:
         done("fused tick")
     if want(5):
         mem = membership_node(card)
-        # K2's row is its joint-consensus path: R = 100,000, P = 4 (the
+        # K2's row is its joint-consensus path: R = 40,000, P = 4 (the
         # generic kernel), C_old,new masks live.
         kern.update(main_path_kernels(card, mem.pop("captured")))
         done("membership node")
@@ -2253,6 +3013,29 @@ def main(argv=None) -> int:
     if want(15):
         durable = durable_plane(card)
         done("durable plane")
+    if want(16):
+        mtick = mesh_tick(card)
+        # K1 and K2 on one shard's rows: R = 2 x 8,192 = 16,384, P = 4.
+        mesh_kern = main_path_kernels(card, mtick.pop("captured"))
+        done("mesh tick")
+    if want(17):
+        dmesh = durable_mesh(card, arm_b=durable["arm_b"] if want(15)
+                             else None)
+        done("durable mesh")
+    if want(18):
+        msrv = mesh_server(card)
+        done("mesh server")
+    if want(19):
+        mch = mesh_chaos(card)
+        done("mesh chaos")
+    if want(20):
+        psrv = pod_servers(card)
+        pdry = pod_dryrun(card)
+        # K1 on one shard's rows of the pod's replicated step: R = 3 x
+        # 128 = 384, P = 3.
+        pod_kern = main_path_kernels(card, pdry.pop("captured"))
+        pod_chaos(card)
+        done("pod")
     if only:
         log(f"development run of phases {sorted(only)}: no result line")
         return 0
@@ -2261,17 +3044,31 @@ def main(argv=None) -> int:
     node_launches = {
         k: node["launches"][k] + sum(f[k] for f in nch["launches"].values())
         for k in (k1, k2)}
+    mesh_launches = {
+        k1: (mtick["launches"][k1] + dmesh["launches"] + mch["launches"]),
+        k2: mtick["launches"][k2]}
+    pod_launches = {k1: pdry["launches"], k2: 0}
     launches = {
         k1: (tick["launches"][k1] + k1_server + place["launches"]
              + ch["launches"]["default"] + ch["launches"]["nemesis"]
-             + node_launches[k1] + k1_overload + durable["launches"]),
-        k2: tick["launches"][k2] + mem["launches"][k2] + node_launches[k2]}
+             + node_launches[k1] + k1_overload + durable["launches"]
+             + mesh_launches[k1] + pod_launches[k1]),
+        k2: (tick["launches"][k2] + mem["launches"][k2] + node_launches[k2]
+             + mesh_launches[k2])}
     log(f"launches by path: fused tick {tick['launches']}, membership "
         f"node {mem['launches']}, server K1 {k1_server}, placement "
         f"server K1 {place['launches']}, chaos K1 {ch['launches']}, node "
         f"cluster {node['launches']}, node chaos {nch['launches']}, "
         f"overload K1 {k1_overload}, durable plane K1 "
-        f"{durable['launches']}")
+        f"{durable['launches']}, mesh tick {mtick['launches']}, durable "
+        f"mesh K1 {dmesh['launches']}, mesh chaos K1 {mch['launches']}, "
+        f"pod K1 {pdry['launches']}")
+    log(f"mesh tick ms/tick mesh {mtick['ms_per_tick']['mesh']:.2f} fused "
+        f"{mtick['ms_per_tick']['fused']:.2f}; durable mesh "
+        f"{dmesh['commits_per_s']:.0f} commits/s against fused arm (b) "
+        f"{dmesh['fused_commits_per_s']:.0f}; mesh server PUT p50 "
+        f"{msrv['p50']:.2f} ms p99 {msrv['p99']:.2f} ms; pod servers PUT "
+        f"p50 {psrv['p50']:.2f} ms p99 {psrv['p99']:.2f} ms on {card}")
     log(f"procfile cluster PUT p50 {procs['p50']:.2f} ms p99 "
         f"{procs['p99']:.2f} ms; node cluster "
         f"{node['commits_per_s']:.0f} commits/s (node 1 WAL "
@@ -2294,9 +3091,13 @@ def main(argv=None) -> int:
                "overload_path_launches":
                    k1_overload if name == k1 else 0,
                "durable_plane_launches":
-                   durable["launches"] if name == k1 else 0}
+                   durable["launches"] if name == k1 else 0,
+               "mesh_path_launches": mesh_launches[name],
+               "pod_path_launches": pod_launches[name]}
         for path, got in (("node_path", node_kern),
-                          ("overload_path", over_kern)):
+                          ("overload_path", over_kern),
+                          ("mesh_path", mesh_kern),
+                          ("pod_path", pod_kern)):
             if name in got:
                 n = got[name]
                 row[path] = {k: n[k] for k in (

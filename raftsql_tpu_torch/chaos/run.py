@@ -6,6 +6,9 @@
     python -m raftsql_tpu_torch.chaos.run --procs --seed 0
     python -m raftsql_tpu_torch.chaos.run --overload --seed 0
     python -m raftsql_tpu_torch.chaos.run --reads --no-procs
+    RAFTSQL_SHARD_SLOTS=8 python -m raftsql_tpu_torch.chaos.run \
+        --family mesh_skew
+    RAFTSQL_SHARD_SLOTS=8 python -m raftsql_tpu_torch.chaos.run --pod
     python -m raftsql_tpu_torch.chaos.run --device cpu      # no card
 
 Port of raftsql_tpu/chaos/run.py.  Default mode
@@ -21,6 +24,9 @@ runner's for the same seed.
 
     asym             one-directional partitions          (fused plane)
     skew             per-peer clock skew                 (fused plane)
+    mesh_skew        per-peer clock skew on the MESH runtime (groups
+                     sharded over shard slots + per-shard WALs; needs
+                     >= 2 group shards: RAFTSQL_SHARD_SLOTS=8)
     enospc           disk-full on WAL append             (fused plane)
     fsync_stall      slow-disk fsync latency             (fused plane)
     compact          compaction + crash interleaving     (fused plane)
@@ -40,8 +46,7 @@ signature faults must have fired.  The TCP families cross real kernel
 sockets, so arrival interleaving is not virtualizable: their plan is
 deterministic and their invariants must hold, but the committed history
 is not bit-reproducible, so they run once.  The JAX package's other
-families (mesh_skew, pod, replica, reshard) need planes this port has
-not reached yet.
+families (replica, reshard) need planes this port has not reached yet.
 
 --reads, --transfers, --quorum and --overload are the gauntlets: the
 family twice, then its falsification pairs (a deliberately broken lease
@@ -59,6 +64,16 @@ exit at a WAL fsync) — under a live acked-PUT workload.  The seed runs
 twice; schedule and VERDICT digests must match (the committed history
 crosses real kernel scheduling and is not bit-reproducible).
 --proc-ticks (env PROC_TICKS, default 80) sizes its script.
+
+--pod is the MULTI-HOST POD plane: a seeded nemesis over a real
+2-process pod (raftsql_tpu_torch/pod/, chaos/pod.py: host processes
+lockstepped by the TcpPodTransport collective, each durable for its own
+group shards, each stepping on `--device` over RAFTSQL_SHARD_SLOTS
+shard slots): a propose-plane cut, SIGKILL of the non-coordinator host,
+SIGKILL of the coordinator, then a fault-free audit incarnation whose
+merged cross-host replay must hold every acked write exactly once on
+every host; plus the premature-ack falsification pair.  Process-plane
+determinism tier (plan + verdict digests reproduce).
 
 `--device` picks where the consensus state steps (default cuda; a
 missing card is an error; the process families' children step there
@@ -98,6 +113,15 @@ def run_fused(plan, steps: int = 1, device="cuda",
     with tempfile.TemporaryDirectory(prefix="raftsql-chaos-") as d:
         return cls(plan, d, device=device, commit_rule=commit_rule,
                    **kw).run()
+
+
+def run_mesh(sched, device="cuda", commit_rule=None) -> dict:
+    """One run of ChaosSchedule `sched` by the mesh runner
+    (MeshChaosRunner) in a fresh temporary data dir."""
+    from raftsql_tpu_torch.chaos.scenarios import MeshChaosRunner
+    with tempfile.TemporaryDirectory(prefix="raftsql-chaos-") as d:
+        return MeshChaosRunner(sched, d, device=device,
+                               commit_rule=commit_rule).run()
 
 
 def _check(ok: bool, msg: str) -> bool:
@@ -177,10 +201,17 @@ def _digests(r: dict):
 
 def run_matrix(seed: int, only=None, device="cuda",
                commit_rule=None) -> int:
+    """Every family of the matrix (or those in `only`) at `seed`.  The
+    whole matrix includes mesh_skew, which needs >= 2 group shards
+    (RAFTSQL_SHARD_SLOTS)."""
+    from raftsql_tpu_torch.chaos import schedule as S
     kw = dict(device=device, commit_rule=commit_rule)
     specs = {name: (lambda gen=gen: run_fused(gen(seed), **kw), True,
                     fired)
              for name, (gen, fired) in family_specs().items()}
+    specs["mesh_skew"] = (
+        lambda: run_mesh(S.generate_skew(seed), **kw), True,
+        lambda r: r["skew_ticks"] > 0 and r["crashes"] >= 1)
     specs.update({name: (lambda name=name: run_node(name, seed, **kw),
                          det, fired)
                   for name, (_, _, det, fired)
@@ -528,6 +559,120 @@ def run_overload(seed: int, runs: int = 2, device="cuda",
     return 0 if ok else 1
 
 
+def run_pod_plan(plan, device="cuda") -> dict:
+    """One run of PodChaosPlan `plan` (chaos/pod.py PodChaosRunner, its
+    children on `device`) in a fresh temporary work dir."""
+    from raftsql_tpu_torch.chaos.pod import PodChaosRunner
+    with tempfile.TemporaryDirectory(prefix="raftsql-pod-") as d:
+        return PodChaosRunner(plan, d, device=device).run()
+
+
+def pod_gauntlet(seed: int, runs: int = 2, device="cuda",
+                 workers: int = 1):
+    """The multi-host pod gauntlet.
+
+    1. The pod nemesis (schedule.py generate_pod): a 2-process pod runs
+       three incarnations of an acked-write workload (a propose-plane
+       cut, SIGKILL of the non-coordinator host, SIGKILL of the
+       coordinator, then a fault-free audit incarnation), `runs` times.
+       Every acked write must survive into the merged cross-host replay,
+       apply exactly once post-dedup, and every host must fold to the
+       identical state; plan + verdict digests must reproduce.
+    2. The FALSIFICATION pair (schedule.py falsification_pod_plan):
+       acks written at OFFER time plus a scripted pre-durability crash
+       MUST be caught by the durability invariant, and the SAME schedule
+       with honest post-publish acks must pass.
+
+    The runs go in this order, one at a time, as the reference runs
+    them.  They are independent pods (their own work dirs and
+    coordinator ports) and most of their time is child processes
+    starting, so `workers` > 1 runs that many at once, one thread each
+    (chip_smoke.py does, to keep inside its time limit, and holds the
+    verdicts to the JAX package's digests).  Returns (ok, reports),
+    each report with its run's wall time."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from raftsql_tpu_torch.chaos import schedule as S
+    from raftsql_tpu_torch.chaos.invariants import InvariantViolation
+
+    def timed(plan):
+        t0 = time.monotonic()
+        try:
+            r = run_pod_plan(plan, device=device)
+        except InvariantViolation as e:
+            return e
+        r["wall_s"] = time.monotonic() - t0
+        return r
+
+    plan = S.generate_pod(seed)
+    plans = [plan] * runs + [S.falsification_pod_plan(seed, broken=True),
+                             S.falsification_pod_plan(seed, broken=False)]
+    # The broken run's violation is EXPECTED: flight bundles go to a
+    # temporary dir, not the cwd.
+    prev = os.environ.get("RAFTSQL_FLIGHT_DIR")
+    try:
+        with tempfile.TemporaryDirectory(
+                prefix="raftsql-falsification-") as fd:
+            os.environ["RAFTSQL_FLIGHT_DIR"] = fd
+            with ThreadPoolExecutor(max_workers=workers) as ex:
+                results = list(ex.map(timed, plans))
+    finally:
+        if prev is None:
+            os.environ.pop("RAFTSQL_FLIGHT_DIR", None)
+        else:
+            os.environ["RAFTSQL_FLIGHT_DIR"] = prev
+    ok = True
+    reports = []
+    for run, r in enumerate(results[:runs]):
+        if isinstance(r, InvariantViolation):
+            ok = _check(False, f"pod: run {run} tripped an invariant: {r}")
+            continue
+        r["run"] = run
+        reports.append(r)
+        print(json.dumps(r, sort_keys=True))
+        ok &= _check(r["noncoord_kills"] >= 1 and r["coord_kills"] >= 1
+                     and r["pod_lost_exits"] >= 1
+                     and r["cut_deferred"] > 0,
+                     f"pod: a scripted fault family never fired ({r})")
+        ok &= _check(r["unexpected_exits"] == 0,
+                     f"pod: a child died of something unscripted ({r})")
+        ok &= _check(r["acked"] > 0 and r["folded_keys"] > 0,
+                     f"pod: the workload never acked anything ({r})")
+    digests = {(r["plan_digest"], r["result_digest"]) for r in reports}
+    ok &= _check(len(digests) == 1,
+                 f"pod: non-reproducible verdicts: {digests}")
+    broken, control = results[runs:]
+    caught = isinstance(broken, InvariantViolation) \
+        and "DURABILITY" in str(broken)
+    if caught:
+        print(json.dumps({"falsification": "caught",
+                          "violation": str(broken)}))
+    ok &= _check(caught, "falsification: the PREMATURE pod ack was NOT "
+                         "caught by the durability invariant")
+    if isinstance(control, InvariantViolation):
+        ok = _check(False, f"falsification control: honest acks tripped "
+                           f"the invariant: {control}")
+    else:
+        ok &= _check(control["crash_exits"] >= 1 and control["acked"] > 0,
+                     "falsification control: the crash point never "
+                     "fired (or nothing acked)")
+        print(json.dumps({"falsification_control": "passed",
+                          "acked": control["acked"],
+                          "crash_exits": control["crash_exits"]}))
+    return ok, reports
+
+
+def run_pod(seed: int, runs: int = 2, device="cuda") -> int:
+    """`--pod`: the multi-host pod gauntlet (pod_gauntlet)."""
+    ok, reports = pod_gauntlet(seed, runs=runs, device=device)
+    if ok:
+        print(f"chaos pod ok: seed={seed} "
+              f"plan={reports[0]['plan_digest']} "
+              f"verdict={reports[0]['result_digest']} (x{runs} "
+              f"identical) falsification=caught")
+    return 0 if ok else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--seed", type=int,
@@ -562,6 +707,12 @@ def main(argv=None) -> int:
                          "deadlines and slow-fsync stalls against the "
                          "bounded admission controller, run twice + the "
                          "no-admission falsification pair")
+    ap.add_argument("--pod", action="store_true",
+                    help="multi-host pod nemesis: host SIGKILLs "
+                         "(non-coordinator + coordinator) and a "
+                         "propose-plane cut over a real 2-process pod, "
+                         "run twice + the premature-ack falsification "
+                         "pair")
     ap.add_argument("--no-procs", action="store_true",
                     help="with --reads/--transfers: skip the "
                          "process-plane leg")
@@ -592,6 +743,8 @@ def main(argv=None) -> int:
     if args.procs:
         return run_procs(args.seed, args.proc_ticks, runs=args.runs,
                          device=args.device)
+    if args.pod:
+        return run_pod(args.seed, runs=args.runs, device=args.device)
     if args.matrix or args.family:
         return run_matrix(args.seed, only=args.family, **kw)
 

@@ -573,6 +573,46 @@ class FusedChaosRunner:
         }
 
 
+class MeshChaosRunner(FusedChaosRunner):
+    """FusedChaosRunner over the MESH runtime (runtime/mesh.py): the
+    same seeded schedules, workload, invariants and durability audit,
+    with the device step sharded over a groups-only mesh of shard slots
+    and the host plane's WALs split per group shard.  Chaos SkewWindow
+    schedules drive the sharded step's per-peer timer vector, and
+    crash/restart replays from the per-shard WAL dirs.
+
+    Deterministic like the fused runner: sharding is an execution
+    detail, never a semantics change (tests/test_torch_parallel.py), so
+    schedule and result digests reproduce across runs and EQUAL the
+    fused runner's for the same schedule.  The mesh takes the widest
+    group-shard count that divides the groups and fits the shard slots
+    (RAFTSQL_SHARD_SLOTS, the JAX package's forced host devices), and
+    refuses fewer than two group shards."""
+
+    def __init__(self, schedule: ChaosSchedule, data_dir: str,
+                 cfg: Optional[RaftConfig] = None, steps: int = 1,
+                 device="cuda", commit_rule: Optional[str] = None):
+        super().__init__(schedule, data_dir, cfg=cfg, steps=steps,
+                         device=device, commit_rule=commit_rule)
+        from raftsql_tpu_torch.parallel.sharded import (SHARD_SLOTS_ENV,
+                                                        shard_slots)
+        from raftsql_tpu_torch.runtime.mesh import MeshConfig
+        self.mesh_config = MeshConfig.for_groups(self.cfg,
+                                                 device=self.device)
+        if self.mesh_config.group_shards < 2:
+            raise RuntimeError(
+                f"mesh chaos needs >= 2 group shards, have "
+                f"{len(shard_slots(self.device))} shard slots for "
+                f"{self.cfg.num_groups} groups — count each device as "
+                f"several with {SHARD_SLOTS_ENV}=8")
+        self.mesh = self.mesh_config.build(device=self.device)
+
+    def _make_node(self):
+        from raftsql_tpu_torch.runtime.mesh import MeshClusterNode
+        return MeshClusterNode(self.cfg, self.data_dir, self.mesh,
+                               seed=self.sched.seed)
+
+
 class ReadNemesisRunner(FusedChaosRunner):
     """The read-linearizability nemesis (fused plane): every read mode
     of the lease read plane — lease, ReadIndex, session, follower —

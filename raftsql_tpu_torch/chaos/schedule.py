@@ -1301,3 +1301,119 @@ def falsification_overload_plan(seed: int = 0,
         seed=seed, ticks=80, deadline_rate=0.0, read_rate=0.0,
         unsafe_no_admission=broken,
         goodput_floor=1, starvation_floor=1)
+
+
+# -- the multi-host pod plane (chaos/pod.py) ---------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PodKill:
+    """SIGKILL pod process `proc` once its progress file shows it past
+    workload iteration `at_iter` — the whole-host crash.  The pod's
+    fail-stop contract turns one host's death into a pod-wide abort
+    (surviving processes exit on PodPeerLost), so each kill ends its
+    INCARNATION: the nemesis respawns all N processes, which rebuild
+    the global state from the merged cross-host replay exchange."""
+    incarnation: int
+    at_iter: int
+    proc: int
+
+
+@dataclasses.dataclass(frozen=True)
+class PodLinkCut:
+    """Cut the PROPOSE plane at process `origin` for workload
+    iterations [start, end) of incarnation `incarnation`: the origin
+    defers its client offers (they cannot reach the collective) while
+    still serving its collective role — availability degrades at one
+    host without violating any promise.  A TRANSPORT-level cut is
+    deliberately not a separate event: the pod is fail-stop, so a
+    severed collective socket is indistinguishable from a host kill
+    (PodPeerLost, pod-wide abort) and the PodKill events already
+    exercise that path on the surviving side."""
+    incarnation: int
+    start: int
+    end: int
+    origin: int
+
+
+@dataclasses.dataclass(frozen=True)
+class PodChaosPlan:
+    """Scripted scenario for a REAL multi-process pod (chaos/pod.py:
+    N `raftsql_tpu_torch.chaos.pod --child` processes lockstepped by the
+    TcpPodTransport collective, sharded WAL dirs per host).
+
+    A SEPARATE plan class on purpose (ReadNemesisPlan precedent):
+    extending an existing plan would change the asdict() digest of
+    every committed family.  Determinism tier matches the proc plane
+    (the weakest): the PLAN is a pure function of the seed
+    (digest-compared) and the invariant VERDICTS must reproduce, but
+    the committed history crosses real kernel scheduling across N
+    processes and is not bit-reproducible.
+
+    `unsafe_ack` + `crash_at` are the FALSIFICATION knobs: the child
+    acknowledges writes at OFFER time (before any durability) and
+    hard-exits at iteration `crash_at` of incarnation 0 — the
+    durability invariant MUST then catch acked writes missing from the
+    final fold, and the same schedule with unsafe_ack=False must pass.
+    """
+    seed: int
+    ticks: int
+    procs: int = 2
+    peers: int = 3
+    groups: int = 4
+    group_shards: int = 2
+    settle_ticks: int = 10
+    kills: Tuple[PodKill, ...] = ()
+    cuts: Tuple[PodLinkCut, ...] = ()
+    unsafe_ack: bool = False
+    crash_at: int = -1
+
+    def describe(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def digest(self) -> str:
+        blob = json.dumps(self.describe(), sort_keys=True,
+                          separators=(",", ":")).encode()
+        return hashlib.sha256(blob).hexdigest()[:16]
+
+
+def generate_pod(seed: int, ticks: int = 60) -> PodChaosPlan:
+    """The pod nemesis family (`make chaos-pod`): a 2-process pod
+    (proc 0 coordinates the collective; each process owns one of two
+    group shards) runs three incarnations of an acked-write workload:
+
+      incarnation 0 — a propose-plane cut at one origin, then SIGKILL
+      of the NON-coordinator host after the cut healed (the survivor
+      is the coordinator: it must abort pod-wide, not hang);
+      incarnation 1 — SIGKILL of the COORDINATOR host (the survivor's
+      socket breaks mid-collective: PodPeerLost, fail-fast);
+      incarnation 2 — fault-free: finish the workload, settle, and
+      dump the audit fold every invariant is checked against.
+
+    Kill iterations and the cut window are seeded; every event is
+    guaranteed to fire (kills wait for the target's progress file, the
+    cut window closes before incarnation 0's kill)."""
+    rng = np.random.default_rng(seed ^ 0xD0D)
+    c0 = int(rng.integers(8, 14))
+    cut = PodLinkCut(0, c0, c0 + int(rng.integers(6, 10)),
+                     origin=int(rng.integers(0, 2)))
+    k0 = PodKill(0, cut.end + int(rng.integers(4, 10)), proc=1)
+    k1 = PodKill(1, int(rng.integers(12, ticks - 10)), proc=0)
+    return PodChaosPlan(seed=seed, ticks=ticks, procs=2, peers=3,
+                        groups=4, group_shards=2,
+                        kills=(k0, k1), cuts=(cut,))
+
+
+def falsification_pod_plan(seed: int = 0,
+                           broken: bool = True) -> PodChaosPlan:
+    """DIRECTED pod-durability falsification: no kills, no cuts — one
+    short incarnation that crashes (hard exit, before any further
+    durable phase) at a fixed iteration, then the audit incarnation.
+    broken=True acks every write at OFFER time (before the collective,
+    before any fsync): the writes acked in the iterations right before
+    the crash were never committed anywhere, and the durability
+    invariant MUST catch them missing from the audit fold.  The SAME
+    schedule with honest acks must pass — proving the harness detects
+    exactly the premature ack, not pod restarts in general."""
+    return PodChaosPlan(seed=seed, ticks=24, procs=2, peers=3,
+                        groups=4, group_shards=2,
+                        unsafe_ack=broken, crash_at=12)

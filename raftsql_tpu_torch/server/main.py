@@ -5,18 +5,25 @@
         --id 1 --port 12380 [--device cuda]
     python -m raftsql_tpu_torch.server.main --fused --groups 8 \
         --port 12380 [--device cuda]
+    RAFTSQL_SHARD_SLOTS=4 python -m raftsql_tpu_torch.server.main \
+        --mesh --groups 8 --group-shards 4 --port 12380 [--device cuda]
+    RAFTSQL_SHARD_SLOTS=2 python -m raftsql_tpu_torch.server.main --pod \
+        --pod-id I --pod-coord 127.0.0.1:CP --pod-hosts H0,H1 \
+        --groups 8 --group-shards 2 --port P [--device cuda]
 
 Port of raftsql_tpu/server/main.py: the same composition (proposeC ->
 pipe -> RaftDB -> HTTP, the reference's server/main.go:24-38) with
 consensus stepping on `--device` (CUDA by default; a missing card is an
-error, never a silent CPU fallback).  Two deployments: the reference's
-multi-process cluster (--cluster/--id, one RaftNode per process over
-the TCP transport, as the Procfile runs it) and the fused co-located
-cluster (--fused).  The JAX package's other deployments (--mesh, --pod)
-and the planes not ported yet (--workers, --reshard, --replica-listen)
-exit with an error naming them.  `--placement` runs the traffic-aware
-leadership controller (raftsql_tpu_torch/placement/) over the fused
-host plane's transfer latch.
+error, never a silent CPU fallback).  Four deployments: the
+reference's multi-process cluster (--cluster/--id, one RaftNode per
+process over the TCP transport, as the Procfile runs it), the fused
+co-located cluster (--fused), the same cluster stepped over a mesh of
+shard slots (--mesh, runtime/mesh.py) and the multi-process pod (--pod,
+raftsql_tpu_torch/pod/).  The planes not ported yet (--workers,
+--reshard, --replica-listen) exit with an error naming them.
+`--placement` runs the traffic-aware leadership controller
+(raftsql_tpu_torch/placement/) over the co-located host plane's
+transfer latch.
 """
 from __future__ import annotations
 
@@ -154,11 +161,163 @@ def build_fused_node(groups: int = 1, peers: int = 3,
                   compact_every=compact_every, compact_keep=compact_keep)
 
 
+def build_mesh_node(groups: int = 8, peers: int = 3,
+                    tick: float = 0.002,
+                    data_prefix: str = "raftsql",
+                    group_shards: int = 0, peer_shards: int = 1,
+                    resume: bool = False,
+                    compact_every: int = 0, compact_keep: int = 1024,
+                    wal_segment_bytes: int = 4 << 20,
+                    trace: bool = False, device="cuda") -> RaftDB:
+    """The --mesh deployment (runtime/mesh.py): the fused cluster with
+    its consensus step sharded over a mesh of shard slots on `device`
+    (G split over the `groups` axis) and the durable host plane sharded
+    to match: per-shard WAL dirs under <prefix>-mesh/p<i>/s<j>,
+    per-shard publish workers, and the SQLite state machines laid out
+    per group shard under <prefix>-mesh-db/s<j>/.  `group_shards=0`
+    picks the widest mesh the shard slots allow (RAFTSQL_SHARD_SLOTS
+    counts each visible device as several slots)."""
+    from raftsql_tpu_torch.runtime.fused import FusedPipe
+    from raftsql_tpu_torch.runtime.mesh import MeshClusterNode, MeshConfig
+
+    cfg = RaftConfig(num_groups=groups, num_peers=peers,
+                     tick_interval_s=tick,
+                     wal_segment_bytes=wal_segment_bytes)
+    mc = (MeshConfig.for_groups(cfg, peer_shards=peer_shards,
+                                device=device)
+          if group_shards <= 0
+          else MeshConfig(peer_shards=peer_shards,
+                          group_shards=group_shards))
+    mc.validate(cfg)
+    logging.getLogger("raftsql.server").info(
+        "mesh deployment: %dx%d shard slots, %d groups (%d per shard)",
+        mc.peer_shards, mc.group_shards, groups,
+        groups // mc.group_shards)
+    node = MeshClusterNode(cfg, f"{data_prefix}-mesh",
+                           mc.build(device=device))
+    if trace:
+        node.enable_tracing()
+    node.start(interval_s=max(tick, 0.0005))
+    pipe = FusedPipe(node)
+    g_loc = groups // mc.group_shards
+
+    def sm_factory(g: int) -> SQLiteStateMachine:
+        d = f"{data_prefix}-mesh-db/s{g // g_loc}"
+        os.makedirs(d, exist_ok=True)
+        return SQLiteStateMachine(os.path.join(d, f"g{g}.db"),
+                                  resume=resume)
+
+    return RaftDB(sm_factory, pipe, num_groups=groups, resume=resume,
+                  compact_every=compact_every, compact_keep=compact_keep)
+
+
+class PodRaftDB(RaftDB):
+    """RaftDB over a PodClusterNode: every group-scoped verb is served
+    ONLY by the group's owner host.
+
+    Ownership is the ack-soundness boundary: an HTTP write ack fires
+    when the commit reaches THIS host's publish stream, which follows
+    THIS host's WAL fsync; on the owner that is "durable where the
+    group's whole P-peer history lives", on any other host it would ack
+    a write whose only durable copy is still crossing the pod (the
+    premature-ack hazard chaos/pod.py falsifies); and pending-ack
+    matching is (group, query)-keyed, so two hosts holding futures for
+    one group could cross-resolve each other's writes.  Non-owners
+    answer 421 + X-Raft-Leader naming the owner host (1-based slot in
+    the pod hosts table) and the client chases, as with a non-leader
+    peer in the multi-process deployment."""
+
+    def _pod_check(self, group: int) -> None:
+        node = self.pipe.node
+        if not node.owns_group(int(group)):
+            from raftsql_tpu_torch.runtime.db import NotLeaderError
+            raise NotLeaderError(int(group),
+                                 node.group_owner(int(group)) + 1)
+
+    def propose(self, query, group: int = 0, *a, **kw):
+        self._pod_check(group)
+        return super().propose(query, group, *a, **kw)
+
+    def query(self, query, group: int = 0, *a, **kw):
+        self._pod_check(group)
+        return super().query(query, group, *a, **kw)
+
+    def member_change(self, group: int, op: str, peer: int) -> dict:
+        self._pod_check(group)
+        return super().member_change(group, op, peer)
+
+    def transfer(self, group: int, target: int) -> dict:
+        self._pod_check(group)
+        return super().transfer(group, target)
+
+
+def build_pod_node(groups: int = 8, peers: int = 3, tick: float = 0.01,
+                   data_prefix: str = "raftsql",
+                   group_shards: int = 0,
+                   pod_procs: int = 1, pod_id: int = 0,
+                   pod_coord: str = "", pod_hosts: tuple = (),
+                   resume: bool = False,
+                   compact_every: int = 0, compact_keep: int = 1024,
+                   wal_segment_bytes: int = 4 << 20,
+                   trace: bool = False, device="cuda") -> RaftDB:
+    """The --pod deployment (raftsql_tpu_torch/pod/): N host PROCESSES
+    jointly own one cluster.  Every host runs the identical replicated
+    device step on its own `device`; the durable plane is sharded: this
+    host materializes WAL dirs and SQLite files only for the group
+    shards it OWNS (round-robin, pod/config.py), and the per-tick
+    collective carries cross-host proposals and is the tick+fsync
+    barrier.  Construction BLOCKS until all pod_procs processes join; a
+    lost peer is pod-wide fail-stop (the engine error surfaces through
+    _watch_fatal as EXIT_CODE_FATAL)."""
+    from raftsql_tpu_torch.pod.config import PodConfig
+    from raftsql_tpu_torch.pod.node import PodClusterNode
+    from raftsql_tpu_torch.runtime.fused import FusedPipe
+    from raftsql_tpu_torch.runtime.mesh import MeshConfig
+
+    pod = PodConfig(procs=pod_procs, proc_id=pod_id,
+                    coordinator=pod_coord, hosts=tuple(pod_hosts))
+    cfg = RaftConfig(num_groups=groups, num_peers=peers,
+                     tick_interval_s=tick,
+                     wal_segment_bytes=wal_segment_bytes)
+    mc = (MeshConfig.for_groups(cfg, peer_shards=1, device=device)
+          if group_shards <= 0
+          else MeshConfig(peer_shards=1, group_shards=group_shards))
+    mc.validate(cfg)
+    logging.getLogger("raftsql.server").info(
+        "pod deployment: host %d/%d, %d groups over %d shards, "
+        "coordinator %s", pod_id, pod.procs, groups, mc.group_shards,
+        pod_coord or "(local)")
+    node = PodClusterNode(pod, cfg, f"{data_prefix}-pod{pod_id}",
+                          mc.build(device=device))
+    if trace:
+        node.enable_tracing()
+    node.start(interval_s=max(tick, 0.0005))
+    pipe = FusedPipe(node)
+    owned = {int(g) for g in node.owned_groups()}
+    db_dir = f"{data_prefix}-pod{pod_id}-db"
+
+    def sm_factory(g: int) -> SQLiteStateMachine:
+        if g not in owned:
+            # Replicated compute applies every group on every host, but
+            # this host is not the durable authority for g: fold into a
+            # throwaway in-memory replica (keeps watermarks and status
+            # truthful for /healthz); reads and writes for g are
+            # owner-served (PodRaftDB), so no file may exist here.
+            return SQLiteStateMachine(":memory:", resume=False)
+        os.makedirs(db_dir, exist_ok=True)
+        return SQLiteStateMachine(os.path.join(db_dir, f"g{g}.db"),
+                                  resume=resume)
+
+    return PodRaftDB(sm_factory, pipe, num_groups=groups, resume=resume,
+                     compact_every=compact_every,
+                     compact_keep=compact_keep)
+
+
 def attach_placement(rdb: RaftDB, interval_s: float = 0.5,
                      imbalance: float = 2.0):
     """--placement: start the traffic-aware leadership controller
-    (raftsql_tpu_torch/placement/) over the fused host plane's traffic
-    feed and transfer latch; GET /metrics then carries its gauges.
+    (raftsql_tpu_torch/placement/) over the co-located (fused or mesh)
+    host plane's traffic feed and transfer latch; GET /metrics then carries its gauges.
     Returns the controller (stop() ends its thread)."""
     from raftsql_tpu_torch.placement import PlacementController
     pc = PlacementController(rdb.pipe.node, interval_s=interval_s,
@@ -174,10 +333,11 @@ def attach_placement(rdb: RaftDB, interval_s: float = 0.5,
 EXIT_CODE_FATAL = 70
 
 
-def _install_graceful_shutdown(rdb, srv_stop) -> None:
+def _install_graceful_shutdown(rdb, srv_stop) -> threading.Event:
     """SIGTERM/SIGINT -> clean stop: stop the HTTP plane, then close the
     pipe (flushes and fsyncs the WALs, closes the state machines) and
-    exit 0.  A second signal while the first shutdown runs hard-exits."""
+    exit 0.  A second signal while the first shutdown runs hard-exits.
+    Returns the event set once a shutdown started."""
     fired = threading.Event()
 
     def _graceful(signum, frame):
@@ -201,6 +361,7 @@ def _install_graceful_shutdown(rdb, srv_stop) -> None:
 
     signal.signal(signal.SIGTERM, _graceful)
     signal.signal(signal.SIGINT, _graceful)
+    return fired
 
 
 def _watch_fatal(rdb) -> None:
@@ -222,8 +383,6 @@ def _watch_fatal(rdb) -> None:
 # Flags of the JAX package's CLI whose deployment or plane this port has
 # not reached yet: set, each exits with this error.
 _NOT_PORTED = {
-    "mesh": "--mesh (ROADMAP Queue 1 item 13)",
-    "pod": "--pod (ROADMAP Queue 1 item 13)",
     "workers": "--workers (ROADMAP Queue 1 item 14)",
     "reshard": "--reshard (ROADMAP Queue 1 item 14)",
     "replica_listen": "--replica-listen (ROADMAP Queue 1 item 14)",
@@ -258,12 +417,46 @@ def main(argv=None) -> None:
                          "co-located on one device, one fused step per "
                          "tick (no --cluster/--id needed)")
     ap.add_argument("--peers", type=int, default=3,
-                    help="with --fused: peers per group")
+                    help="with --fused/--mesh/--pod: peers per group")
     ap.add_argument("--device", default="cuda",
                     help="torch device the consensus state steps on "
                          "(default cuda; 'cpu' runs the plain versions)")
-    ap.add_argument("--mesh", action="store_true", help="not ported")
-    ap.add_argument("--pod", action="store_true", help="not ported")
+    ap.add_argument("--mesh", action="store_true",
+                    help="single-process cluster stepped over a MESH of "
+                         "shard slots (runtime/mesh.py): G split over "
+                         "the 'groups' axis, per-shard WAL dirs + "
+                         "publish workers + SQLite shards (no "
+                         "--cluster/--id)")
+    ap.add_argument("--group-shards", type=int, default=0,
+                    help="with --mesh/--pod: shard slots on the groups "
+                         "axis (0 = widest fit for the shard slots; "
+                         "RAFTSQL_SHARD_SLOTS counts each device as N)")
+    ap.add_argument("--peer-shards", type=int, default=1,
+                    help="with --mesh: shard slots on the peers axis "
+                         "(the message exchange then copies blocks "
+                         "between shards)")
+    ap.add_argument("--pod", action="store_true",
+                    help="multi-host pod (raftsql_tpu_torch/pod/): this "
+                         "process is ONE of --pod-procs hosts jointly "
+                         "owning the cluster: replicated device step, "
+                         "durability sharded by group shard, one "
+                         "cross-host collective per tick.  Boot blocks "
+                         "until every host joins; a lost host is "
+                         "pod-wide fail-stop (restart the whole pod)")
+    ap.add_argument("--pod-procs", type=int, default=1,
+                    help="with --pod: total host processes in the pod "
+                         "(overridden by the length of --pod-hosts)")
+    ap.add_argument("--pod-id", type=int, default=0,
+                    help="with --pod: this host (0-based; 0 runs the "
+                         "collective coordinator)")
+    ap.add_argument("--pod-coord", default="",
+                    help="with --pod: host:port the pod collective "
+                         "coordinator (host 0) listens on")
+    ap.add_argument("--pod-hosts", default="",
+                    help="with --pod: comma separated host:port HTTP "
+                         "addresses of EVERY pod host in --pod-id order, "
+                         "published at /healthz so a client pointed at "
+                         "one host sweeps the whole pod")
     ap.add_argument("--workers", type=int, default=0, help="not ported")
     ap.add_argument("--placement", action="store_true",
                     help="traffic-aware leadership placement "
@@ -322,12 +515,35 @@ def main(argv=None) -> None:
     for name, what in _NOT_PORTED.items():
         if getattr(args, name):
             ap.error(f"{what} is not ported to raftsql_tpu_torch yet")
-    if not args.fused and (args.placement or args.overload_cap
-                           or args.overload_group_cap
-                           or args.brownout_hi is not None):
-        ap.error("--placement/--overload-cap/--overload-group-cap/"
-                 "--brownout-* require --fused (the co-located runtime "
-                 "owns the traffic feed and the propose queues)")
+    geometry = (args.write_quorum is not None
+                or args.election_quorum is not None or args.witness)
+    if args.pod:
+        if geometry:
+            ap.error("--write-quorum/--election-quorum/--witness are "
+                     "not supported with --pod (the pod extends the "
+                     "mesh runtime, which refuses them too)")
+        if args.mesh or args.fused:
+            ap.error("--pod is its own deployment; drop --mesh/--fused")
+        if args.placement:
+            # Replicated controllers: N hosts each running a placement
+            # controller would issue the same verbs N times.
+            ap.error("--placement is not supported with --pod yet")
+    elif args.mesh and geometry:
+        # The mesh runtime shards the GROUP axis; its geometry plumbing
+        # is untested: refuse rather than boot a cluster whose quorums
+        # silently differ from the flags.
+        ap.error("--write-quorum/--election-quorum/--witness are not "
+                 "supported with --mesh (use --fused or the "
+                 "multi-process deployment)")
+    if args.overload_cap or args.overload_group_cap \
+            or args.brownout_hi is not None:
+        if not (args.fused or args.mesh):
+            ap.error("--overload-cap/--overload-group-cap/--brownout-* "
+                     "require --fused or --mesh (the co-located runtimes "
+                     "own the propose queues)")
+    if args.placement and not (args.fused or args.mesh):
+        ap.error("--placement requires --fused or --mesh (the "
+                 "co-located runtimes own the traffic feed)")
     from raftsql_tpu_torch.storage import fsio
     fsio.install_from_env()
     sys.setswitchinterval(
@@ -335,7 +551,31 @@ def main(argv=None) -> None:
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    if args.fused:
+    if args.pod:
+        pod_hosts = tuple(h for h in args.pod_hosts.split(",") if h)
+        rdb = build_pod_node(groups=args.groups, peers=args.peers,
+                             tick=args.tick,
+                             group_shards=args.group_shards,
+                             pod_procs=(len(pod_hosts) or args.pod_procs),
+                             pod_id=args.pod_id,
+                             pod_coord=args.pod_coord,
+                             pod_hosts=pod_hosts,
+                             resume=args.resume,
+                             compact_every=args.compact_every,
+                             compact_keep=args.compact_keep,
+                             wal_segment_bytes=args.wal_segment_bytes,
+                             trace=args.trace, device=args.device)
+    elif args.mesh:
+        rdb = build_mesh_node(groups=args.groups, peers=args.peers,
+                              tick=args.tick,
+                              group_shards=args.group_shards,
+                              peer_shards=args.peer_shards,
+                              resume=args.resume,
+                              compact_every=args.compact_every,
+                              compact_keep=args.compact_keep,
+                              wal_segment_bytes=args.wal_segment_bytes,
+                               trace=args.trace, device=args.device)
+    elif args.fused:
         rdb = build_fused_node(groups=args.groups, peers=args.peers,
                                tick=args.tick, resume=args.resume,
                                compact_every=args.compact_every,
@@ -348,7 +588,7 @@ def main(argv=None) -> None:
                                write_quorum=args.write_quorum,
                                election_quorum=args.election_quorum,
                                witnesses=tuple(args.witness),
-                               trace=args.trace,
+                                 trace=args.trace,
                                device=args.device)
     else:
         rdb = build_node(args.cluster, args.id, groups=args.groups,
@@ -365,7 +605,8 @@ def main(argv=None) -> None:
                          device=args.device)
     _watch_fatal(rdb)
     node = rdb.pipe.node
-    wals = node.wals if args.fused else [node.wal]
+    wals = node.wals if (args.fused or args.mesh or args.pod) \
+        else [node.wal]
     logging.getLogger("raftsql.server").info(
         "WAL backend: %s", "native" if all(w.is_native for w in wals)
         else "python")
@@ -386,8 +627,16 @@ def main(argv=None) -> None:
         srv = AioSQLServer(args.port, rdb)
     else:
         srv = SQLServer(args.port, rdb)
-    _install_graceful_shutdown(rdb, srv.stop)
+    stopping = _install_graceful_shutdown(rdb, srv.stop)
     srv.serve_forever()
+    # Stopping the HTTP plane returns serve_forever while the shutdown
+    # thread still closes the engine.  The main thread must not return
+    # meanwhile: interpreter shutdown runs concurrent.futures' exit hook,
+    # which stops every thread pool (the WAL sync pool among them) under
+    # the engine's last ticks, and the engine then fails (exit 70 instead
+    # of 0; seen on the card with --mesh).  The shutdown thread exits.
+    while stopping.is_set():
+        time.sleep(1.0)
 
 
 if __name__ == "__main__":

@@ -97,5 +97,5 @@ def test_entry_points_default_to_the_card(tmp_path, capsys):
         TRunner(TS.generate(0), str(tmp_path))
     with pytest.raises(RuntimeError, match="cuda"):
         trun.main(["--runs", "1"])
-    assert trun.main(["--family", "mesh_skew", "--device", "cpu"]) == 2
+    assert trun.main(["--family", "replica", "--device", "cpu"]) == 2
     assert "not ported" in capsys.readouterr().err

@@ -67,8 +67,9 @@ def test_group_header_routes(server):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--cluster", "http://127.0.0.1:1", "--id", "1", "--pod"],
-    ["--fused", "--mesh"], ["--fused", "--reshard"],
+    ["--cluster", "http://127.0.0.1:1", "--id", "1",
+     "--replica-listen", "9"],
+    ["--mesh", "--reshard"], ["--fused", "--reshard"],
     ["--fused", "--workers", "2"]])
 def test_cli_refuses_unported_deployments(argv, capsys):
     with pytest.raises(SystemExit) as e:

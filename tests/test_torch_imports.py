@@ -64,7 +64,10 @@ def test_module_list_covers_the_slice():
               "transport.tcp", "runtime.node", "runtime.pipe",
               "models.witness", "api.client", "chaos.proc",
               "overload", "overload.admission", "native", "native.build",
-              "storage.log", "models.kv_sm", "models.kv_native"):
+              "storage.log", "models.kv_sm", "models.kv_native",
+              "parallel", "parallel.sharded", "runtime.mesh", "pod",
+              "pod.config", "pod.transport", "pod.node", "pod.dryrun",
+              "chaos.pod"):
         assert f"raftsql_tpu_torch.{m}" in MODULES, m
 
 
