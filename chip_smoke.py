@@ -152,19 +152,49 @@ exit, no result line) at the first phase that fails:
      device step, and one shard's K1 inputs, R = 384, P = 3); then the
      pod gauntlet at seed 0, RUNS times (every fault fires, no unexpected
      exit, PROC_VERDICTS["pod"]) and its falsification pair;
- 21. the kernels line (JSON: K1 as phase 4 measured it, K2 on phase 5's
+ 21. the workers plane (--workers): the engine in this process on the
+     card (build_fused_node, 8 groups, parity mode, commit_rule="pallas",
+     native WALs) with a RingServer and 2 worker processes spawned as
+     server/main.py _serve_workers spawns them (spawn_worker, no card:
+     CUDA_VISIBLE_DEVICES=""): the curl recipe through the workers, 16
+     client threads of acked PUTs read back, local and session GETs with
+     the workers' shm fast-path hits above 0 (a shm plane that disabled
+     itself fails), the engine the only compute process on the card
+     (nvidia-smi lists one compute app; workers see no card), K1
+     launches equal to the engine's device steps (zeroed
+     before the engine boots, read after it closed), the inputs of K1's
+     first call with a leader row copied (R = 24, P = 3); then the load
+     ladder: native/http_load.cc (built with g++; a failed build raises)
+     at 192 connections, 5 s a rung, against phase 6's in-process aio
+     server and 1, 2 and 4 workers, each a fresh engine (req/s, p50/p99,
+     0 errors); then `python -m raftsql_tpu_torch.server.main --fused
+     --workers 2 --groups 8` as a process: the recipe, a worker SIGKILLed
+     and respawned while 8 threads PUT, every acked PUT read back,
+     SIGTERM exit 0 and no worker left;
+ 22. the read-replica tier: `--fused --groups 2 --replica-listen` on the
+     card (parity mode, the case the JAX package's engine dies on) and
+     two `python -m raftsql_tpu_torch.replica` processes without the
+     card: 40 acked PUTs, session reads at their watermarks served by
+     both replicas, the engine the only compute process, SIGTERM exit 0,
+     then linear reads refused (421); then the replica gauntlet at seed
+     0 (RUNS times, with its falsification pair, all at once): the plan
+     and all-pass verdict digests (PROC_VERDICTS["replica"]), the
+     gate-less replica caught and its control passed, each run's wall
+     time;
+ 23. the kernels line (JSON: K1 as phase 4 measured it, K2 on phase 5's
      joint masks, launches summed over the paths, and each kernel's
      node-path launches and time: K1 at R = 10,000 from phase 10, K2 at
      R = 2 from phase 12; K1's launches and time on the overload path of
      phase 13, R = 12; K1's launches in phase 15; K1 and K2 on the mesh
      path of phases 16, 17 and 19 and K1 on the pod path of phase 20,
-     with their per-shard times) and the result line.
+     with their per-shard times; K1's launches on the workers path of
+     phase 21 and its time at R = 24) and the result line.
 
 The mesh and pod phases share one card among their shards: they measure
 whether the sharded program is right on the card and what it costs
 there, not scaling across cards.
 
-`--only 13,15` runs the build and the named phases (3-20) alone: a
+`--only 13,15` runs the build and the named phases (3-22) alone: a
 development run, with no result line.  It needs one card and writes
 under build/ of its checkout (and the chaos runs' data dirs under
 $TMPDIR, removed after each run).
@@ -178,6 +208,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import socket
 import statistics
 import subprocess
@@ -998,6 +1029,20 @@ def _free_port() -> int:
     return port
 
 
+def recipe(port, groups, what) -> None:
+    """The reference curl recipe at `port`, in every group."""
+    for g in range(groups):
+        expect(_req(port, "PUT", b"CREATE TABLE main.t (name text)", g),
+               (204, b""), f"{what}: CREATE g{g}")
+        expect(_req(port, "PUT",
+                    b'INSERT INTO main.t (name) VALUES ("abc")', g),
+               (204, b""), f"{what}: INSERT g{g}")
+        expect(_req(port, "GET", b"SELECT * FROM main.t", g),
+               (200, b"|abc|\n"), f"{what}: SELECT g{g}")
+    expect(_req(port, "POST", b"SELECT 1")[0], 405, f"{what}: POST")
+    expect(_req(port, "PUT", b"NOT SQL")[0], 400, f"{what}: bad SQL")
+
+
 def _serve(groups, dev, trace=False, witnesses=()):
     from raftsql_tpu_torch.api.aio import AioSQLServer
     from raftsql_tpu_torch.server.main import build_fused_node
@@ -1079,16 +1124,7 @@ def server(card: str, dev="cuda") -> int:
         wals = rdb.pipe.node.wals
         expect([w.is_native for w in wals], [True] * len(wals),
                "the server's WALs are native")
-        for g in range(groups):
-            expect(_req(port, "PUT", b"CREATE TABLE main.t (name text)",
-                        g), (204, b""), f"CREATE g{g}")
-            expect(_req(port, "PUT",
-                        b'INSERT INTO main.t (name) VALUES ("abc")', g),
-                   (204, b""), f"INSERT g{g}")
-            expect(_req(port, "GET", b"SELECT * FROM main.t", g),
-                   (200, b"|abc|\n"), f"SELECT g{g}")
-        expect(_req(port, "POST", b"SELECT 1")[0], 405, "POST")
-        expect(_req(port, "PUT", b"NOT SQL")[0], 400, "bad SQL")
+        recipe(port, groups, "server")
         put_load(rdb, port, groups, card, "server")
     finally:
         srv.stop()
@@ -1889,6 +1925,11 @@ PROC_VERDICTS = {
     # a live run of the JAX package's runner.
     "pod": ("a3effdcab6da10bd", "0acaa0bc4bc11569"),
     "procs": ("fb868899b7dbd88a", "3b7df695ba0107b3"),
+    # The read-replica gauntlet's nemesis (chaos/replica.py over
+    # generate_replica(0)): (plan digest, all-pass verdict digest), equal
+    # to a live run of the JAX package's runner with its _snapshot_of
+    # repaired (its parity-mode engine dies at boot otherwise).
+    "replica": ("24da40d585dbd4f0", "b56ccbc55a1eac20"),
     "reads": ("14e0b1d3918591ef", "95fa6c73158c79e6"),
     "transfers": ("14e0b1d3918591ef", "05aec3f72b210740"),
 }
@@ -2625,16 +2666,7 @@ def mesh_server(card: str, dev="cuda", groups=8, threads=16,
     try:
         cli.wait_healthy(0, deadline_s=120.0)
         t_up = time.monotonic() - t0
-        for g in range(groups):
-            expect(_req(port, "PUT", b"CREATE TABLE main.t (name text)",
-                        g), (204, b""), f"CREATE g{g}")
-            expect(_req(port, "PUT",
-                        b'INSERT INTO main.t (name) VALUES ("abc")', g),
-                   (204, b""), f"INSERT g{g}")
-            expect(_req(port, "GET", b"SELECT * FROM main.t", g),
-                   (200, b"|abc|\n"), f"SELECT g{g}")
-        expect(_req(port, "POST", b"SELECT 1")[0], 405, "POST")
-        expect(_req(port, "PUT", b"NOT SQL")[0], 400, "bad SQL")
+        recipe(port, groups, "mesh server")
         acked, lat = _client_load([f"127.0.0.1:{port}"], groups, threads,
                                   per, "mesh")
         _read_back(cli, lambda g: 0, groups, lambda g: ["abc"], acked,
@@ -2935,6 +2967,526 @@ def pod_chaos(card: str, dev="cuda") -> None:
         f"on {card}")
 
 
+# ---- phases 21 and 22: the workers plane and the replica tier ---------------
+
+LADDER_CONNS = 192          # bench.py's http_workers ladder's clients
+LADDER_S = 5.0
+
+
+def _proc_stat(pid: int):
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()
+    except OSError:
+        return None
+
+
+def _alive(pid: int) -> bool:
+    st = _proc_stat(pid)
+    return st is not None and st[0] != "Z"
+
+
+def _children(pid: int) -> list:
+    """Live child pids of `pid`."""
+    out = []
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            st = _proc_stat(int(d))
+            if st is not None and st[0] != "Z" and int(st[1]) == pid:
+                out.append(int(d))
+    return sorted(out)
+
+
+def _maps_driver(pid: int) -> bool:
+    """True when the process has the CUDA driver library (libcuda.so)
+    mapped."""
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            return "libcuda.so" in f.read()
+    except OSError:
+        return False
+
+
+def _no_card_env(pid: int) -> bool:
+    """True when the process runs with CUDA_VISIBLE_DEVICES empty."""
+    try:
+        with open(f"/proc/{pid}/environ", "rb") as f:
+            env = f.read().split(b"\0")
+    except OSError:
+        return False
+    return b"CUDA_VISIBLE_DEVICES=" in env
+
+
+def only_engine_on_card(engine: int, others: list, what: str,
+                        apps_want: int = 1) -> None:
+    """The engine is the only compute process on the card while `others`
+    (workers, replicas) serve: nvidia-smi lists `apps_want` compute apps
+    (1; 2 when the engine is a child and this script's process holds
+    its own context), none of them one of the others' pids, and every
+    other process runs with no visible card (CUDA_VISIBLE_DEVICES
+    empty)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    apps = [int(line.split(",")[0]) for line in out.splitlines() if line]
+    expect([p for p in others if p in apps], [],
+           f"{what}: other processes in nvidia-smi's compute apps")
+    expect([p for p in others if not _no_card_env(p)], [],
+           f"{what}: other processes that can see the card")
+    # nvidia-smi may list the card's processes by pids of another pid
+    # namespace, so the count is what is held.
+    expect(len(apps), apps_want,
+           f"{what}: compute apps on the card ({out!r})")
+    log(f"{what}: compute apps on the card {out!r} (engine pid {engine}, "
+        f"libcuda.so mapped {_maps_driver(engine)}); {len(others)} "
+        f"processes beside it with no visible card (libcuda.so mapped "
+        f"in {sum(_maps_driver(p) for p in others)})")
+
+
+def _wait_healthy(port, deadline_s=120.0) -> None:
+    from raftsql_tpu_torch.api.client import RaftSQLClient
+    cli = RaftSQLClient([f"127.0.0.1:{port}"], timeout_s=15.0)
+    try:
+        cli.wait_healthy(0, deadline_s=deadline_s)
+    finally:
+        cli.close()
+
+
+def _req_h(port, method, body=b"", headers=None):
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        c.request(method, "/", body=body, headers=headers or {})
+        r = c.getresponse()
+        return r.status, dict(r.getheaders()), r.read()
+    finally:
+        c.close()
+
+
+class RingEngine:
+    """The --workers deployment with its engine in this process:
+    build_fused_node on the card (parity mode, commit_rule="pallas"), a
+    RingServer over `n` ring pairs, and `n` worker processes spawned by
+    server/main.py spawn_worker, as _serve_workers spawns them.  A shm
+    plane that disabled itself fails."""
+
+    def __init__(self, work, name, n, groups, dev):
+        from raftsql_tpu_torch.runtime.ring import RingServer
+        from raftsql_tpu_torch.server.main import (build_fused_node,
+                                                   spawn_worker)
+        self.rdb = build_fused_node(
+            groups=groups, peers=3, data_prefix=os.path.join(work, name),
+            commit_rule="pallas", device=dev)
+        self.ring = RingServer(self.rdb, os.path.join(work, f"{name}-rings"),
+                               n)
+        self.procs, self._log = [], None
+        try:
+            if self.ring.shm is None:
+                raise AssertionError(f"{name}: the shm read plane disabled "
+                                     "itself at boot")
+            self.ring.start()
+            self.port = _free_port()
+            self._log = open(os.path.join(work, f"{name}-workers.log"),
+                             "ab")
+            self.procs = [spawn_worker(self.ring.dirname, i, self.port,
+                                       log_file=self._log)
+                          for i in range(n)]
+            _wait_healthy(self.port)
+        except BaseException:
+            log(f"--- {name} workers log tail ---\n"
+                f"{_tail(work, f'{name}-workers')}")
+            self.close()
+            raise
+
+    def close(self):
+        from raftsql_tpu_torch.server.main import stop_workers
+        stop_workers(self.procs)
+        self.ring.stop()
+        if self._log is not None:
+            self._log.close()
+        expect(self.rdb.close(), None, "ring engine close")
+
+
+def _tables_for_load(port, groups) -> None:
+    for g in range(groups):
+        expect(_req(port, "PUT", b"CREATE TABLE t (v text)", g),
+               (204, b""), f"load table g{g}")
+
+
+def http_load(exe, port, groups, what, card, node, secs=LADDER_S,
+              conns=LADDER_CONNS) -> dict:
+    """One rung: the native loadgen against `port`; 0 errors.  Also the
+    engine's ticks during the rung, split by phase, and the entries
+    committed a tick."""
+    m = node.metrics
+    m0 = (m.ticks, m.t_device_ms, m.t_wal_ms, m.t_publish_ms,
+          time.monotonic())
+    out = subprocess.run([exe, str(secs), str(conns), str(groups),
+                          str(port)], capture_output=True, text=True,
+                         timeout=secs + 120)
+    ticks = max(m.ticks - m0[0], 1)
+    split = {"ticks": ticks,
+             "wall_ms": (time.monotonic() - m0[4]) * 1e3 / ticks,
+             "device_ms": (m.t_device_ms - m0[1]) / ticks,
+             "wal_ms": (m.t_wal_ms - m0[2]) / ticks,
+             "publish_ms": (m.t_publish_ms - m0[3]) / ticks}
+    if out.returncode != 0:
+        raise AssertionError(f"{what}: http_load rc={out.returncode}: "
+                             f"{out.stderr[-800:]}")
+    j = json.loads(out.stdout.strip().splitlines()[-1])
+    expect(j["errors"], 0, f"{what}: loadgen errors")
+    if j["n"] <= 0:
+        raise AssertionError(f"{what}: no request completed ({j})")
+    j["req_s"] = j["n"] / j["secs"]
+    j["tick"] = split
+    log(f"{what}: {j['n']} PUTs in {j['secs']:.2f} s from {conns} "
+        f"connections: {j['req_s']:.1f} req/s, p50 {j['p50_ms']:.2f} ms "
+        f"p99 {j['p99_ms']:.2f} ms, 0 errors; {ticks} ticks, "
+        f"{j['n'] / ticks:.1f} PUTs a tick, per tick: wall "
+        f"{split['wall_ms']:.2f} ms, device (dispatch + readback) "
+        f"{split['device_ms']:.2f}, WAL + fsync {split['wal_ms']:.2f}, "
+        f"publish {split['publish_ms']:.2f} on {card}")
+    return j
+
+
+def _shm_reads(port, groups, what) -> int:
+    """Local and session GETs through the workers, then the largest
+    reads.shm_hits over 16 GET /metrics (each on a new connection, so
+    they reach both workers)."""
+    for g in range(groups):
+        st, h, _ = _req_h(port, "PUT", b'INSERT INTO main.t (name) VALUES '
+                          b'("shm")', {"X-Raft-Group": str(g)})
+        expect(st, 204, f"{what}: session PUT g{g}")
+        wm = h["X-Raft-Session"]
+        st, _, body = _req_h(port, "GET", b"SELECT count(*) FROM main.t",
+                             {"X-Raft-Group": str(g)})
+        expect(st, 200, f"{what}: local GET g{g}")
+        want = body
+        for _ in range(8):
+            for mode, extra in (("local", {}),
+                                ("session", {"X-Raft-Session": wm})):
+                st, _, body = _req_h(
+                    port, "GET", b"SELECT count(*) FROM main.t",
+                    {"X-Raft-Group": str(g), "X-Consistency": mode,
+                     **extra})
+                expect((st, body), (200, want), f"{what}: {mode} GET g{g}")
+    hits = []
+    for _ in range(16):
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            c.request("GET", "/metrics")
+            doc = json.loads(c.getresponse().read())
+        finally:
+            c.close()
+        hits.append(int(doc["reads"]["shm_hits"]))
+    if max(hits) <= 0:
+        raise AssertionError(f"{what}: the shm fast path served no read "
+                             f"(shm_hits {hits})")
+    return max(hits)
+
+
+def workers_plane(card: str, dev="cuda", groups=8) -> dict:
+    """Phase 21 (see the module docstring)."""
+    from raftsql_tpu_torch.native.build import build_http_load
+    from raftsql_tpu_torch.server.main import build_fused_node
+    from raftsql_tpu_torch.api.aio import AioSQLServer
+    k1 = "pallas_quorum_commit_index"
+    work = os.path.join(ROOT, "build", "chip_smoke_workers")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.monotonic()
+    exe = build_http_load()                 # raises when g++ fails
+    log(f"workers: http_load built in {time.monotonic() - t0:.1f} s")
+    res = {"launches": 0, "steps": 0, "ladder": {}}
+
+    def counted(eng_node):
+        """K1 launches over an engine's life equal its device steps."""
+        steps = eng_node._device_steps
+        got = pq.launches[k1]
+        expect(got, steps, "K1 launches = device steps, workers path")
+        if steps <= 0:
+            raise AssertionError("the workers engine took no device step")
+        res["launches"] += got
+        res["steps"] += steps
+
+    # (a) the checks, 2 workers.  The inputs of K1's first call with a
+    # leader row are copied (R = 24 rows, P = 3).
+    real_k1, captured = getattr(pq, k1), {}
+
+    def spy(*args, **kw):
+        if k1 not in captured and bool(args[5].any()):
+            captured[k1] = ([a.clone() for a in args], dict(kw))
+        return real_k1(*args, **kw)
+
+    pq.reset_launches()                     # the workers path starts here
+    setattr(pq, k1, spy)
+    try:
+        eng = RingEngine(work, "checks", 2, groups, dev)
+    except BaseException:
+        setattr(pq, k1, real_k1)
+        raise
+    node = eng.rdb.pipe.node
+    try:
+        recipe(eng.port, groups, "workers")
+        only_engine_on_card(os.getpid(), [p.pid for p in eng.procs],
+                            "workers")
+        _, p50, p99 = put_load(eng.rdb, eng.port, groups, card, "workers")
+        res["put_p50"], res["put_p99"] = p50, p99
+        res["shm_hits"] = _shm_reads(eng.port, groups, "workers")
+    finally:
+        eng.close()
+        setattr(pq, k1, real_k1)
+    counted(node)                            # ... and ends here
+    if k1 not in captured:
+        raise AssertionError("the workers engine never launched K1 on a "
+                             "leader row")
+    res["captured"] = captured
+    log(f"workers: recipe, {16 * 25} PUTs read back, shm fast path "
+        f"{res['shm_hits']} hits at one worker; K1 {res['launches']} "
+        f"launches = {res['steps']} device steps on {card}")
+
+    # (b) the load ladder: the in-process aio server, then 1, 2 and 4
+    # workers, each a fresh engine.
+    pq.reset_launches()
+    rdb = build_fused_node(groups=groups, peers=3,
+                           data_prefix=os.path.join(work, "aio"),
+                           commit_rule="pallas", device=dev)
+    srv = AioSQLServer(_free_port(), rdb, host="127.0.0.1")
+    srv.start()
+    try:
+        _tables_for_load(srv.port, groups)
+        res["ladder"]["aio"] = http_load(exe, srv.port, groups,
+                                         "ladder in-process aio server",
+                                         card, rdb.pipe.node)
+    finally:
+        srv.stop()
+        expect(rdb.close(), None, "aio rung close")
+    for n in (1, 2, 4):
+        pq.reset_launches()                  # this rung's path starts here
+        eng = RingEngine(work, f"rung{n}", n, groups, dev)
+        node = eng.rdb.pipe.node
+        try:
+            _tables_for_load(eng.port, groups)
+            res["ladder"][n] = http_load(exe, eng.port, groups,
+                                         f"ladder {n} workers", card,
+                                         node)
+        finally:
+            eng.close()
+        counted(node)                        # ... and ends here
+
+    # (c) the CLI deployment: respawn under load, SIGTERM.
+    res["cli"] = workers_cli(card, dev, groups, work)
+    shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
+def workers_cli(card, dev, groups, work, threads=8, secs=6.0) -> dict:
+    """`python -m raftsql_tpu_torch.server.main --fused --workers 2
+    --groups 8` on the card: the recipe, a worker SIGKILLed (and
+    respawned) while PUTs continue with every acked PUT read back, then
+    SIGTERM: exit 0 and no worker left."""
+    cli = os.path.join(work, "cli")
+    os.makedirs(cli)
+    port = _free_port()
+    t0 = time.monotonic()
+    p = _spawn(["--fused", "--workers", "2", "--groups", str(groups),
+                "--port", str(port), "--device", dev], cli, "server", {})
+    workers = []
+    try:
+        _wait_healthy(port, 180.0)
+        t_up = time.monotonic() - t0
+        recipe(port, groups, "workers CLI")
+        workers = _children(p.pid)
+        expect(len(workers), 2, "workers CLI: worker processes")
+        only_engine_on_card(p.pid, workers, "workers CLI", apps_want=2)
+        acked, failed = [], [0]
+        mu = threading.Lock()
+        stop_at = time.monotonic() + secs
+
+        def client(i):
+            k = 0
+            while time.monotonic() < stop_at:
+                g, v = (i + k) % groups, f"cli-c{i}-{k}"
+                k += 1
+                try:
+                    st, _ = _req(port, "PUT", f'INSERT INTO main.t (name) '
+                                 f'VALUES ("{v}")'.encode(), g)
+                except OSError:
+                    st = None
+                with mu:
+                    if st == 204:
+                        acked.append((g, v))
+                    else:
+                        failed[0] += 1
+
+        ths = [threading.Thread(target=client, args=(i,))
+               for i in range(threads)]
+        for t in ths:
+            t.start()
+        time.sleep(secs / 3)
+        victim = workers[0]
+        os.kill(victim, signal.SIGKILL)
+        until = time.monotonic() + 60.0
+        while True:
+            now = _children(p.pid)
+            if len(now) == 2 and victim not in now:
+                break
+            if time.monotonic() > until:
+                raise AssertionError(f"workers CLI: no respawn ({now})")
+            time.sleep(0.1)
+        t_respawn = 60.0 - (until - time.monotonic())
+        for t in ths:
+            t.join()
+        workers = now
+        for g in range(groups):
+            want = sorted(["|abc|"] + [f"|{v}|" for gg, v in acked
+                                       if gg == g])
+            st, body = _req(port, "GET", b"SELECT name FROM main.t", g)
+            got = sorted(x for x in body.decode().strip().split("\n") if x)
+            missing = sorted(set(want) - set(got))
+            expect(missing, [], f"workers CLI: acked PUTs of g{g} read back")
+    except BaseException:
+        log(f"--- workers CLI log tail ---\n{_tail(cli, 'server')}")
+        raise
+    finally:
+        code = _stop(p)
+        until = time.monotonic() + 30.0
+        while any(_alive(w) for w in workers) and time.monotonic() < until:
+            time.sleep(0.1)
+        left = [w for w in workers if _alive(w)]
+        for w in left:
+            os.kill(w, signal.SIGKILL)
+    expect(code, 0, "workers CLI: exit code after SIGTERM")
+    expect(left, [], "workers CLI: workers left after the engine's exit")
+    log(f"workers CLI: up {t_up:.1f} s after spawn; recipe; {len(acked)} "
+        f"PUTs acked from {threads} threads ({failed[0]} failed) while "
+        f"worker {victim} was SIGKILLed and respawned in {t_respawn:.1f} "
+        f"s, every acked PUT read back; SIGTERM exit 0, no worker left, "
+        f"on {card}")
+    return {"acked": len(acked), "failed": failed[0],
+            "respawn_s": t_respawn, "up_s": t_up}
+
+
+def replica_tier(card: str, dev="cuda", groups=2, writes=40) -> dict:
+    """Phase 22 (see the module docstring)."""
+    from raftsql_tpu_torch.chaos import run as crun
+    work = os.path.join(ROOT, "build", "chip_smoke_replica")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    api, stream = _free_port(), _free_port()
+    rports = [_free_port(), _free_port()]
+    t0 = time.monotonic()
+    eng = _spawn(["--fused", "--groups", str(groups), "--port", str(api),
+                  "--tick", "0.005", "--lease-ticks", "40",
+                  "--replica-listen", str(stream), "--device", dev],
+                 work, "engine", {})
+    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="")
+    reps = []
+    for i, rp in enumerate(rports):
+        with open(os.path.join(work, f"replica{i}.log"), "ab") as logf:
+            reps.append(subprocess.Popen(
+                [sys.executable, "-m", "raftsql_tpu_torch.replica",
+                 "--upstream", f"127.0.0.1:{stream}", "--port", str(rp)],
+                cwd=work, env=env, stdout=logf, stderr=subprocess.STDOUT))
+    res = {}
+    try:
+        until = time.monotonic() + 180.0
+        for g in range(groups):
+            while True:
+                if eng.poll() is not None or time.monotonic() > until:
+                    raise AssertionError("replica engine never served")
+                try:
+                    if _req(api, "PUT", b"CREATE TABLE t (k int)",
+                            g)[0] == 204:
+                        break
+                except OSError:
+                    pass
+                time.sleep(0.3)
+        res["up_s"] = time.monotonic() - t0
+        wm, acked = [0] * groups, [0] * groups
+        for k in range(writes):
+            g = k % groups
+            st, h, _ = _req_h(api, "PUT",
+                              f"INSERT INTO t VALUES ({k})".encode(),
+                              {"X-Raft-Group": str(g)})
+            expect(st, 204, "replica tier: engine PUT")
+            wm[g] = max(wm[g], int(h["X-Raft-Session"]))
+            acked[g] += 1
+        t1 = time.monotonic()
+        for i, rp in enumerate(rports):
+            for g in range(groups):
+                want = f"|{acked[g]}|".encode()
+                until = time.monotonic() + 60.0
+                while True:
+                    try:
+                        st, _, body = _req_h(
+                            rp, "GET", b"SELECT count(*) FROM t",
+                            {"X-Raft-Group": str(g),
+                             "X-Consistency": "session",
+                             "X-Raft-Session": str(wm[g])})
+                    except OSError:
+                        st, body = None, b""
+                    if st == 200:
+                        expect(body.strip(), want,
+                               f"replica {i} g{g}: session read")
+                        break
+                    if time.monotonic() > until:
+                        raise AssertionError(f"replica {i} never served a "
+                                             f"session read ({st})")
+                    time.sleep(0.1)
+        res["session_s"] = time.monotonic() - t1
+        only_engine_on_card(eng.pid, [r.pid for r in reps], "replica tier",
+                            apps_want=2)
+        expect(_stop(eng), 0, "replica engine: exit code after SIGTERM")
+        for i, rp in enumerate(rports):
+            until = time.monotonic() + 30.0
+            while True:
+                try:
+                    st = _req_h(rp, "GET", b"SELECT count(*) FROM t",
+                                {"X-Consistency": "linear"})[0]
+                except OSError:
+                    st = None
+                if st == 421:
+                    break
+                if time.monotonic() > until:
+                    raise AssertionError(f"replica {i}: linear read after "
+                                         f"the upstream stopped: {st}")
+                time.sleep(0.1)
+    except BaseException:
+        for name in ("engine", "replica0", "replica1"):
+            log(f"--- {name} log tail ---\n{_tail(work, name)}")
+        raise
+    finally:
+        for p in (*reps, eng):
+            _stop(p)
+    log(f"replica tier: parity-mode --replica-listen engine up in "
+        f"{res['up_s']:.1f} s; {writes} acked PUTs served by both "
+        f"replicas at their session watermarks within "
+        f"{res['session_s']:.2f} s; linear reads refused (421) once the "
+        f"upstream stopped, on {card}")
+    t0 = time.monotonic()
+    # Its RUNS nemesis runs and the falsification pair run at once.
+    ok, reports, walls = crun.replica_gauntlet(0, runs=RUNS, device=dev,
+                                               workers=RUNS + 2)
+    if not ok:
+        raise AssertionError("the replica gauntlet failed (see CHAOS FAIL "
+                             "above)")
+    for r in reports:
+        expect((r["plan_digest"], r["result_digest"]),
+               PROC_VERDICTS["replica"], "replica gauntlet digests")
+        log(f"replica chaos: plan={r['plan_digest']} verdict="
+            f"{r['result_digest']} acked {r['acked']}, served session "
+            f"{r['served_session']} linear {r['served_linear']}, refusals "
+            f"{r['refusals']} on {card}")
+    res["walls"] = walls
+    log(f"replica chaos: run wall times {[round(w, 1) for w in walls]} s "
+        f"(nemesis x{RUNS}, broken, control; at once); the gate-less "
+        f"replica was caught and its control passed; gauntlet "
+        f"{time.monotonic() - t0:.1f} s on {card}")
+    shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
 # ---- main ------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -2944,7 +3496,7 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="smoke run on one CUDA card")
     ap.add_argument("--only", default="",
-                    help="comma separated phases (3-20) to run after the "
+                    help="comma separated phases (3-22) to run after the "
                          "build; no result line is printed")
     only = {int(x) for x in ap.parse_args(argv).only.split(",") if x}
     t_start = time.monotonic()
@@ -3036,6 +3588,14 @@ def main(argv=None) -> int:
         pod_kern = main_path_kernels(card, pdry.pop("captured"))
         pod_chaos(card)
         done("pod")
+    if want(21):
+        wk = workers_plane(card)
+        # K1 on the workers engine's fused steps: R = 24 rows, P = 3.
+        workers_kern = main_path_kernels(card, wk.pop("captured"))
+        done("workers plane")
+    if want(22):
+        rtier = replica_tier(card)
+        done("replica tier")
     if only:
         log(f"development run of phases {sorted(only)}: no result line")
         return 0
@@ -3048,11 +3608,13 @@ def main(argv=None) -> int:
         k1: (mtick["launches"][k1] + dmesh["launches"] + mch["launches"]),
         k2: mtick["launches"][k2]}
     pod_launches = {k1: pdry["launches"], k2: 0}
+    workers_launches = {k1: wk["launches"], k2: 0}
     launches = {
         k1: (tick["launches"][k1] + k1_server + place["launches"]
              + ch["launches"]["default"] + ch["launches"]["nemesis"]
              + node_launches[k1] + k1_overload + durable["launches"]
-             + mesh_launches[k1] + pod_launches[k1]),
+             + mesh_launches[k1] + pod_launches[k1]
+             + workers_launches[k1]),
         k2: (tick["launches"][k2] + mem["launches"][k2] + node_launches[k2]
              + mesh_launches[k2])}
     log(f"launches by path: fused tick {tick['launches']}, membership "
@@ -3062,7 +3624,8 @@ def main(argv=None) -> int:
         f"overload K1 {k1_overload}, durable plane K1 "
         f"{durable['launches']}, mesh tick {mtick['launches']}, durable "
         f"mesh K1 {dmesh['launches']}, mesh chaos K1 {mch['launches']}, "
-        f"pod K1 {pdry['launches']}")
+        f"pod K1 {pdry['launches']}, workers K1 {wk['launches']} "
+        f"({wk['steps']} device steps)")
     log(f"mesh tick ms/tick mesh {mtick['ms_per_tick']['mesh']:.2f} fused "
         f"{mtick['ms_per_tick']['fused']:.2f}; durable mesh "
         f"{dmesh['commits_per_s']:.0f} commits/s against fused arm (b) "
@@ -3078,6 +3641,13 @@ def main(argv=None) -> int:
         f"commits/s native plog + NativeKV "
         f"{durable['commits_per_s']['native']:.0f}, Python plog + "
         f"KVStateMachine {durable['commits_per_s']['python']:.0f} on {card}")
+    lad = wk["ladder"]
+    log(f"workers ladder (192 connections; req/s, p50/p99 ms): "
+        + "; ".join(f"{k} {v['req_s']:.1f}, {v['p50_ms']:.2f}/"
+                    f"{v['p99_ms']:.2f}" for k, v in lad.items())
+        + f"; workers server PUT p50 {wk['put_p50']:.2f} ms p99 "
+        f"{wk['put_p99']:.2f} ms; replica chaos runs "
+        f"{[round(w, 1) for w in rtier['walls']]} s on {card}")
     rows = []
     for name, r in kern.items():
         row = {"name": name, "route": "cuda",
@@ -3093,11 +3663,13 @@ def main(argv=None) -> int:
                "durable_plane_launches":
                    durable["launches"] if name == k1 else 0,
                "mesh_path_launches": mesh_launches[name],
-               "pod_path_launches": pod_launches[name]}
+               "pod_path_launches": pod_launches[name],
+               "workers_path_launches": workers_launches[name]}
         for path, got in (("node_path", node_kern),
                           ("overload_path", over_kern),
                           ("mesh_path", mesh_kern),
-                          ("pod_path", pod_kern)):
+                          ("pod_path", pod_kern),
+                          ("workers_path", workers_kern)):
             if name in got:
                 n = got[name]
                 row[path] = {k: n[k] for k in (

@@ -9,6 +9,7 @@
     RAFTSQL_SHARD_SLOTS=8 python -m raftsql_tpu_torch.chaos.run \
         --family mesh_skew
     RAFTSQL_SHARD_SLOTS=8 python -m raftsql_tpu_torch.chaos.run --pod
+    python -m raftsql_tpu_torch.chaos.run --replica --seed 0
     python -m raftsql_tpu_torch.chaos.run --device cpu      # no card
 
 Port of raftsql_tpu/chaos/run.py.  Default mode
@@ -45,8 +46,8 @@ identical schedule (or plan) + result digests, and every family's
 signature faults must have fired.  The TCP families cross real kernel
 sockets, so arrival interleaving is not virtualizable: their plan is
 deterministic and their invariants must hold, but the committed history
-is not bit-reproducible, so they run once.  The JAX package's other
-families (replica, reshard) need planes this port has not reached yet.
+is not bit-reproducible, so they run once.  The JAX package's reshard
+family needs a plane this port has not reached yet.
 
 --reads, --transfers, --quorum and --overload are the gauntlets: the
 family twice, then its falsification pairs (a deliberately broken lease
@@ -74,6 +75,15 @@ SIGKILL of the coordinator, then a fault-free audit incarnation whose
 merged cross-host replay must hold every acked write exactly once on
 every host; plus the premature-ack falsification pair.  Process-plane
 determinism tier (plan + verdict digests reproduce).
+
+--replica is the READ-REPLICA tier (chaos/replica.py): a fused engine
+on `--device` publishing the delta stream (`--replica-listen`), two
+`python -m raftsql_tpu_torch.replica` processes subscribed through
+nemesis-owned TCP proxies, and a seeded timeline of a subscription cut
+and heal, a replica SIGKILL and respawn and one flipped stream bit under
+acked writes; every session and linear read a replica answers must hold
+every row acked at its bound (StaleReadNever), and every replica must
+converge; plus the gate-less-replica falsification pair.
 
 `--device` picks where the consensus state steps (default cuda; a
 missing card is an error; the process families' children step there
@@ -673,6 +683,122 @@ def run_pod(seed: int, runs: int = 2, device="cuda") -> int:
     return 0 if ok else 1
 
 
+def run_replica_plan(plan, device="cuda") -> dict:
+    """One run of ReplicaChaosPlan `plan` (chaos/replica.py
+    ReplicaChaosRunner, its engine on `device`) in a fresh temporary
+    work dir."""
+    from raftsql_tpu_torch.chaos.replica import ReplicaChaosRunner
+    with tempfile.TemporaryDirectory(prefix="raftsql-replica-") as d:
+        return ReplicaChaosRunner(plan, d, device=device).run()
+
+
+def replica_gauntlet(seed: int, runs: int = 2, device="cuda",
+                     workers: int = 1):
+    """The read-replica tier gauntlet.
+
+    1. The replica nemesis (schedule.py generate_replica), `runs` times:
+       every scripted fault fires, the workload acks writes and the
+       replicas serve session and linear reads, the cut forces at least
+       one refusal, and plan + verdict digests reproduce.
+    2. The FALSIFICATION pair (schedule.py falsification_replica_plan):
+       a replica booted with --unsafe-serve under a never-healed cut
+       MUST be caught serving below an acked watermark by
+       StaleReadNever, and the SAME schedule with the gates on must
+       pass by refusing.
+
+    The runs go in this order, one at a time, as the reference runs
+    them; `workers` > 1 runs that many at once, one thread each (each
+    run has its own ports and work dir).  Returns (ok, reports, walls):
+    the nemesis runs' reports and the wall seconds of every run, the
+    pair's two last."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from raftsql_tpu_torch.chaos import schedule as S
+    from raftsql_tpu_torch.chaos.invariants import InvariantViolation
+
+    def timed(plan):
+        t0 = time.monotonic()
+        try:
+            r = run_replica_plan(plan, device=device)
+        except InvariantViolation as e:
+            r = e
+        return r, time.monotonic() - t0
+
+    plan = S.generate_replica(seed)
+    plans = [plan] * runs + [
+        S.falsification_replica_plan(seed, broken=True),
+        S.falsification_replica_plan(seed, broken=False)]
+    # The broken run's violation is EXPECTED: flight bundles go to a
+    # temporary dir, not the cwd.
+    prev = os.environ.get("RAFTSQL_FLIGHT_DIR")
+    try:
+        with tempfile.TemporaryDirectory(
+                prefix="raftsql-falsification-") as fd:
+            os.environ["RAFTSQL_FLIGHT_DIR"] = fd
+            with ThreadPoolExecutor(max_workers=workers) as ex:
+                timed_results = list(ex.map(timed, plans))
+    finally:
+        if prev is None:
+            os.environ.pop("RAFTSQL_FLIGHT_DIR", None)
+        else:
+            os.environ["RAFTSQL_FLIGHT_DIR"] = prev
+    results = [r for r, _ in timed_results]
+    walls = [w for _, w in timed_results]
+    ok = True
+    reports = []
+    for run, r in enumerate(results[:runs]):
+        if isinstance(r, InvariantViolation):
+            ok = _check(False, f"replica: run {run} tripped an invariant: "
+                               f"{r}")
+            continue
+        r["run"] = run
+        reports.append(r)
+        print(json.dumps(r, sort_keys=True))
+        ok &= _check(r["cuts"] >= 1 and r["heals"] >= 1
+                     and r["kills"] >= 1 and r["restarts"] >= 1
+                     and r["corrupts"] >= 1,
+                     f"replica: a scripted fault family never fired ({r})")
+        ok &= _check(r["acked"] > 0
+                     and r["served_session"] > 0
+                     and r["served_linear"] > 0,
+                     f"replica: the workload never served a read ({r})")
+        ok &= _check(r["refusals"] > 0,
+                     f"replica: the cut never forced a refusal ({r})")
+    digests = {(r["plan_digest"], r["result_digest"]) for r in reports}
+    ok &= _check(len(digests) == 1,
+                 f"replica: non-reproducible verdicts: {digests}")
+    broken, control = results[runs:]
+    caught = isinstance(broken, InvariantViolation) \
+        and "STALE" in str(broken)
+    if caught:
+        print(json.dumps({"falsification": "caught",
+                          "violation": str(broken)}))
+    ok &= _check(caught, "falsification: the gate-less replica was "
+                         "NOT caught by StaleReadNever")
+    if isinstance(control, InvariantViolation):
+        ok = _check(False, f"falsification control: the fail-closed "
+                           f"ladder tripped the invariant: {control}")
+    else:
+        ok &= _check(control["refusals"] > 0 and control["acked"] > 0,
+                     "falsification control: the cut never forced a "
+                     "refusal (or nothing acked)")
+        print(json.dumps({"falsification_control": "passed",
+                          "acked": control["acked"],
+                          "refusals": control["refusals"]}))
+    return ok, reports, walls
+
+
+def run_replica(seed: int, runs: int = 2, device="cuda") -> int:
+    """`--replica`: the read-replica tier gauntlet (replica_gauntlet)."""
+    ok, reports, _walls = replica_gauntlet(seed, runs=runs, device=device)
+    if ok:
+        print(f"chaos replica ok: seed={seed} "
+              f"plan={reports[0]['plan_digest']} "
+              f"verdict={reports[0]['result_digest']} (x{runs} "
+              f"identical) falsification=caught")
+    return 0 if ok else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--seed", type=int,
@@ -713,6 +839,12 @@ def main(argv=None) -> int:
                          "propose-plane cut over a real 2-process pod, "
                          "run twice + the premature-ack falsification "
                          "pair")
+    ap.add_argument("--replica", action="store_true",
+                    help="read-replica tier nemesis: subscription "
+                         "cut/heal, replica SIGKILL/respawn and stream "
+                         "corruption over real replica processes, run "
+                         "twice + the gate-less-replica falsification "
+                         "pair")
     ap.add_argument("--no-procs", action="store_true",
                     help="with --reads/--transfers: skip the "
                          "process-plane leg")
@@ -745,6 +877,8 @@ def main(argv=None) -> int:
                          device=args.device)
     if args.pod:
         return run_pod(args.seed, runs=args.runs, device=args.device)
+    if args.replica:
+        return run_replica(args.seed, runs=args.runs, device=args.device)
     if args.matrix or args.family:
         return run_matrix(args.seed, only=args.family, **kw)
 

@@ -11,7 +11,9 @@ MembershipChaosPlan, TcpRebindPlan) with their generators, the
 process-plane plan (ProcChaosPlan and its ProcKill, ProcStall,
 ProcRestartStorm and ProcFsioSpec events, `generate_procs`) and the
 overload nemesis plan (OverloadNemesisPlan, OverloadBurst,
-`generate_overload`, `falsification_overload_plan`).  Every
+`generate_overload`, `falsification_overload_plan`), the pod plans and
+the read-replica plan (ReplicaChaosPlan, ReplicaFault,
+`generate_replica`, `falsification_replica_plan`).  Every
 schedule derives from one integer seed
 via `numpy.random.default_rng`, and `digest()` hashes the canonical
 JSON form with sha256 — the same bytes as the JAX package's, so a port
@@ -1417,3 +1419,106 @@ def falsification_pod_plan(seed: int = 0,
     return PodChaosPlan(seed=seed, ticks=24, procs=2, peers=3,
                         groups=4, group_shards=2,
                         unsafe_ack=broken, crash_at=12)
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplicaFault:
+    """One scripted fault against the read-replica tier at plan time
+    `t_ms`, aimed at replica index `target`:
+
+      cut      — partition the replica's stream subscription (its
+                 runner-owned TCP proxy blackholes; the HTTP plane
+                 stays up, so the fail-closed ladder is what's tested);
+      heal     — end the partition;
+      kill     — SIGKILL the replica process mid-stream;
+      restart  — respawn it (fresh state: bootstrap via log replay or
+                 fresh-base RESYNC);
+      corrupt  — flip one bit in the next upstream->replica chunk (the
+                 CRC must catch it; the replica drops + resubscribes).
+    """
+    t_ms: int
+    kind: str
+    target: int
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplicaChaosPlan:
+    """Scripted scenario for the read-replica tier (chaos/replica.py:
+    one fused engine with --replica-listen, N real replica processes
+    subscribed through runner-owned proxies).  A SEPARATE plan class
+    (ReadNemesisPlan precedent): extending an existing plan would
+    change the asdict() digest of every committed family.  Determinism
+    tier matches the proc plane: the plan is a pure function of the
+    seed and the invariant VERDICTS must reproduce; the history
+    crosses real kernels and processes and is not bit-stable.
+
+    `unsafe_serve` is the FALSIFICATION knob: the replica boots with
+    its session/linear fail-closed gates disabled, so under a stream
+    cut it serves below acked watermarks and past its lease horizon —
+    the StaleReadNever invariant MUST catch it, and the same schedule
+    with the gates on must pass."""
+    seed: int
+    replicas: int = 2
+    groups: int = 2
+    duration_ms: int = 4000
+    writer_ms: int = 25
+    settle_ms: int = 1500
+    faults: Tuple[ReplicaFault, ...] = ()
+    unsafe_serve: bool = False
+
+    def describe(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def digest(self) -> str:
+        blob = json.dumps(self.describe(), sort_keys=True,
+                          separators=(",", ":")).encode()
+        return hashlib.sha256(blob).hexdigest()[:16]
+
+
+def generate_replica(seed: int,
+                     duration_ms: int = 4000) -> ReplicaChaosPlan:
+    """The replica-tier nemesis family (`make chaos-replica`): two
+    replicas of a two-group fused engine take, in seeded order,
+
+      * a stream partition + heal at replica 0 (the fail-closed ladder
+        must refuse — never serve stale — while cut, and the resumed
+        subscription must replay or resync the gap);
+      * SIGKILL + respawn of replica 1 mid-stream (fresh-state
+        bootstrap under load);
+      * one flipped bit in replica 0's subscription (the frame CRC
+        must surface it as a typed corruption: drop + resubscribe,
+        never a wrong row).
+
+    Writers keep acking through the engine the whole time; every
+    session/linear probe a replica ANSWERS is checked against the
+    rows acked at the probe's watermark (StaleReadNever)."""
+    rng = np.random.default_rng(seed ^ 0x5EB1)
+    cut0 = int(rng.integers(500, 900))
+    heal0 = cut0 + int(rng.integers(500, 800))
+    kill1 = int(rng.integers(1300, 1700))
+    restart1 = kill1 + int(rng.integers(300, 500))
+    corrupt0 = int(rng.integers(2400, 2800))
+    faults = (ReplicaFault(cut0, "cut", 0),
+              ReplicaFault(heal0, "heal", 0),
+              ReplicaFault(kill1, "kill", 1),
+              ReplicaFault(restart1, "restart", 1),
+              ReplicaFault(corrupt0, "corrupt", 0))
+    return ReplicaChaosPlan(seed=seed, replicas=2, groups=2,
+                            duration_ms=duration_ms, faults=faults)
+
+
+def falsification_replica_plan(seed: int = 0,
+                               broken: bool = True) -> ReplicaChaosPlan:
+    """DIRECTED stale-replica falsification: one replica, one group, a
+    stream cut that never heals — the writer keeps acking through the
+    engine while the replica's fold freezes.  broken=True disables the
+    replica's session/linear gates (--unsafe-serve): it then serves
+    reads below the acked watermark and linear reads past its lease
+    horizon, and StaleReadNever MUST catch the first one.  The SAME
+    schedule with the gates on refuses (421) instead and must pass —
+    proving the harness detects exactly a gate that fails open, not
+    partitions in general."""
+    return ReplicaChaosPlan(
+        seed=seed, replicas=1, groups=1, duration_ms=2000,
+        writer_ms=25, faults=(ReplicaFault(500, "cut", 0),),
+        unsafe_serve=broken)

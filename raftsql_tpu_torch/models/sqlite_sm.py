@@ -192,7 +192,7 @@ class SQLiteStateMachine:
         interpreters fall back to `VACUUM INTO` a temp file (SQLite ≥
         3.27) — the vacuum output is always a standalone DELETE-mode
         image, so no journal flip is needed on that path."""
-        if not hasattr(self._conn, "serialize"):
+        if not hasattr(self._conn, "serialize") or self._empty():
             return self._vacuum_image()
         wal = self.has_durable_snapshot
         if wal:
@@ -202,6 +202,17 @@ class SQLiteStateMachine:
         finally:
             if wal:
                 self._conn.execute("PRAGMA journal_mode=WAL")
+
+    def _empty(self) -> bool:
+        """A database of 0 pages: a new file or `:memory:` database
+        before its first write, kept so by parity mode's MEMORY journal,
+        or after applies that all failed (a failed statement still
+        consumes its index).  `Connection.serialize` raises on it
+        ("unable to serialize 'main'", inherited from
+        raftsql_tpu/models/sqlite_sm.py `_image`); `VACUUM INTO` writes
+        a valid one-page image of it, which install() restores.  Caller
+        holds the lock."""
+        return self._conn.execute("PRAGMA page_count").fetchone()[0] == 0
 
     def _vacuum_image(self) -> bytes:
         """Point-in-time image via `VACUUM INTO` (the py3.10 fallback

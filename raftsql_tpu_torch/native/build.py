@@ -1,4 +1,5 @@
-"""Build and load the native storage plane (native/wal.cc) through ctypes.
+"""Build and load the native storage plane (native/wal.cc) through
+ctypes, and build the HTTP load generator (native/http_load.cc).
 
 wal.cc is host C++ (no CUDA): the WAL writers, the `plog_*` payload log,
 the combined `walplog_*` calls and the `kv_*` apply plane, behind a plain
@@ -197,6 +198,49 @@ def load_native_wal():
     """ctypes handle to the WAL fast path; None under
     RAFTSQL_TPU_NATIVE=0."""
     return _load()
+
+
+HTTP_LOAD_SOURCE = os.path.join(_DIR, "http_load.cc")
+HTTP_LOAD_FLAGS = ("-O2",)
+
+
+def build_http_load(build_dir: Optional[str] = None) -> str:
+    """Compile native/http_load.cc (the single-thread epoll HTTP load
+    generator) into `build_dir` (default build/native/) as
+    http_load_<digest> unless that build is there already; returns the
+    executable's path.  Raises RuntimeError with the compiler's output
+    when g++ is missing or fails: there is no fall back to Python client
+    threads.  Usage of the binary: `http_load <seconds> <conns> <groups>
+    <port> [port ...]`, one JSON line {"n", "errors", "p50_ms",
+    "p99_ms", "secs"} on stdout; each connection loops PUT `INSERT INTO
+    t (v) VALUES (...)` over the groups, so every group needs a table
+    `t (v)`."""
+    build_dir = BUILD_DIR if build_dir is None else build_dir
+    with open(HTTP_LOAD_SOURCE, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(HTTP_LOAD_FLAGS)
+                                .encode()).hexdigest()[:16]
+    exe = os.path.join(build_dir, f"http_load_{digest}")
+    if os.path.exists(exe):
+        return exe
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = f"{exe}.{os.getpid()}.{threading.get_ident()}.tmp"
+    try:
+        try:
+            res = subprocess.run(
+                ["g++", *HTTP_LOAD_FLAGS, "-o", tmp, HTTP_LOAD_SOURCE],
+                capture_output=True, text=True, timeout=300)
+        except (OSError, subprocess.TimeoutExpired) as e:
+            raise RuntimeError(f"http_load: cannot run g++ on "
+                               f"{HTTP_LOAD_SOURCE}: {e}") from e
+        if res.returncode != 0:
+            raise RuntimeError(f"http_load: g++ failed on "
+                               f"{HTTP_LOAD_SOURCE} ({res.returncode}):\n"
+                               f"{res.stdout}{res.stderr}")
+        os.replace(tmp, exe)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return exe
 
 
 def load_native_plog():

@@ -439,9 +439,17 @@ class RaftDB:
     # ------------------------------------------------------------------
 
     def _snapshot_of(self, group: int):
+        """(applied index, image) of `group`'s state machine, or None
+        when it has applied nothing: an index-0 image labels no log
+        position, and the reference serialized first, which raises on a
+        database of 0 pages (a fresh parity-mode group), killing the shm
+        and replica planes at boot (raftsql_tpu/runtime/db.py
+        `_snapshot_of`)."""
         sm = self._sms[group]
         fn = getattr(sm, "serialize_with_index", None)
         if fn is None:
+            return None
+        if sm.applied_index() <= 0:
             return None
         idx, blob = fn()
         return (idx, blob) if idx > 0 else None

@@ -19,8 +19,11 @@ reference's multi-process cluster (--cluster/--id, one RaftNode per
 process over the TCP transport, as the Procfile runs it), the fused
 co-located cluster (--fused), the same cluster stepped over a mesh of
 shard slots (--mesh, runtime/mesh.py) and the multi-process pod (--pod,
-raftsql_tpu_torch/pod/).  The planes not ported yet (--workers,
---reshard, --replica-listen) exit with an error naming them.
+raftsql_tpu_torch/pod/).  `--workers N` moves HTTP into N worker
+processes that share the engine through mmap rings (runtime/ring.py,
+server/worker.py); `--replica-listen PORT` publishes the read-replica
+delta stream (raftsql_tpu_torch/replica/).  The plane not ported yet
+(--reshard) exits with an error naming it.
 `--placement` runs the traffic-aware leadership controller
 (raftsql_tpu_torch/placement/) over the co-located host plane's
 transfer latch.
@@ -383,9 +386,7 @@ def _watch_fatal(rdb) -> None:
 # Flags of the JAX package's CLI whose deployment or plane this port has
 # not reached yet: set, each exits with this error.
 _NOT_PORTED = {
-    "workers": "--workers (ROADMAP Queue 1 item 14)",
     "reshard": "--reshard (ROADMAP Queue 1 item 14)",
-    "replica_listen": "--replica-listen (ROADMAP Queue 1 item 14)",
 }
 
 
@@ -457,7 +458,12 @@ def main(argv=None) -> None:
                          "addresses of EVERY pod host in --pod-id order, "
                          "published at /healthz so a client pointed at "
                          "one host sweeps the whole pod")
-    ap.add_argument("--workers", type=int, default=0, help="not ported")
+    ap.add_argument("--workers", type=int, default=0,
+                    help="N HTTP worker PROCESSES sharing this engine "
+                         "through mmap propose/completion rings "
+                         "(runtime/ring.py), all binding --port via "
+                         "SO_REUSEPORT; only the engine holds the card.  "
+                         "0 = serve HTTP in-process")
     ap.add_argument("--placement", action="store_true",
                     help="traffic-aware leadership placement "
                          "(raftsql_tpu_torch/placement/): a controller "
@@ -472,7 +478,11 @@ def main(argv=None) -> None:
                          "triggers a transfer")
     ap.add_argument("--reshard", action="store_true", help="not ported")
     ap.add_argument("--replica-listen", type=int, default=0,
-                    help="not ported")
+                    help="publish the read-replica delta stream on "
+                         "this TCP port (raftsql_tpu_torch/replica/): "
+                         "replicas subscribe with `python -m "
+                         "raftsql_tpu_torch.replica --upstream "
+                         "host:PORT`; 0 = off")
     ap.add_argument("--trace", action="store_true",
                     help="enable the observability planes "
                          "(raftsql_tpu_torch/obs/): per-proposal "
@@ -524,10 +534,16 @@ def main(argv=None) -> None:
                      "mesh runtime, which refuses them too)")
         if args.mesh or args.fused:
             ap.error("--pod is its own deployment; drop --mesh/--fused")
-        if args.placement:
+        if args.placement or args.workers:
             # Replicated controllers: N hosts each running a placement
-            # controller would issue the same verbs N times.
-            ap.error("--placement is not supported with --pod yet")
+            # controller would issue the same verbs N times; the ring
+            # worker plane has no pod story yet.
+            ap.error("--placement/--workers are not supported with "
+                     "--pod yet")
+        if args.replica_listen:
+            ap.error("--replica-listen is not supported with --pod yet "
+                     "(the stream tee rides the single-engine shm "
+                     "publisher)")
     elif args.mesh and geometry:
         # The mesh runtime shards the GROUP axis; its geometry plumbing
         # is untested: refuse rather than boot a cluster whose quorums
@@ -622,6 +638,13 @@ def main(argv=None) -> None:
     if args.placement:
         attach_placement(rdb, interval_s=args.placement_interval,
                          imbalance=args.placement_imbalance)
+    if args.workers > 0:
+        _serve_workers(rdb, args)    # replica plane attaches there,
+        return                       # reusing the ring's shm publisher
+    if args.replica_listen:
+        from raftsql_tpu_torch.replica.publisher import \
+            attach_replica_plane
+        attach_replica_plane(rdb, args.replica_listen)
     if args.http_engine == "aio":
         from raftsql_tpu_torch.api.aio import AioSQLServer
         srv = AioSQLServer(args.port, rdb)
@@ -637,6 +660,95 @@ def main(argv=None) -> None:
     # of 0; seen on the card with --mesh).  The shutdown thread exits.
     while stopping.is_set():
         time.sleep(1.0)
+
+
+
+def spawn_worker(ring_dir: str, index: int, port: int,
+                 trace: bool = False, verbose: bool = False,
+                 log_file=None) -> "subprocess.Popen":
+    """One HTTP worker process (server/worker.py) over the rings in
+    `ring_dir`, bound to `port` with SO_REUSEPORT, its output to
+    `log_file` (an open file; default this process's).  The worker never
+    sees the card (CUDA_VISIBLE_DEVICES=""), and it asks for SIGTERM at
+    this process's death itself (`--engine-pid`): no `preexec_fn`, which
+    is unsafe in a process running a tick thread and a CUDA context."""
+    import subprocess
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in [os.environ.get("PYTHONPATH")]
+                             if p]))
+    return subprocess.Popen(
+        [sys.executable, "-m", "raftsql_tpu_torch.server.worker",
+         "--rings", ring_dir, "--index", str(index), "--port", str(port),
+         "--engine-pid", str(os.getpid())]
+        + (["--trace"] if trace else [])
+        + (["--verbose"] if verbose else []),
+        env=env, stdout=log_file,
+        stderr=None if log_file is None else subprocess.STDOUT)
+
+
+def stop_workers(procs, timeout_s: float = 5.0) -> None:
+    """SIGTERM every live worker, then SIGKILL any still up after
+    `timeout_s`."""
+    for p in procs:
+        if p.poll() is None:
+            p.terminate()
+    for p in procs:
+        try:
+            p.wait(timeout=timeout_s)
+        except Exception:                               # noqa: BLE001
+            p.kill()
+            p.wait()
+
+
+def _serve_workers(rdb, args) -> None:
+    """The --workers N deployment: this process runs ONLY the engine
+    (consensus tick + WAL + SQLite apply) and the ring drain
+    (runtime/ring.py RingServer); N child processes each run the
+    asyncio HTTP plane over a RingClient, all bound to --port via
+    SO_REUSEPORT.  HTTP parsing/ack serialization then spends other
+    GILs, not the engine's.  The ring directory is relative to the
+    working directory, as in the JAX package.
+
+    A worker that dies is respawned (it holds no state); the engine
+    dying is fatal for everyone (EXIT_CODE_FATAL via _watch_fatal)."""
+    from raftsql_tpu_torch.runtime.ring import RingServer
+
+    log = logging.getLogger("raftsql.server")
+    ring_dir = f"raftsql-rings-{os.getpid()}"
+    ring = RingServer(rdb, ring_dir, args.workers)
+    ring.start()
+    if getattr(args, "replica_listen", 0):
+        # The ring attached the shm publisher already; the stream tee
+        # rides the same one (replica/publisher.py reuses rdb.shm).
+        from raftsql_tpu_torch.replica.publisher import \
+            attach_replica_plane
+        attach_replica_plane(rdb, args.replica_listen)
+
+    def spawn(i: int):
+        return spawn_worker(ring_dir, i, args.port, trace=args.trace,
+                            verbose=args.verbose)
+
+    procs = [spawn(i) for i in range(args.workers)]
+    stopping = threading.Event()
+
+    def _stop_all():
+        stopping.set()
+        stop_workers(procs)
+        ring.stop()
+
+    _install_graceful_shutdown(rdb, _stop_all)
+    log.info("engine up; %d HTTP workers on port %d (rings in %s)",
+             args.workers, args.port, ring_dir)
+    while True:
+        for i, p in enumerate(procs):
+            rc = p.poll()
+            if rc is not None and not stopping.is_set():
+                log.warning("worker %d exited rc=%s; respawning", i, rc)
+                procs[i] = spawn(i)
+        time.sleep(0.5)
 
 
 if __name__ == "__main__":

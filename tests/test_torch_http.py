@@ -68,10 +68,13 @@ def test_group_header_routes(server):
 
 @pytest.mark.parametrize("argv", [
     ["--cluster", "http://127.0.0.1:1", "--id", "1",
-     "--replica-listen", "9"],
+     "--replica-listen", "9", "--reshard"],
     ["--mesh", "--reshard"], ["--fused", "--reshard"],
-    ["--fused", "--workers", "2"]])
+    ["--fused", "--workers", "2", "--reshard"]])
 def test_cli_refuses_unported_deployments(argv, capsys):
+    """--reshard is the one plane not ported; with it set, even beside
+    the ported --workers and --replica-listen, the CLI exits with an
+    error naming it."""
     with pytest.raises(SystemExit) as e:
         main(argv)
     assert e.value.code != 0
@@ -86,6 +89,23 @@ def test_cli_cluster_node_needs_the_card_by_default(tmp_path,
     monkeypatch.chdir(tmp_path)
     with pytest.raises(RuntimeError, match="cuda"):
         main(["--cluster", "http://127.0.0.1:1", "--id", "1"])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--fused", "--workers", "2", "--port", "1"],
+    ["--fused", "--replica-listen", "9", "--port", "1"]])
+def test_cli_serving_planes_need_the_card_by_default(tmp_path,
+                                                     monkeypatch, argv):
+    """--workers and --replica-listen are served now (tests/
+    test_torch_ring.py, test_torch_replica.py drive them on the CPU);
+    their engine's default device is cuda, and without a card it
+    raises instead of falling back to the CPU."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(argv)
 
 
 @pytest.mark.parametrize("engine", ["threaded", "aio"])

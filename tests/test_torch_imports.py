@@ -67,7 +67,10 @@ def test_module_list_covers_the_slice():
               "storage.log", "models.kv_sm", "models.kv_native",
               "parallel", "parallel.sharded", "runtime.mesh", "pod",
               "pod.config", "pod.transport", "pod.node", "pod.dryrun",
-              "chaos.pod"):
+              "chaos.pod", "runtime.ring", "runtime.shm",
+              "server.worker", "replica", "replica.__main__",
+              "replica.node", "replica.publisher", "replica.stream",
+              "chaos.replica"):
         assert f"raftsql_tpu_torch.{m}" in MODULES, m
 
 
