@@ -166,8 +166,9 @@ exit, no result line) at the first phase that fails:
      first call with a leader row copied (R = 24, P = 3); then the load
      ladder: native/http_load.cc (built with g++; a failed build raises)
      at 192 connections, 5 s a rung, against phase 6's in-process aio
-     server and 1, 2 and 4 workers, each a fresh engine (req/s, p50/p99,
-     0 errors); then `python -m raftsql_tpu_torch.server.main --fused
+     server and 1 and 2 workers, each a fresh engine (req/s, p50/p99,
+     0 errors; a 4-worker rung gave no more than 2 and was cut to keep
+     the script near its time budget); then `python -m raftsql_tpu_torch.server.main --fused
      --workers 2 --groups 8` as a process: the recipe, a worker SIGKILLed
      and respawned while 8 threads PUT, every acked PUT read back,
      SIGTERM exit 0 and no worker left;
@@ -181,20 +182,54 @@ exit, no result line) at the first phase that fails:
      and all-pass verdict digests (PROC_VERDICTS["replica"]), the
      gate-less replica caught and its control passed, each run's wall
      time;
- 23. the kernels line (JSON: K1 as phase 4 measured it, K2 on phase 5's
+ 23. the elastic keyspace (--reshard): (a) the engine in this process
+     (build_fused_node, 8 groups x 3 peers, commit_rule="pallas", native
+     WALs, ReshardPlane with 64 slots and the PlacementController
+     attached, the aio HTTP plane): scripts/bench_reshard.py's zipfian
+     load (256 keys, s = 1.2, 800 PUTs, from 16 threads) and the
+     controller's split_hottest, the hot group's share of the load
+     before and after; then 16 client threads of /kv PUT and GET while a
+     split, a merge and a migrate run through POST /reshard, every
+     acked write read back after each verb; a stale epoch answered 409
+     with the current keymap, a frozen slot 503 + Retry-After, the
+     reshard counters in /metrics, scripts/check_prom.py --url clean
+     (run as a process of its own) with the raftsql_reshard_* families,
+     a fresh ReshardPlane.recover_from_db() rebuilding the same keymap,
+     K1 launches equal to the engine's device steps (zeroed before the
+     engine boots, read after it closed) and the inputs of K1's first
+     call with a leader row copied (R = 24, P = 3); (b) `python -m
+     raftsql_tpu_torch.server.main --fused --groups 8 --workers 2
+     --reshard --trace` as a process: 64 keyed PUTs through the workers
+     (ring op 7), a split through POST /reshard at a worker (op 6),
+     every key read back, 409 at a stale epoch, each worker's shm reads
+     failing closed across the epoch and serving again once it adopted
+     it, the engine the only compute process on the card, GET /trace
+     valid with the workers' ring spans, SIGTERM exit 0; (c) the
+     reshard gauntlet at seed 0 (RUNS times, commit_rule="pallas") with
+     its repaired falsification pair, then the JAX package's unrepaired
+     pair: the nemesis digests and the unrepaired pair's result digests
+     equal the JAX package's (RESHARD_DIGESTS), the broken flip caught
+     and its control passed, K1 launches equal to device steps; (d) the
+     trace demo (obs/trace_demo.py: a traced 4-group fused cluster on
+     the card, its Chrome trace valid) and the native WAL's stress
+     harness under asan, ubsan and tsan (native/sanitize.py, built with
+     g++ where the script runs; a failed build or a report fails the
+     phase);
+ 24. the kernels line (JSON: K1 as phase 4 measured it, K2 on phase 5's
      joint masks, launches summed over the paths, and each kernel's
      node-path launches and time: K1 at R = 10,000 from phase 10, K2 at
      R = 2 from phase 12; K1's launches and time on the overload path of
      phase 13, R = 12; K1's launches in phase 15; K1 and K2 on the mesh
      path of phases 16, 17 and 19 and K1 on the pod path of phase 20,
      with their per-shard times; K1's launches on the workers path of
-     phase 21 and its time at R = 24) and the result line.
+     phase 21 and its time at R = 24; K1's launches on the reshard path
+     of phase 23 and its time at R = 24) and the result line.
 
 The mesh and pod phases share one card among their shards: they measure
 whether the sharded program is right on the card and what it costs
 there, not scaling across cards.
 
-`--only 13,15` runs the build and the named phases (3-22) alone: a
+`--only 13,15` runs the build and the named phases (3-23) alone: a
 development run, with no result line.  It needs one card and writes
 under build/ of its checkout (and the chaos runs' data dirs under
 $TMPDIR, removed after each run).
@@ -259,6 +294,18 @@ CHAOS_DIGESTS = {
     # family's; a live JAX MeshChaosRunner run on 8 forced host devices
     # gave the same pair.
     "mesh_skew": ("4b1508ca5ccc18d0", "74bb6ca5cda40817"),
+}
+# The reshard family at seed 0 (ReshardChaosRunner): the nemesis's
+# (plan, schedule, result) digests of a live JAX run on the CPU under
+# JAX 0.9.0; the JAX package's unrepaired falsification pair's result
+# digests (its broken coordinator is not caught under these draws:
+# ROADMAP Queue 3); the repaired control's result digest (the port's
+# falsification_reshard_plan default).
+RESHARD_DIGESTS = {
+    "nemesis": ("4d9d3209a892d3da", "6f04ea9b244bcc28", "8e946aabb9151b3b"),
+    "unrepaired": {"broken": "5ce32a5e772fc48d",
+                   "control": "02c46e48d3d3b479"},
+    "control": "a4dc880d871812ad",
 }
 # Runs of each seed-0 chaos family and of the --procs gauntlet (phases 9,
 # 12, 14).  One: every run's digests must equal the reference's constants
@@ -3245,7 +3292,7 @@ def workers_plane(card: str, dev="cuda", groups=8) -> dict:
         f"{res['shm_hits']} hits at one worker; K1 {res['launches']} "
         f"launches = {res['steps']} device steps on {card}")
 
-    # (b) the load ladder: the in-process aio server, then 1, 2 and 4
+    # (b) the load ladder: the in-process aio server, then 1 and 2
     # workers, each a fresh engine.
     pq.reset_launches()
     rdb = build_fused_node(groups=groups, peers=3,
@@ -3261,7 +3308,7 @@ def workers_plane(card: str, dev="cuda", groups=8) -> dict:
     finally:
         srv.stop()
         expect(rdb.close(), None, "aio rung close")
-    for n in (1, 2, 4):
+    for n in (1, 2):
         pq.reset_launches()                  # this rung's path starts here
         eng = RingEngine(work, f"rung{n}", n, groups, dev)
         node = eng.rdb.pipe.node
@@ -3487,6 +3534,567 @@ def replica_tier(card: str, dev="cuda", groups=2, writes=40) -> dict:
     return res
 
 
+# ---- phase 23 --------------------------------------------------------------
+
+# The Prometheus families of the elastic keyspace (scripts/check_prom.py
+# requires them of a --placement --reshard server).
+RESHARD_FAMILIES = (
+    "raftsql_reshard_splits", "raftsql_reshard_merges",
+    "raftsql_reshard_migrations", "raftsql_reshard_aborted",
+    "raftsql_reshard_resumed", "raftsql_reshard_epoch",
+    "raftsql_reshard_active", "raftsql_reshard_duration_split_count",
+    "raftsql_reshard_duration_merge_count",
+    "raftsql_reshard_duration_migrate_count",
+    "raftsql_placement_reshard_issued",
+    "raftsql_placement_reshard_refused")
+# scripts/bench_reshard.py's zipfian shape, and its artefact's hot-group
+# shares (bench_logs/reshard_zipfian_s0.json: the JAX package at G = 4,
+# 32 slots, on a CPU).
+ZIPF_KEYS, ZIPF_S, ZIPF_PUTS = 256, 1.2, 800
+ZIPF_JAX_SHARES = (0.4738, 0.3387)
+
+
+def _kv_raw(port, method, key, body=b"", headers=None):
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        c.request(method, f"/kv/{key}", body=body, headers=headers or {})
+        r = c.getresponse()
+        return r.status, dict(r.getheaders()), r.read()
+    finally:
+        c.close()
+
+
+def _metrics(port, prom=False):
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        c.request("GET", "/metrics?format=prom" if prom else "/metrics")
+        body = c.getresponse().read().decode()
+    finally:
+        c.close()
+    return body if prom else json.loads(body)
+
+
+def _check_prom(port, what) -> int:
+    """scripts/check_prom.py --url against a live server (a process of
+    its own; the script's round trip reads the JSON-to-exposition
+    mapping from the repo), then the reshard families in the
+    exposition.  Returns the script's exit code (0, or this raises)."""
+    r = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "scripts", "check_prom.py"),
+         "--url", f"http://127.0.0.1:{port}"], cwd=ROOT,
+        capture_output=True, text=True, timeout=120)
+    if r.returncode != 0:
+        raise AssertionError(f"{what}: check_prom.py exit {r.returncode}:"
+                             f"\n{r.stdout}{r.stderr}")
+    text = _metrics(port, prom=True)
+    missing = [f for f in RESHARD_FAMILIES
+               if f"\n{f} " not in text and f"\n{f}{{" not in text]
+    expect(missing, [], f"{what}: reshard families in /metrics?format=prom")
+    return r.returncode
+
+
+def _await_verb(plane, what, n_done, timeout=120.0):
+    """Wait until the plane's coordinator finished `n_done` verbs in all
+    (done or aborted) and is idle."""
+    until = time.monotonic() + timeout
+    while True:
+        c = plane.coord.counters
+        if not plane.coord.busy and (c["splits"] + c["merges"]
+                                     + c["migrations"] + c["aborted"]
+                                     >= n_done):
+            return
+        if time.monotonic() > until:
+            raise AssertionError(f"{what}: verb stuck: {plane.doc()}")
+        time.sleep(0.02)
+
+
+def _hot_share(keymap, hits) -> tuple:
+    loads = {}
+    for k, n in hits.items():
+        g = keymap.group_of(k)
+        loads[g] = loads.get(g, 0) + n
+    total = sum(loads.values()) or 1
+    return round(max(loads.values()) / total, 4), loads
+
+
+def _zipf_split_hottest(port, plane, pc, threads, card) -> dict:
+    """scripts/bench_reshard.py's zipfian load (256 keys, s = 1.2, 800
+    PUTs, random.Random(0)) from `threads` clients, each key written by
+    one client in order, then the placement controller's split_hottest;
+    the hot group's share of the load before and after, and every key's
+    last acked value read back under the new mapping."""
+    import random
+    from raftsql_tpu_torch.api.client import RaftSQLClient
+    rng = random.Random(0)
+    keys = [f"user{r}" for r in range(ZIPF_KEYS)]
+    draws = rng.choices(keys, weights=[1.0 / (r + 1) ** ZIPF_S
+                                       for r in range(ZIPF_KEYS)],
+                        k=ZIPF_PUTS)
+    hits = {}
+    for k in draws:
+        hits[k] = hits.get(k, 0) + 1
+    per = [[] for _ in range(threads)]
+    for i, k in enumerate(draws):
+        per[int(k[4:]) % threads].append((k, f"z{i}"))
+    last, errors = {}, []
+    mu = threading.Lock()
+
+    def client(i):
+        cli = RaftSQLClient([port], timeout_s=10.0, backoff_s=0.01)
+        try:
+            for k, v in per[i]:
+                try:
+                    cli.put_kv(k, v, deadline_s=60.0)
+                except Exception as e:                  # noqa: BLE001
+                    with mu:
+                        errors.append(repr(e))
+                    continue
+                with mu:
+                    last[k] = v
+        finally:
+            cli.close()
+
+    t0 = time.monotonic()
+    ths = [threading.Thread(target=client, args=(i,))
+           for i in range(threads)]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join()
+    load_s = time.monotonic() - t0
+    expect(errors, [], "zipfian PUTs")
+    before, loads0 = _hot_share(plane.keymap, hits)
+    c0 = dict(plane.coord.counters)
+    t0 = time.monotonic()
+    doc = pc.split_hottest()
+    if doc is None:
+        raise AssertionError("split_hottest issued no verb after the "
+                             "zipfian load")
+    _await_verb(plane, "split_hottest",
+                c0["splits"] + c0["merges"] + c0["migrations"]
+                + c0["aborted"] + 1)
+    verb_s = time.monotonic() - t0
+    expect(plane.coord.counters["splits"], c0["splits"] + 1,
+           "split_hottest: the split done")
+    after, loads1 = _hot_share(plane.keymap, hits)
+    cli = RaftSQLClient([port], timeout_s=10.0, backoff_s=0.01)
+    try:
+        for k, v in last.items():
+            expect(cli.get_kv(k, deadline_s=60.0), v,
+                   f"zipfian key {k} read back after split_hottest")
+    finally:
+        cli.close()
+    log(f"reshard zipfian: {ZIPF_PUTS} PUTs over {len(hits)} keys from "
+        f"{threads} threads in {load_s:.2f} s; split_hottest "
+        f"{doc['src']} -> {doc['dst']} "
+        f"({len(plane.keymap.slots_of(doc['dst']))} slots at dst after) "
+        f"in {verb_s:.2f} s; hot-group share "
+        f"{before} -> {after} (JAX artefact at G = 4, 32 slots: "
+        f"{ZIPF_JAX_SHARES[0]} -> {ZIPF_JAX_SHARES[1]}); loads before "
+        f"{dict(sorted(loads0.items()))} after {dict(sorted(loads1.items()))}"
+        f"; {len(last)} keys read back on {card}")
+    return {"before": before, "after": after, "load_s": load_s,
+            "verb_s": verb_s, "src": doc["src"], "dst": doc["dst"]}
+
+
+def _verbs_under_load(port, plane, rdb, threads, card) -> dict:
+    """`threads` clients PUT (and GET) their own keys through /kv while a
+    split, a merge and a migrate run through POST /reshard, one verb a
+    burst; after each verb the load stops and every key's last acked
+    value is read back."""
+    from raftsql_tpu_torch.api.client import RaftSQLClient
+    own = [dict() for _ in range(threads)]
+    errors, stop = [], threading.Event()
+    mu = threading.Lock()
+
+    def client(i):
+        cli = RaftSQLClient([port], timeout_s=10.0, backoff_s=0.01)
+        j = len(own[i])
+        try:
+            while not stop.is_set():
+                k, v = f"t{i}-k{j % 12}", f"t{i}-v{j}"
+                j += 1
+                try:
+                    cli.put_kv(k, v, deadline_s=60.0)
+                    own[i][k] = v
+                    if j % 3 == 0:
+                        got = cli.get_kv(k, deadline_s=60.0)
+                        if got != v:
+                            raise AssertionError(f"{k}: read {got!r} "
+                                                 f"after acking {v!r}")
+                except Exception as e:                  # noqa: BLE001
+                    with mu:
+                        errors.append(repr(e))
+        finally:
+            cli.close()
+
+    admin = RaftSQLClient([port], timeout_s=10.0, backoff_s=0.01)
+    node = rdb.pipe.node
+    out = {}
+
+    def burst(name, verb, src, dst, slots=None):
+        stop.clear()
+        ths = [threading.Thread(target=client, args=(i,))
+               for i in range(threads)]
+        for t in ths:
+            t.start()
+        time.sleep(0.5)
+        n = sum(plane.coord.counters[c] for c in
+                ("splits", "merges", "migrations", "aborted"))
+        t0 = time.monotonic()
+        admin.reshard(verb, src, dst, slots, deadline_s=60.0)
+        _await_verb(plane, name, n + 1)
+        verb_s = time.monotonic() - t0
+        time.sleep(0.3)
+        stop.set()
+        for t in ths:
+            t.join()
+        expect(errors, [], f"{name}: client errors under the verb")
+        acked = sum(len(o) for o in own)
+        for o in own:
+            for k, v in o.items():
+                expect(admin.get_kv(k, deadline_s=60.0), v,
+                       f"{name}: key {k} read back")
+        out[name] = {"verb_s": verb_s, "epoch": plane.keymap.epoch,
+                     "keys": acked}
+        log(f"reshard {name}: {verb} {src} -> {dst} under {threads} "
+            f"threads of /kv PUT+GET done in {verb_s:.2f} s, epoch "
+            f"{plane.keymap.epoch}; {acked} keys' last acked values read "
+            f"back on {card}")
+
+    try:
+        km = plane.keymap
+        live = km.live_groups()
+        src = max(live, key=lambda g: (len(km.slots_of(g)), -g))
+        dst = min((g for g in live if g != src),
+                  key=lambda g: (len(km.slots_of(g)), g))
+        owned = km.slots_of(src)
+        burst("split", "split", src, dst, owned[:len(owned) // 2])
+        live = km.live_groups()
+        src = min(live, key=lambda g: (len(km.slots_of(g)), g))
+        dst = min((g for g in live if g != src),
+                  key=lambda g: (len(km.slots_of(g)), g))
+        burst("merge", "merge", src, dst)
+        expect(src in km.retired, True, "merge: source retired")
+        g = km.live_groups()[0]
+        target = (node.leader_of(g) + 1) % 3
+        burst("migrate", "migrate", g, target)
+        expect(node.leader_of(g), target, "migrate: the leader cut over")
+    finally:
+        admin.close()
+    return out
+
+
+def reshard_engine(card: str, dev="cuda", groups=8,
+                   threads=16) -> dict:
+    """Phase 23 (a) (see the module docstring)."""
+    from raftsql_tpu_torch.api.aio import AioSQLServer
+    from raftsql_tpu_torch.reshard.plane import ReshardPlane
+    from raftsql_tpu_torch.server.main import (attach_placement,
+                                               attach_reshard,
+                                               build_fused_node)
+    k1 = "pallas_quorum_commit_index"
+    work = os.path.join(ROOT, "build", "chip_smoke_reshard")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    real_k1, captured = getattr(pq, k1), {}
+
+    def spy(*args, **kw):
+        if k1 not in captured and bool(args[5].any()):
+            captured[k1] = ([a.clone() for a in args], dict(kw))
+        return real_k1(*args, **kw)
+
+    pq.reset_launches()                     # the reshard path starts here
+    setattr(pq, k1, spy)
+    try:
+        rdb = build_fused_node(groups=groups, peers=3,
+                               data_prefix=os.path.join(work, "engine"),
+                               commit_rule="pallas", device=dev)
+    except BaseException:
+        setattr(pq, k1, real_k1)
+        raise
+    node = rdb.pipe.node
+    res = {}
+    pc = plane = srv = None
+    try:
+        expect(all(w.is_native for w in node.wals), True,
+               "reshard engine: native WALs")
+        pc = attach_placement(rdb, interval_s=3600.0)
+        plane = attach_reshard(rdb, nslots=64,
+                               ship_dir=os.path.join(work, "ship"))
+        srv = AioSQLServer(_free_port(), rdb, host="127.0.0.1")
+        srv.start()
+        port = srv.port
+        until = time.monotonic() + 120.0
+        while any(node.leader_of(g) < 0 for g in range(groups)):
+            if time.monotonic() > until:
+                raise AssertionError("reshard engine: no leaders")
+            time.sleep(0.05)
+        res["zipf"] = _zipf_split_hottest(port, plane, pc, threads, card)
+        res["verbs"] = _verbs_under_load(port, plane, rdb, threads, card)
+        # Fail-closed surfaces.
+        st, h, body = _kv_raw(port, "GET", "t0-k0",
+                              headers={"X-Raft-Keymap-Epoch": "0"})
+        expect(st, 409, "stale-epoch /kv GET")
+        expect(json.loads(body)["keymap"], plane.keymap.to_doc(),
+               "the 409's keymap document")
+        expect(int(h["X-Raft-Keymap-Epoch"]), plane.keymap.epoch,
+               "the 409's epoch header")
+        s0 = plane.keymap.slot_of("t0-k0")
+        plane.keymap.freeze([s0])
+        try:
+            st, h, _ = _kv_raw(port, "PUT", "t0-k0", b"frozen")
+        finally:
+            plane.keymap.unfreeze([s0])
+        expect((st, bool(h.get("Retry-After"))), (503, True),
+               "frozen-slot /kv PUT")
+        m = _metrics(port)["reshard"]
+        expect((m["splits"], m["merges"], m["migrations"], m["aborted"],
+                m["epoch"]), (2, 1, 1, 0, plane.keymap.epoch),
+               "reshard counters in /metrics")
+        res["check_prom"] = _check_prom(port, "reshard engine")
+        want = plane.keymap.to_doc()
+        rebuilt = ReshardPlane(rdb, nslots=64, ship_dir=plane.ship_dir)
+        rebuilt.recover_from_db()
+        rdb.reshard = plane
+        expect(rebuilt.keymap.to_doc(), want,
+               "the keymap re-folded from the journal")
+        expect(rebuilt.coord.busy, False, "no verb left in flight")
+        res["epoch"] = plane.keymap.epoch
+        res["metrics"] = m
+    finally:
+        if srv is not None:
+            srv.stop()
+        if plane is not None:
+            plane.stop()
+        if pc is not None:
+            pc.stop()
+        expect(rdb.close(), None, "reshard engine close")
+        setattr(pq, k1, real_k1)
+    res["launches"] = pq.launches[k1]       # ... and ends here
+    res["steps"] = node._device_steps
+    expect(res["launches"], res["steps"], "K1 launches = device steps, "
+                                          "reshard path")
+    if res["steps"] <= 0 or k1 not in captured:
+        raise AssertionError("the reshard engine never launched K1 on a "
+                             "leader row")
+    res["captured"] = captured
+    log(f"reshard engine: 409 with the current keymap, 503 + Retry-After "
+        f"on a frozen slot, counters {m['splits']} splits / {m['merges']} "
+        f"merges / {m['migrations']} migrations at epoch {res['epoch']}, "
+        f"check_prom.py exit {res['check_prom']}, the keymap re-folded "
+        f"from the journal; K1 {res['launches']} launches = "
+        f"{res['steps']} device steps on {card}")
+    shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
+def reshard_cli(card: str, dev="cuda", groups=8, keys=64) -> dict:
+    """Phase 23 (b) (see the module docstring)."""
+    from raftsql_tpu_torch.api.client import RaftSQLClient
+    from raftsql_tpu_torch.obs.export import validate_chrome_trace
+    work = os.path.join(ROOT, "build", "chip_smoke_reshard_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    port = _free_port()
+    t0 = time.monotonic()
+    p = _spawn(["--fused", "--workers", "2", "--reshard", "--trace",
+                "--groups", str(groups), "--port", str(port),
+                "--device", dev], work, "server", {})
+    workers, res = [], {}
+    cli = RaftSQLClient([port], timeout_s=10.0, backoff_s=0.01)
+
+    def shm(n=32):
+        best = {}
+        for i in range(n):
+            cli.get("SELECT count(*) FROM t", group=i % groups,
+                    deadline_s=60.0)
+            r = _metrics(port)["reads"]
+            for k in ("shm_hits", "shm_fallbacks", "shm_keymap_adoptions"):
+                best[k] = max(best.get(k, 0), r[k])
+        return best
+
+    try:
+        _wait_healthy(port, 180.0)
+        res["up_s"] = time.monotonic() - t0
+        workers = _children(p.pid)
+        expect(len(workers), 2, "reshard CLI: worker processes")
+        only_engine_on_card(p.pid, workers, "reshard CLI", apps_want=2)
+        for g in range(groups):
+            cli.put("CREATE TABLE t (v text)", group=g, deadline_s=60.0)
+            cli.put("INSERT INTO t (v) VALUES ('x')", group=g,
+                    deadline_s=60.0)
+        kv = {f"k{i}": f"v{i}" for i in range(keys)}
+        for k, v in kv.items():
+            cli.put_kv(k, v, deadline_s=60.0)
+        before = shm()
+        if before["shm_hits"] <= 0 or before["shm_keymap_adoptions"]:
+            raise AssertionError(f"reshard CLI: shm before the split "
+                                 f"{before}")
+        doc = cli.reshard("split", 0, 1, [0, 8], deadline_s=60.0)
+        expect(doc["verb"], "split", "POST /reshard at a worker")
+        until = time.monotonic() + 120.0
+        while _metrics(port)["reshard"]["splits"] < 1:
+            if time.monotonic() > until:
+                raise AssertionError("reshard CLI: the split never "
+                                     "finished")
+            time.sleep(0.05)
+        after = shm(48)
+        if after["shm_keymap_adoptions"] < 1 \
+                or after["shm_fallbacks"] <= before["shm_fallbacks"] \
+                or after["shm_hits"] <= before["shm_hits"]:
+            raise AssertionError(f"reshard CLI: shm across the epoch: "
+                                 f"before {before} after {after}")
+        for k, v in kv.items():
+            expect(cli.get_kv(k, deadline_s=60.0), v,
+                   f"reshard CLI: key {k} read back")
+        expect(cli.keymap_epoch(), 1, "reshard CLI: the client's epoch")
+        st, _, body = _kv_raw(port, "GET", "k0",
+                              headers={"X-Raft-Keymap-Epoch": "0"})
+        expect((st, json.loads(body)["keymap"]["epoch"]), (409, 1),
+               "reshard CLI: stale-epoch /kv GET at a worker")
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            c.request("GET", "/trace")
+            trace = json.loads(c.getresponse().read())
+        finally:
+            c.close()
+        validate_chrome_trace(trace)
+        names = {str(e.get("name")) for e in trace["traceEvents"]}
+        expect({"ring.kv", "ring.reshard"} <= names, True,
+               "worker trace segments (ring.kv, ring.reshard) in GET "
+               "/trace")
+        res.update(before=before, after=after,
+                   trace_events=len(trace["traceEvents"]))
+    except BaseException:
+        log(f"--- reshard CLI log tail ---\n{_tail(work, 'server')}")
+        raise
+    finally:
+        cli.close()
+        code = _stop(p)
+        until = time.monotonic() + 30.0
+        while any(_alive(w) for w in workers) and time.monotonic() < until:
+            time.sleep(0.1)
+        left = [w for w in workers if _alive(w)]
+        for w in left:
+            os.kill(w, signal.SIGKILL)
+    expect(code, 0, "reshard CLI: exit code after SIGTERM")
+    expect(left, [], "reshard CLI: workers left after the engine's exit")
+    log(f"reshard CLI: --workers 2 --reshard --trace up in "
+        f"{res['up_s']:.1f} s; {keys} keyed PUTs through the workers, a "
+        f"split by POST /reshard at a worker, every key read back, 409 "
+        f"at a stale epoch; shm before {before}, after {after} (failed "
+        f"closed across the epoch, served again once adopted); GET /trace "
+        f"{res['trace_events']} events with the workers' ring spans; "
+        f"SIGTERM exit 0 on {card}")
+    shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
+def reshard_chaos(card: str, dev="cuda") -> dict:
+    """Phase 23 (c) (see the module docstring)."""
+    from raftsql_tpu_torch.chaos import run as crun
+    from raftsql_tpu_torch.chaos import schedule as S
+    from raftsql_tpu_torch.runtime.hostplane import ClusterHostPlane
+    k1 = "pallas_quorum_commit_index"
+    steps = [0]
+    real = ClusterHostPlane._readback       # one call per device dispatch
+
+    def counted(*a, **kw):
+        steps[0] += 1
+        return real(*a, **kw)
+
+    pq.reset_launches()                     # the reshard chaos path
+    ClusterHostPlane._readback = staticmethod(counted)
+    try:
+        t0 = time.monotonic()
+        ok, reports = crun.reshard_gauntlet(0, runs=RUNS, device=dev,
+                                            commit_rule="pallas")
+        wall = time.monotonic() - t0
+        t1 = time.monotonic()
+        unrepaired = {}
+        for broken in (True, False):
+            plan = S.falsification_reshard_plan(0, broken, repaired=False)
+            r = crun.run_fused(plan, device=dev, commit_rule="pallas")
+            unrepaired["broken" if broken else "control"] = \
+                r["result_digest"]
+        wall_u = time.monotonic() - t1
+    finally:
+        ClusterHostPlane._readback = staticmethod(real)
+    launches = pq.launches[k1]              # ... and ends here
+    if not ok:
+        raise AssertionError("the reshard gauntlet failed (see CHAOS FAIL "
+                             "above)")
+    for r in reports:
+        got = (r["plan_digest"], r["schedule_digest"], r["result_digest"])
+        expect(got, RESHARD_DIGESTS["nemesis"], "reshard nemesis digests")
+        log(f"reshard chaos run {r['run'] + 1}: plan={got[0]} "
+            f"schedule={got[1]} result={got[2]}; splits "
+            f"{r['reshard_splits']}, merges {r['reshard_merges']}, "
+            f"migrations {r['reshard_migrations']}, aborted "
+            f"{r['reshard_aborted']}, resumed {r['reshard_resumed']}, "
+            f"coordinator kills {r['coordinator_kills']}, fork faults "
+            f"{r['fork_faults']}, epoch {r['keymap_epoch']}, committed "
+            f"{r['committed_entries']}; {r['wall_s']:.2f} s on {card}")
+    expect(unrepaired, RESHARD_DIGESTS["unrepaired"],
+           "the JAX package's unrepaired falsification pair")
+    expect(launches, steps[0], "K1 launches against device steps on the "
+                               "reshard chaos path")
+    if launches <= 0:
+        raise AssertionError("the reshard chaos path never launched K1")
+    log(f"reshard chaos: gauntlet (nemesis x{RUNS} and the repaired "
+        f"falsification pair: broken flip caught, control passed) "
+        f"{wall:.2f} s; the JAX package's unrepaired pair "
+        f"{wall_u:.2f} s, both passed (its broken flip NOT caught, as on "
+        f"the CPU); K1 {launches} launches = {steps[0]} device steps on "
+        f"{card}")
+    return {"launches": launches, "steps": steps[0], "wall": wall,
+            "walls": [r["wall_s"] for r in reports]}
+
+
+def tooling(card: str, dev="cuda") -> dict:
+    """Phase 23 (d) (see the module docstring)."""
+    from raftsql_tpu_torch.native.sanitize import run_one
+    from raftsql_tpu_torch.obs.export import validate_chrome_trace
+    from raftsql_tpu_torch.obs.trace_demo import run_demo
+    work = os.path.join(ROOT, "build", "chip_smoke_tooling")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.monotonic()
+    doc = run_demo(os.path.join(work, "trace.json"), device=dev)
+    demo_s = time.monotonic() - t0
+    with open(os.path.join(work, "trace.json")) as f:
+        validate_chrome_trace(json.load(f))
+    phases = {e.get("ph") for e in doc["traceEvents"]}
+    expect("C" in phases and bool(phases & {"X", "B", "E"}), True,
+           "trace demo: counter tracks and spans")
+    res = {"trace_demo_s": demo_s, "trace_events": len(doc["traceEvents"])}
+    for san in ("asan", "ubsan", "tsan"):
+        t0 = time.monotonic()
+        run = run_one(san)                 # raises on a build or a report
+        res[san] = (time.monotonic() - t0, run)
+    log(f"tooling: trace demo (4 groups x 3 peers, 200 ticks, traced) "
+        f"{res['trace_events']} events, valid, in {demo_s:.1f} s; WAL "
+        f"stress under sanitizers (build + run, run): "
+        + ", ".join(f"{k} {res[k][0]:.1f} s / {res[k][1]:.2f} s"
+                    for k in ("asan", "ubsan", "tsan"))
+        + f", no report, on {card}")
+    shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
+def reshard_plane(card: str, dev="cuda") -> dict:
+    """Phase 23: (a), (b), (c) and (d)."""
+    eng = reshard_engine(card, dev)
+    cli = reshard_cli(card, dev)
+    ch = reshard_chaos(card, dev)
+    tools = tooling(card, dev)
+    return {"engine": eng, "cli": cli, "chaos": ch, "tooling": tools,
+            "launches": eng["launches"] + ch["launches"],
+            "steps": eng["steps"] + ch["steps"],
+            "captured": eng.pop("captured")}
+
+
 # ---- main ------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -3496,7 +4104,7 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="smoke run on one CUDA card")
     ap.add_argument("--only", default="",
-                    help="comma separated phases (3-22) to run after the "
+                    help="comma separated phases (3-23) to run after the "
                          "build; no result line is printed")
     only = {int(x) for x in ap.parse_args(argv).only.split(",") if x}
     t_start = time.monotonic()
@@ -3596,6 +4204,11 @@ def main(argv=None) -> int:
     if want(22):
         rtier = replica_tier(card)
         done("replica tier")
+    if want(23):
+        rsh = reshard_plane(card)
+        # K1 on the reshard engine's fused steps: R = 24 rows, P = 3.
+        reshard_kern = main_path_kernels(card, rsh.pop("captured"))
+        done("reshard plane")
     if only:
         log(f"development run of phases {sorted(only)}: no result line")
         return 0
@@ -3609,12 +4222,13 @@ def main(argv=None) -> int:
         k2: mtick["launches"][k2]}
     pod_launches = {k1: pdry["launches"], k2: 0}
     workers_launches = {k1: wk["launches"], k2: 0}
+    reshard_launches = {k1: rsh["launches"], k2: 0}
     launches = {
         k1: (tick["launches"][k1] + k1_server + place["launches"]
              + ch["launches"]["default"] + ch["launches"]["nemesis"]
              + node_launches[k1] + k1_overload + durable["launches"]
              + mesh_launches[k1] + pod_launches[k1]
-             + workers_launches[k1]),
+             + workers_launches[k1] + reshard_launches[k1]),
         k2: (tick["launches"][k2] + mem["launches"][k2] + node_launches[k2]
              + mesh_launches[k2])}
     log(f"launches by path: fused tick {tick['launches']}, membership "
@@ -3625,7 +4239,9 @@ def main(argv=None) -> int:
         f"{durable['launches']}, mesh tick {mtick['launches']}, durable "
         f"mesh K1 {dmesh['launches']}, mesh chaos K1 {mch['launches']}, "
         f"pod K1 {pdry['launches']}, workers K1 {wk['launches']} "
-        f"({wk['steps']} device steps)")
+        f"({wk['steps']} device steps), reshard K1 {rsh['launches']} "
+        f"({rsh['steps']} device steps: engine {rsh['engine']['launches']}"
+        f", chaos {rsh['chaos']['launches']})")
     log(f"mesh tick ms/tick mesh {mtick['ms_per_tick']['mesh']:.2f} fused "
         f"{mtick['ms_per_tick']['fused']:.2f}; durable mesh "
         f"{dmesh['commits_per_s']:.0f} commits/s against fused arm (b) "
@@ -3648,6 +4264,17 @@ def main(argv=None) -> int:
         + f"; workers server PUT p50 {wk['put_p50']:.2f} ms p99 "
         f"{wk['put_p99']:.2f} ms; replica chaos runs "
         f"{[round(w, 1) for w in rtier['walls']]} s on {card}")
+    z, rv = rsh["engine"]["zipf"], rsh["engine"]["verbs"]
+    log(f"reshard: zipfian hot-group share {z['before']} -> {z['after']} "
+        f"(JAX artefact {ZIPF_JAX_SHARES[0]} -> {ZIPF_JAX_SHARES[1]}); "
+        f"verbs under 16 threads of /kv (s): split_hottest "
+        f"{z['verb_s']:.2f}, split {rv['split']['verb_s']:.2f}, merge "
+        f"{rv['merge']['verb_s']:.2f}, migrate {rv['migrate']['verb_s']:.2f};"
+        f" CLI up {rsh['cli']['up_s']:.1f} s; chaos runs "
+        f"{[round(w, 2) for w in rsh['chaos']['walls']]} s, gauntlet "
+        f"{rsh['chaos']['wall']:.2f} s; trace demo "
+        f"{rsh['tooling']['trace_demo_s']:.1f} s, sanitizers clean on "
+        f"{card}")
     rows = []
     for name, r in kern.items():
         row = {"name": name, "route": "cuda",
@@ -3664,12 +4291,14 @@ def main(argv=None) -> int:
                    durable["launches"] if name == k1 else 0,
                "mesh_path_launches": mesh_launches[name],
                "pod_path_launches": pod_launches[name],
-               "workers_path_launches": workers_launches[name]}
+               "workers_path_launches": workers_launches[name],
+               "reshard_path_launches": reshard_launches[name]}
         for path, got in (("node_path", node_kern),
                           ("overload_path", over_kern),
                           ("mesh_path", mesh_kern),
                           ("pod_path", pod_kern),
-                          ("workers_path", workers_kern)):
+                          ("workers_path", workers_kern),
+                          ("reshard_path", reshard_kern)):
             if name in got:
                 n = got[name]
                 row[path] = {k: n[k] for k in (

@@ -514,6 +514,13 @@ class _Conn(asyncio.Protocol):
             return ((b"X-Raft-Keymap-Epoch",
                      str(plane.keymap.epoch).encode()),)
 
+        if hasattr(plane, "kv"):
+            # A ring worker (runtime/ring.py RingKeyspace): the engine
+            # routes the key and proposes or reads it in one request.
+            await self._do_kv_ring(plane, method, key, headers, body,
+                                   _epoch_extra)
+            return
+
         fut = None
         sql, group = "", 0
         dl = headers["deadline"]
@@ -598,6 +605,62 @@ class _Conn(asyncio.Protocol):
             extra = extra + ((b"X-Raft-Served-Mode",
                               served["served"].encode()),)
         val = plane.kv_value(rows)
+        if val is None:
+            self._finish(_resp(404, b"Not Found", b"", extra=extra))
+        else:
+            self._finish(_resp(200, b"OK", val.encode("utf-8"),
+                               extra=extra))
+
+    async def _do_kv_ring(self, plane, method: bytes, key: str,
+                          headers: dict, body: bytes,
+                          epoch_extra) -> None:
+        """/kv at a ring worker: one ring request (op 7) carries the
+        key to the engine's reshard plane; its answers and refusals map
+        onto the responses the in-process path gives."""
+        import json as _json
+        from raftsql_tpu_torch.reshard.plane import (FrozenSlot,
+                                                     ReshardPlane,
+                                                     WrongEpoch)
+        rdb = self.srv.rdb
+        dl = headers["deadline"]
+        if self._shed_expired(dl):
+            return
+        put = method == b"PUT"
+        try:
+            got = await self.srv.loop.run_in_executor(
+                self.srv._read_pool, lambda: plane.kv(
+                    "PUT" if put else "GET", key,
+                    value=body.decode("utf-8") if put else None,
+                    epoch=headers["kepoch"], mode=headers["mode"],
+                    session=headers["session"], token=headers["token"],
+                    timeout=self.srv.timeout_s, deadline_ms=dl))
+        except WrongEpoch as e:
+            payload = (_json.dumps(
+                {"error": str(e), "keymap": plane.keymap.to_doc()},
+                sort_keys=True) + "\n").encode()
+            self._finish(_resp(409, b"Conflict", payload,
+                               b"application/json", extra=epoch_extra()))
+            return
+        except (FrozenSlot, Overloaded, TimeoutError) as e:
+            self._finish(_refusal_resp(e))
+            return
+        except NotLeaderError as e:
+            extra = ((b"X-Raft-Leader", str(e.leader).encode()),) \
+                if e.leader > 0 else ()
+            self._finish(_resp(421, b"Misdirected Request",
+                               (str(e) + "\n").encode(), extra=extra))
+            return
+        except Exception as e:                      # noqa: BLE001
+            log.info("client error: %s", e)
+            self._finish(_resp(400, b"Bad Request",
+                               (str(e) + "\n").encode()))
+            return
+        extra = _session_extra(rdb, got["group"]) + epoch_extra()
+        if put:
+            self._finish(b"HTTP/1.1 204 No Content\r\n" + b"".join(
+                k + b": " + v + b"\r\n" for k, v in extra) + b"\r\n")
+            return
+        val = ReshardPlane.kv_value(got["rows"])
         if val is None:
             self._finish(_resp(404, b"Not Found", b"", extra=extra))
         else:

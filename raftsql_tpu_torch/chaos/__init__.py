@@ -2,8 +2,7 @@
 fault schedules, crash/partition/disk-fault injection, and invariant
 checking over the live engine.
 
-Port of raftsql_tpu/chaos/ (all but its mesh, pod, replica and reshard
-planes): the dense message plane
+Port of raftsql_tpu/chaos/: the dense message plane
 (transport/faults.py masks) for seeded drops, delays and partitions;
 the storage I/O seam (storage/fsio.py) for failed fsyncs, torn writes,
 ENOSPC, fsync stalls and unsynced-tail loss; hard process-crash

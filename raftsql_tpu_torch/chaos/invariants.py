@@ -20,8 +20,10 @@ package).  Four invariants (raft paper §5.4 + the durability contract):
 plus a single-register-per-key LINEARIZABILITY check over the KV
 plane's completed PUT/GET history, SESSION CONSISTENCY for watermark
 reads (the read nemesis), TRANSFER AVAILABILITY (the transfer
-nemesis), REMOVED-QUORUM SAFETY (the membership plane's own invariant)
-and the post-snapshot CONVERGENCE of the node plane's snapshot family.
+nemesis), REMOVED-QUORUM SAFETY (the membership plane's own invariant),
+the post-snapshot CONVERGENCE of the node plane's snapshot family, and
+the elastic keyspace's NO-ACKED-WRITE-LOST and NO-AVAILABILITY-LOSS
+(the reshard nemesis).
 Violations raise `InvariantViolation` (an AssertionError so pytest
 reports them as failures, not errors).
 """
@@ -514,3 +516,138 @@ class TransferAvailability:
                 f"TRANSFER-AVAILABILITY: transfer of group {group} "
                 f"issued at tick {t0} never resolved by end of run "
                 f"({tick} ticks)")
+
+
+class NoAckedWriteLost:
+    """Elastic-keyspace safety: every acked write stays readable
+    in EXACTLY ONE post-reshard group.  Every violation message carries
+    the NO-ACKED-WRITE-LOST token so the falsification harness can
+    match on it precisely.
+
+    The runner feeds it the client ack stream (`note_ack` fires when
+    peer 0 applies a keyed write that was not bounced by the reshard
+    fence) and asks for two checks:
+
+      * `check_moved` at the instant a router flip lands: the moved
+        keys' latest acked values must already be served by the NEW
+        owner — a coordinator that flipped before the destination
+        durably applied the copies fails here (the broken_flip
+        falsification variant);
+      * `check_exclusive` at verb completion and after every restart
+        with no verb in flight (the WAL-fold post-mortem: the runner's
+        keyed state was just rebuilt from the replayed logs): each
+        acked key's latest value is served by its owner and by NO other
+        group — a half-cleaned source or a half-copied destination
+        fails here.
+    """
+
+    def __init__(self):
+        self.acked: Dict[str, str] = {}    # key -> latest acked value
+        self.moved_checks = 0
+        self.exclusive_checks = 0
+
+    def note_ack(self, key: str, value: str) -> None:
+        self.acked[key] = value
+
+    def check_moved(self, moved_keys, dst: int, dst_kv: Dict[str, str],
+                    context: str = "") -> None:
+        for k in sorted(moved_keys):
+            want = self.acked.get(k)
+            if want is None:
+                continue                   # never acked: nothing owed
+            got = dst_kv.get(k)
+            self.moved_checks += 1
+            if got != want:
+                raise InvariantViolation(
+                    f"NO-ACKED-WRITE-LOST: router flipped key {k!r} to "
+                    f"group {dst} but the acked value {want!r} is not "
+                    f"there (new owner serves {got!r}) — the flip "
+                    f"outran the copy fence{context}")
+
+    def check_exclusive(self, keymap, gkvs: Dict[int, Dict[str, str]],
+                        context: str = "") -> None:
+        for k in sorted(self.acked):
+            want = self.acked[k]
+            owner = keymap.group_of(k)
+            got = gkvs.get(owner, {}).get(k)
+            self.exclusive_checks += 1
+            if got != want:
+                raise InvariantViolation(
+                    f"NO-ACKED-WRITE-LOST: acked key {k!r}={want!r} not "
+                    f"served by its owner group {owner} (serves "
+                    f"{got!r}){context}")
+            for g, kv in gkvs.items():
+                if g != owner and k in kv:
+                    raise InvariantViolation(
+                        f"NO-ACKED-WRITE-LOST: key {k!r} readable in "
+                        f"group {g} AND its owner {owner} — reshard "
+                        f"cleanup left a duplicate shard{context}")
+
+
+class NoAvailabilityLoss:
+    """Elastic-keyspace availability: resharding one key range
+    never takes the REST of the keyspace down, and verbs always
+    resolve.  Every violation message carries the NO-AVAILABILITY-LOSS
+    token.
+
+    Probe writes to keys outside the moving range, armed only in
+    fault-free air while a verb is active, must commit within
+    `probe_ticks`.  A verb unresolved `verb_deadline_ticks` after issue
+    (or still in flight at end of run) is a violation — a wedged
+    coordinator is a permanently frozen key range.  Crashes void armed
+    probes (the client died with the process) and restart the active
+    verb's clock (recovery legitimately takes time)."""
+
+    def __init__(self, probe_ticks: int, verb_deadline_ticks: int):
+        self.probe_ticks = probe_ticks
+        self.verb_deadline_ticks = verb_deadline_ticks
+        self._probes: Dict[str, Tuple[int, str]] = {}
+        self._verb: Optional[Tuple[int, int]] = None  # (issue_tick, id)
+        self.probes_confirmed = 0
+
+    # -- verb lifecycle ------------------------------------------------
+    def verb_started(self, tick: int, vid: int) -> None:
+        self._verb = (tick, vid)
+
+    def verb_resolved(self) -> None:
+        self._verb = None
+
+    def note_crash(self, tick: int) -> None:
+        self._probes.clear()
+        if self._verb is not None:
+            self._verb = (tick, self._verb[1])
+
+    # -- probes --------------------------------------------------------
+    def arm_probe(self, tick: int, key: str, value: str) -> None:
+        self._probes[value] = (tick + self.probe_ticks, key)
+
+    def probe_committed(self, value: str) -> None:
+        if self._probes.pop(value, None) is not None:
+            self.probes_confirmed += 1
+
+    # -- per-tick / end-of-run checks ----------------------------------
+    def check(self, tick: int) -> None:
+        for value, (dl, key) in self._probes.items():
+            if tick > dl:
+                raise InvariantViolation(
+                    f"NO-AVAILABILITY-LOSS: probe write {value!r} to "
+                    f"key {key!r} (outside the moving range) did not "
+                    f"commit within {self.probe_ticks} ticks of a "
+                    f"reshard verb — the verb took the rest of the "
+                    f"keyspace down with it")
+        if self._verb is not None:
+            t0, vid = self._verb
+            if tick - t0 > self.verb_deadline_ticks:
+                raise InvariantViolation(
+                    f"NO-AVAILABILITY-LOSS: reshard verb {vid} issued "
+                    f"at tick {t0} still unresolved at tick {tick} "
+                    f"(bound {self.verb_deadline_ticks}) — its key "
+                    f"range is frozen indefinitely")
+
+    def final_check(self, tick: int) -> None:
+        if self._verb is not None:
+            t0, vid = self._verb
+            raise InvariantViolation(
+                f"NO-AVAILABILITY-LOSS: reshard verb {vid} issued at "
+                f"tick {t0} never resolved by end of run ({tick} "
+                f"ticks)")

@@ -5,6 +5,7 @@
     python -m raftsql_tpu_torch.chaos.run --family reads --seed 3
     python -m raftsql_tpu_torch.chaos.run --procs --seed 0
     python -m raftsql_tpu_torch.chaos.run --overload --seed 0
+    python -m raftsql_tpu_torch.chaos.run --reshard --seed 0
     python -m raftsql_tpu_torch.chaos.run --reads --no-procs
     RAFTSQL_SHARD_SLOTS=8 python -m raftsql_tpu_torch.chaos.run \
         --family mesh_skew
@@ -46,14 +47,14 @@ identical schedule (or plan) + result digests, and every family's
 signature faults must have fired.  The TCP families cross real kernel
 sockets, so arrival interleaving is not virtualizable: their plan is
 deterministic and their invariants must hold, but the committed history
-is not bit-reproducible, so they run once.  The JAX package's reshard
-family needs a plane this port has not reached yet.
+is not bit-reproducible, so they run once.
 
---reads, --transfers, --quorum and --overload are the gauntlets: the
-family twice, then its falsification pairs (a deliberately broken lease
-bound, transfer kernel, quorum geometry or a missing admission bound
-must be CAUGHT by the invariants, and the same schedule with the
-correct setting must pass).  --reads and --transfers end with their
+--reads, --transfers, --quorum, --overload and --reshard are the
+gauntlets: the family twice, then its falsification pairs (a
+deliberately broken lease bound, transfer kernel, quorum geometry, a
+missing admission bound or a premature reshard router flip must be
+CAUGHT by the invariants, and the same schedule with the correct
+setting must pass).  --reads and --transfers end with their
 process-plane legs (ProcReadChaosRunner, ProcTransferChaosRunner over
 generate_procs(seed, ticks=60)) unless --no-procs.
 
@@ -109,7 +110,8 @@ def runner_class(plan):
             S.ReadNemesisPlan: C.ReadNemesisRunner,
             S.QuorumNemesisPlan: C.QuorumChaosRunner,
             S.TransferNemesisPlan: C.TransferChaosRunner,
-            S.OverloadNemesisPlan: C.OverloadChaosRunner}[type(plan)]
+            S.OverloadNemesisPlan: C.OverloadChaosRunner,
+            S.ReshardNemesisPlan: C.ReshardChaosRunner}[type(plan)]
 
 
 def run_fused(plan, steps: int = 1, device="cuda",
@@ -276,6 +278,9 @@ def falsification_arms(family: str) -> list:
                       ("OVERLOAD-MEMORY",),
                       lambda r: r["committed_entries"] > 0
                       and r["overload_rejected"] > 0)],
+        "reshard": [("premature-flip", S.falsification_reshard_plan,
+                     ("NO-ACKED-WRITE-LOST",),
+                     lambda r: r["reshard_splits"] >= 1)],
     }[family]
 
 
@@ -569,6 +574,67 @@ def run_overload(seed: int, runs: int = 2, device="cuda",
     return 0 if ok else 1
 
 
+def reshard_gauntlet(seed: int, runs: int = 2, device="cuda",
+                     commit_rule=None):
+    """The elastic-keyspace gauntlet.  The reshard nemesis
+    (generate_reshard: seeded split/merge/migrate verbs racing
+    partitions, drops, a whole-cluster crash+restart, coordinator
+    SIGKILL mid-verb and a disk fault on the migrate snapshot ship,
+    under live acked-PUT load) `runs` times: plan + result digests must
+    reproduce, NoAckedWriteLost / NoAvailabilityLoss (plus the standing
+    election-safety / durability / linearizability suite) must hold, and
+    the run must exercise every verb, a coordinator kill+recovery and
+    the fork-fault abort.  Then the falsification pair
+    (falsification_reshard_plan): a coordinator that flips the router
+    BEFORE the destination group applied the copied rows must be caught
+    by NoAckedWriteLost, and the same schedule with the correct
+    coordinator must complete the split.  Returns (ok, reports), each
+    report with its run's wall time (`wall_s`)."""
+    from raftsql_tpu_torch.chaos import schedule as S
+    kw = dict(device=device, commit_rule=commit_rule)
+    plan = S.generate_reshard(seed)
+    ok = True
+    reports = []
+    for run in range(runs):
+        t0 = time.monotonic()
+        r = run_fused(plan, **kw)
+        r["wall_s"] = time.monotonic() - t0
+        r["run"] = run
+        reports.append(r)
+        print(json.dumps(r, sort_keys=True))
+        ok &= _check(r["reshard_splits"] >= 1
+                     and r["reshard_merges"] >= 1
+                     and r["reshard_migrations"] >= 1,
+                     f"reshard: a verb family never completed ({r})")
+        ok &= _check(r["coordinator_kills"] >= 1
+                     and r["reshard_resumed"] >= 1,
+                     f"reshard: no SIGKILL+journal-recovery cycle ({r})")
+        ok &= _check(r["fork_faults"] >= 1
+                     and r["reshard_aborted"] >= 1,
+                     f"reshard: the disk-fault abort path never fired "
+                     f"({r})")
+    digests = {(r["plan_digest"], r["result_digest"]) for r in reports}
+    ok &= _check(len(digests) == 1,
+                 f"reshard: non-reproducible: {digests}")
+    ok &= run_falsification("reshard", seed, **kw)
+    return ok, reports
+
+
+def run_reshard(seed: int, runs: int = 2, device="cuda",
+                commit_rule=None) -> int:
+    """`--reshard`: the elastic-keyspace gauntlet (reshard_gauntlet)."""
+    ok, reports = reshard_gauntlet(seed, runs=runs, device=device,
+                                   commit_rule=commit_rule)
+    if ok:
+        r0 = reports[0]
+        print(f"chaos reshard ok: seed={seed} "
+              f"plan={r0['plan_digest']} "
+              f"schedule={r0['schedule_digest']} "
+              f"result={r0['result_digest']} (x{runs} identical) "
+              f"falsification=caught")
+    return 0 if ok else 1
+
+
 def run_pod_plan(plan, device="cuda") -> dict:
     """One run of PodChaosPlan `plan` (chaos/pod.py PodChaosRunner, its
     children on `device`) in a fresh temporary work dir."""
@@ -833,6 +899,9 @@ def main(argv=None) -> int:
                          "deadlines and slow-fsync stalls against the "
                          "bounded admission controller, run twice + the "
                          "no-admission falsification pair")
+    ap.add_argument("--reshard", action="store_true",
+                    help="the elastic-keyspace gauntlet: the reshard "
+                         "nemesis twice, then its falsification pair")
     ap.add_argument("--pod", action="store_true",
                     help="multi-host pod nemesis: host SIGKILLs "
                          "(non-coordinator + coordinator) and a "
@@ -872,6 +941,8 @@ def main(argv=None) -> int:
         return run_quorum(args.seed, runs=args.runs, **kw)
     if args.overload:
         return run_overload(args.seed, runs=args.runs, **kw)
+    if args.reshard:
+        return run_reshard(args.seed, runs=args.runs, **kw)
     if args.procs:
         return run_procs(args.seed, args.proc_ticks, runs=args.runs,
                          device=args.device)

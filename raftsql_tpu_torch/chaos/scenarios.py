@@ -7,8 +7,11 @@ The fused plane: `FusedChaosRunner` and the four nemesis runners built
 on it — `ReadNemesisRunner` (every read mode under skew, partitions and
 crashes), `QuorumChaosRunner` (flexible quorums and a witness peer),
 `TransferChaosRunner` (graceful leadership transfers under the same
-faults) and `OverloadChaosRunner` (an open-loop producer at ~2x the
-drain rate against the bounded admission controller).  The node plane
+faults), `ReshardChaosRunner` (split/merge/migrate verbs of the elastic
+keyspace under partitions, drops, crashes, coordinator kills and a
+disk fault on the ship path) and `OverloadChaosRunner` (an open-loop
+producer at ~2x the drain rate against the bounded admission
+controller).  The node plane
 (the distributed runtime, runtime/node.py RaftNode): `NodeClusterChaosRunner` (a lockstep cluster over the
 loopback transport: crashes, partitions, skew, wire-frame corruption),
 `SnapshotChaosRunner` (compaction + InstallSnapshot + crashes, ending in
@@ -2044,6 +2047,569 @@ class TcpRebindChaosRunner:
                 if n is not None:
                     n.stop()
         return {"plan_digest": self.plan.digest(), **self.report}
+
+
+class ReshardChaosRunner(FusedChaosRunner):
+    """The elastic-keyspace nemesis (fused plane): seeded split/merge/
+    migrate schedules race partitions, message drops, whole-cluster
+    crash+restart, coordinator SIGKILL mid-verb, and disk faults on the
+    snapshot ship path, under live acked-PUT load — checked by
+    NoAckedWriteLost and NoAvailabilityLoss on top of the standing
+    election-safety / durability / linearizability invariants.
+
+    Keyspace model: keys hash onto `plan.nslots` slots; a shared
+    `KeyMap` (reshard/keymap.py) routes each slot to a raft group and
+    the workload routes writes/reads through it — frozen slots are
+    refused up front (the client's 503).  Every group keeps an
+    independent keyed store (`_gkv[g]`), and reads resolve against the
+    SERVING group's state, so a premature router flip really does serve
+    the moved keys from an empty shard.
+
+    The reshard fence is IN the logs: the coordinator's `begin` record
+    applies in the source group's own log order, and any keyed write
+    applying after it on a moving slot is BOUNCED (never acked, client
+    retries after the verb) — closing the late-straggler window by log
+    order, not timing.  `flip` grants/`RD` range-deletes close a verb
+    id per group, so a stale re-proposed copy can never resurrect rows
+    a later verb deleted.
+
+    Coordinator SIGKILL: the coordinator object is discarded mid-verb
+    and a fresh one is rebuilt `coordinator_down_ticks` later from the
+    journal fold alone (reshard/journal.py) — exactly what a restarted
+    coordinator process would do.  Whole-cluster crashes additionally
+    rebuild every `_gkv`/fence/journal from the WAL replay (the base
+    runner's ledger-audited boot), and each such restart ends in the
+    NoAckedWriteLost WAL-fold post-mortem when no verb is in flight.
+
+    Fully deterministic: same seeded draws as the base runner, digests
+    compared across runs by `--reshard`.  Port of the JAX package's
+    runner: for the same plan the report equals the reference's key for
+    key."""
+
+    EXCLUSIVE_EVERY = 32      # steady-state exactly-one-owner cadence
+
+    def __init__(self, plan, data_dir: str, device="cuda",
+                 commit_rule: Optional[str] = None):
+        from raftsql_tpu_torch.chaos.invariants import (NoAckedWriteLost,
+                                                  NoAvailabilityLoss)
+        from raftsql_tpu_torch.chaos.schedule import ChaosSchedule as _CS
+        from raftsql_tpu_torch.reshard import KeyMap
+        sched = _CS(seed=plan.seed, ticks=plan.ticks, drops=plan.drops,
+                    partitions=plan.partitions,
+                    asym_partitions=plan.asym_partitions,
+                    crashes=plan.crashes,
+                    prop_rate=plan.prop_rate, read_rate=plan.read_rate)
+        cfg = RaftConfig(num_groups=plan.groups, num_peers=plan.peers,
+                         log_window=64, max_entries_per_msg=4,
+                         election_ticks=plan.election_ticks,
+                         heartbeat_ticks=1, tick_interval_s=0.0)
+        super().__init__(sched, data_dir, cfg=cfg, device=device,
+                         commit_rule=commit_rule)
+        self.KEYS = plan.keys
+        self.plan = plan
+        self.lost = NoAckedWriteLost()
+        self.avail = NoAvailabilityLoss(plan.probe_ticks,
+                                        plan.verb_deadline_ticks)
+        G = plan.groups
+        self._km = KeyMap.initial(G, plan.nslots)
+        self._gkv: Dict[int, Dict[str, str]] = {g: {} for g in range(G)}
+        self._fence: Dict[int, set] = {g: set() for g in range(G)}
+        self._flipped: Dict[int, set] = {g: set() for g in range(G)}
+        self._closed: Dict[int, set] = {g: set() for g in range(G)}
+        self._jrecs: List[dict] = []       # decoded RJ records (dupes ok)
+        self._jseen: set = set()           # (id, step, group) applied
+        self._jwant: Dict[tuple, int] = {} # (id, step) -> gating group
+        self.coord = None
+        self._replaying = False
+        self._reshard_todo = list(plan.reshards)
+        self._kills = set(plan.coordinator_kills)
+        self._coord_down_until = -1
+        self._xfer_cursor = 0
+        self._cutover_started = False
+        self._presplit_done = not plan.presplit_transfer
+        self._tick_now = 0
+        self.report.update({
+            "reshard_splits": 0, "reshard_merges": 0,
+            "reshard_migrations": 0, "reshard_aborted": 0,
+            "reshard_resumed": 0, "reshard_flips": 0,
+            "coordinator_kills": 0, "fork_faults": 0,
+            "writes_bounced": 0, "copies_discarded": 0,
+            "reshard_probes": 0, "reshard_probes_confirmed": 0,
+            "moved_checks": 0, "exclusive_checks": 0,
+            "keymap_epoch": 0,
+        })
+
+    # -- boot / crash ---------------------------------------------------
+
+    def _boot(self, first: bool):
+        for g in range(self.cfg.num_groups):
+            self._gkv[g].clear()
+            self._fence[g].clear()
+            self._flipped[g].clear()
+            self._closed[g].clear()
+        self._jrecs.clear()
+        self._jseen.clear()
+        self._jwant.clear()
+        self.coord = None
+        self._replaying = True
+        try:
+            node = super()._boot(first)
+        finally:
+            self._replaying = False
+        if first and self.plan.fork_fault_op >= 0:
+            inj = fsio.injector()
+            if inj is not None:
+                inj.add_rule(os.sep + "reshard-ship" + os.sep,
+                             fail_at=(self.plan.fork_fault_op,))
+        self.node = node
+        self._rebuild_coordinator()
+        return node
+
+    def _rebuild_coordinator(self) -> None:
+        from raftsql_tpu_torch.reshard import ReshardCoordinator
+        self.coord = ReshardCoordinator(
+            self, self._km, num_groups=self.cfg.num_groups,
+            broken_flip=self.plan.broken_flip,
+            retry_steps=self.plan.retry_steps)
+        self.coord.recover(self._jrecs)
+        for ev in self.coord.drain_events():
+            if ev["kind"] == "resume":
+                self.report["reshard_resumed"] += 1
+                self.avail.verb_started(self._tick_now, ev["id"])
+
+    def _crash_restart(self, tick: int, power_loss: bool = False,
+                       tear_peer: int = -1) -> None:
+        self._tick_now = tick
+        self.avail.note_crash(tick)
+        self._xfer_cursor = 0
+        self._cutover_started = False
+        super()._crash_restart(tick, power_loss, tear_peer)
+        if self.coord is not None and not self.coord.busy \
+                and not self._km.frozen:
+            self.lost.check_exclusive(
+                self._km, self._gkv,
+                context=f" (WAL-fold post-mortem, restart at tick "
+                        f"{tick})")
+            self.report["exclusive_checks"] = self.lost.exclusive_checks
+
+    # -- apply plane: fences + journal fold -----------------------------
+
+    def _apply(self, g: int, idx: int, payload: bytes) -> None:
+        from raftsql_tpu_torch.reshard.journal import (decode_rdel,
+                                                       decode_record)
+        from raftsql_tpu_torch.reshard.keymap import slot_of
+        self.ledger.record(g, idx, payload)
+        self._applied[g] = max(self._applied[g], idx)
+        text = payload.decode("utf-8", "replace")
+        rec = decode_record(text)
+        if rec is not None:
+            vid = int(rec["id"])
+            self._jrecs.append(rec)
+            self._jseen.add((vid, rec["step"], g))
+            slots = set(int(s) for s in rec.get("slots", ()))
+            if rec.get("verb") != "migrate":
+                if rec["step"] == "begin" and rec.get("src") == g:
+                    self._fence[g] |= slots
+                elif rec["step"] == "abort" and rec.get("src") == g:
+                    self._fence[g] -= slots
+                elif rec["step"] == "flip":
+                    if rec.get("src") == g:
+                        self._fence[g] -= slots
+                        self._flipped[g] |= slots
+                    if rec.get("dst") == g:
+                        self._flipped[g] -= slots
+                        self._closed[g].add(vid)
+            return
+        rd = decode_rdel(text)
+        if rd is not None:
+            ss = set(int(s) for s in rd["slots"])
+            n = int(rd["nslots"])
+            for k in [k for k in self._gkv[g]
+                      if slot_of(k, n) in ss]:
+                del self._gkv[g][k]
+            self._closed[g].add(int(rd["id"]))
+            return
+        parts = text.split(" ")
+        if len(parts) == 4 and parts[0] == "CPY":
+            vid, key, value = int(parts[1]), parts[2], parts[3]
+            if vid in self._closed[g]:
+                if not self._replaying:
+                    self.report["copies_discarded"] += 1
+            else:
+                self._gkv[g][key] = value
+            return
+        if len(parts) == 3 and parts[0] == "SET":
+            key, value = parts[1], parts[2]
+            s = slot_of(key, self.plan.nslots)
+            if s in self._fence[g] or s in self._flipped[g]:
+                # The write raced the reshard fence: it applied after
+                # the begin/flip record in this group's OWN log order,
+                # so every replica discards it identically and the
+                # client is never acked (it retries at the new owner).
+                if not self._replaying:
+                    self.report["writes_bounced"] += 1
+                return
+            self._gkv[g][key] = value
+            self._kv[key] = value
+            self.lin.end_write(value)
+            if not self._replaying:
+                self.lost.note_ack(key, value)
+                self.avail.probe_committed(value)
+
+    # -- workload routed by the keymap ----------------------------------
+
+    def _issue(self, rng: np.random.Generator) -> None:
+        km = self._km
+        if rng.random() < self.sched.prop_rate:
+            k = int(rng.integers(0, self.KEYS))
+            key = f"k{k}"
+            if not km.is_frozen(key):
+                g = km.group_of(key)
+                value = f"v{self._wseq}"
+                self._wseq += 1
+                self.lin.begin_write(key, value)
+                self.node.propose_many(g, [f"SET {key} {value}".encode()])
+        if rng.random() < self.sched.read_rate:
+            k = int(rng.integers(0, self.KEYS))
+            key = f"k{k}"
+            if not km.is_frozen(key):
+                g = km.group_of(key)
+                got = self.node.read_index(g)
+                if got:
+                    target, _ = got
+                    self._pending_reads.append(
+                        (key, g, target, self.lin.begin_read(key)))
+
+    def _resolve_reads(self) -> None:
+        still = []
+        for (key, g, target, handle) in self._pending_reads:
+            if self._applied[g] >= target:
+                self.lin.end_read(handle, self._gkv[g].get(key, ""))
+            else:
+                still.append((key, g, target, handle))
+        self._pending_reads = still
+
+    # -- coordinator backend (reshard/coordinator.py protocol) ----------
+
+    def journal(self, group: int, rec: dict, want: bool = True) -> None:
+        from raftsql_tpu_torch.reshard.journal import encode_record
+        if want:
+            self._jwant[(int(rec["id"]), rec["step"])] = int(group)
+        self.node.propose_many(int(group),
+                               [encode_record(rec).encode()])
+
+    def journal_applied(self, vid: int, step: str) -> bool:
+        g = self._jwant.get((int(vid), step))
+        return g is not None and (int(vid), step, g) in self._jseen
+
+    def drained(self, group: int, slots) -> bool:
+        # The begin fence is already applied (j:begin gated on it), and
+        # apply order == log order, so every pre-fence write for the
+        # moving slots is in _gkv[group] right now; later ones bounce.
+        return True
+
+    def rows_of(self, group: int, slots) -> Dict[str, str]:
+        from raftsql_tpu_torch.reshard.keymap import slot_of
+        ss = set(int(s) for s in slots)
+        return {k: v for k, v in sorted(self._gkv[int(group)].items())
+                if slot_of(k, self.plan.nslots) in ss}
+
+    def copy(self, dst: int, rows: Dict[str, str]) -> None:
+        vid = self.coord._cur["id"]
+        payloads = [f"CPY {vid} {k} {v}".encode()
+                    for k, v in sorted(rows.items())]
+        if payloads:
+            self.node.propose_many(int(dst), payloads)
+
+    def copy_settled(self, dst: int, rows: Dict[str, str]) -> bool:
+        kv = self._gkv[int(dst)]
+        return all(kv.get(k) == v for k, v in rows.items())
+
+    def rdel(self, group: int, slots, vid: int) -> None:
+        from raftsql_tpu_torch.reshard.journal import encode_rdel
+        self.node.propose_many(
+            int(group),
+            [encode_rdel(slots, self.plan.nslots, vid).encode()])
+
+    def rdel_settled(self, group: int, slots, vid: int) -> bool:
+        from raftsql_tpu_torch.reshard.keymap import slot_of
+        ss = set(int(s) for s in slots)
+        return not any(slot_of(k, self.plan.nslots) in ss
+                       for k in self._gkv[int(group)])
+
+    def publish(self, keymap) -> None:
+        self.report["keymap_epoch"] = keymap.epoch
+
+    def ship(self, group: int, target: int) -> None:
+        d = os.path.join(self.data_dir, "reshard-ship")
+        os.makedirs(d, exist_ok=True)
+        blob = json.dumps(sorted(self._gkv[int(group)].items()),
+                          separators=(",", ":")).encode()
+        path = os.path.join(d, f"g{group}-p{target}.img")
+        with open(path, "wb") as f:
+            fsio.write(f, blob)
+            fsio.fsync_file(f)
+
+    def cutover(self, group: int, target: int,
+                retry: bool = False) -> Optional[str]:
+        from raftsql_tpu_torch.runtime.node import TransferRefused
+        group, target = int(group), int(target)
+        if not self._cutover_started or retry:
+            if self.node.leader_of(group) == target:
+                self._cutover_started = False
+                return "completed"
+            try:
+                self.node.transfer_leadership(group, target,
+                                              deadline_ticks=40)
+                self._cutover_started = True
+            except TransferRefused:
+                return None
+        events = self.node._xfer_events
+        for i in range(self._xfer_cursor, len(events)):
+            if events[i]["group"] == group:
+                self._xfer_cursor = i + 1
+                self._cutover_started = False
+                return "completed" \
+                    if events[i]["outcome"] == "completed" else "aborted"
+        return None
+
+    # -- verb driving ---------------------------------------------------
+
+    def _resolve_reshard(self, ev) -> Optional[tuple]:
+        """(verb, src, dst, slots) for a plan event, or None to retry
+        later.  Deterministic: resolved from seed-determined state."""
+        km = self._km
+        sizes = {g: len(km.slots_of(g)) for g in range(self.cfg.num_groups)}
+        live = [g for g, n in sizes.items() if n > 0]
+        if not live:
+            return None
+        if ev.verb == "split":
+            src = ev.src if ev.src >= 0 else \
+                max(live, key=lambda g: (sizes[g], -g))
+            if sizes[src] <= 1:
+                return None              # nothing to split
+            if ev.dst >= 0:
+                dst = ev.dst
+            elif km.retired:
+                dst = min(km.retired)
+            else:
+                others = [g for g in range(self.cfg.num_groups)
+                          if g != src]
+                dst = min(others, key=lambda g: (sizes[g], g))
+            # Acked-key-bearing slots first: the verb should always
+            # have data to prove itself on.
+            owned = sorted(km.slots_of(src))
+            from raftsql_tpu_torch.reshard.keymap import slot_of
+            hot = set(slot_of(k, km.nslots) for k in self.lost.acked)
+            ranked = sorted(owned,
+                            key=lambda s: (0 if s in hot else 1, s))
+            slots = sorted(ranked[:min(ev.move_slots,
+                                       max(1, sizes[src] - 1))])
+            return ("split", src, dst, slots)
+        if ev.verb == "merge":
+            if len(live) < 2:
+                return None
+            src = ev.src if ev.src >= 0 else \
+                min(live, key=lambda g: (sizes[g], g))
+            dst = ev.dst if ev.dst >= 0 else \
+                max((g for g in live if g != src),
+                    key=lambda g: (sizes[g], -g))
+            if src == dst:
+                return None
+            return ("merge", src, dst, None)
+        # migrate: dst is a peer
+        src = ev.src if ev.src >= 0 else min(live)
+        if ev.dst >= 0:
+            dst = ev.dst
+        else:
+            lead = self.node.leader_of(src)
+            if lead < 0:
+                return None
+            dst = (lead + 1) % self.cfg.num_peers
+        return ("migrate", src, dst, None)
+
+    def _quiet(self, t0: int, t1: int) -> bool:
+        """No scheduled fault overlaps [t0, t1) — clean air for an
+        availability probe."""
+        if t1 >= self.sched.ticks:
+            return False
+        for w in (self.sched.drops + self.sched.delays
+                  + self.sched.partitions + self.sched.asym_partitions
+                  + self.sched.skews):
+            if w.start < t1 and t0 < w.end:
+                return False
+        return all(not t0 <= ev.tick < t1 for ev in self.sched.crashes)
+
+    def _apply_faults(self, t: int, rng: np.random.Generator) -> None:
+        self._tick_now = t
+        # LEADER_TARGET partitions anchor on plan.part_group's leader
+        # (the directed falsification plan aims them at the split's
+        # DESTINATION group to starve the copy path).
+        for wi, w in enumerate(self.sched.partitions):
+            if w.start <= t < w.end and w.peer < 0 \
+                    and wi not in self._part_peer:
+                self._part_peer[wi] = max(
+                    self.node.leader_of(self.plan.part_group), 0)
+                self.report["partitions"] += 1
+        super()._apply_faults(t, rng)
+        self._drive_reshard(t)
+
+    def _presplit(self, t: int) -> None:
+        """Falsification warmup: make sure the split's dst group is not
+        led by the src group's leader, so the directed partition stalls
+        ONLY the copy path.  With `presplit_spare_apply_peer` dst must
+        not be led by peer 0 either: peer 0's commit stream is this
+        runner's apply plane, and a partition of peer 0 stalls every
+        group's journal, the source's included (the JAX package's plan
+        lets it, and its broken flip then goes uncaught under the
+        partitionable threefry draws)."""
+        from raftsql_tpu_torch.runtime.node import TransferRefused
+        ev = self.plan.reshards[0]
+        ls = self.node.leader_of(ev.src)
+        ld = self.node.leader_of(ev.dst)
+        if ls < 0 or ld < 0:
+            return
+        avoid = {ls, 0} if self.plan.presplit_spare_apply_peer else {ls}
+        if ld not in avoid:
+            self._presplit_done = True
+            return
+        P = self.cfg.num_peers
+        target = next((ld + k) % P for k in range(1, P)
+                      if (ld + k) % P not in avoid)
+        try:
+            self.node.transfer_leadership(ev.dst, target,
+                                          deadline_ticks=40)
+        except TransferRefused:
+            pass
+
+    def _drive_reshard(self, t: int) -> None:
+        # Coordinator SIGKILL / delayed rebuild.
+        if t in self._kills and self.coord is not None:
+            self.coord = None
+            self._coord_down_until = t + self.plan.coordinator_down_ticks
+            self.report["coordinator_kills"] += 1
+        if self.coord is None:
+            if t >= self._coord_down_until:
+                self._rebuild_coordinator()
+            else:
+                return
+        if not self._presplit_done and t >= 20:
+            self._presplit(t)
+        # Issue due plan verbs (retried while the coordinator is busy).
+        from raftsql_tpu_torch.reshard import ReshardRefused
+        keep = []
+        for ev in self._reshard_todo:
+            if ev.tick > t or self.coord.busy:
+                keep.append(ev)
+                continue
+            resolved = self._resolve_reshard(ev)
+            if resolved is None:
+                keep.append(ev)
+                continue
+            verb, src, dst, slots = resolved
+            try:
+                self.coord.enqueue(verb, src, dst, slots)
+            except ReshardRefused:
+                keep.append(ev)
+        self._reshard_todo = keep
+        # Orphan adoption: a begin record can apply AFTER the
+        # coordinator that proposed it was killed and rebuilt (the
+        # rebuild folded a journal that did not contain it yet).  An
+        # idle coordinator re-folds and adopts the orphan verb.
+        if not self.coord.busy and self._jrecs:
+            from raftsql_tpu_torch.reshard.journal import fold_records
+            _, active = fold_records(self._jrecs, self.cfg.num_groups,
+                                     self.plan.nslots)
+            if active is not None:
+                self.coord.recover(self._jrecs)
+        self.coord.step()
+        for ev in self.coord.drain_events():
+            kind = ev["kind"]
+            if kind == "begin":
+                self.avail.verb_started(t, ev["id"])
+            elif kind == "resume":
+                self.report["reshard_resumed"] += 1
+                self.avail.verb_started(t, ev["id"])
+            elif kind == "fork-fault":
+                self.report["fork_faults"] += 1
+            elif kind == "flip":
+                self.report["reshard_flips"] += 1
+                moved = [f"k{k}" for k in range(self.KEYS)]
+                from raftsql_tpu_torch.reshard.keymap import slot_of
+                moved = [k for k in moved
+                         if slot_of(k, self.plan.nslots) in
+                         set(ev["slots"])]
+                self.lost.check_moved(
+                    moved, ev["dst"], self._gkv[ev["dst"]],
+                    context=f" (verb {ev['id']} {ev['verb']} "
+                            f"{ev['src']}->{ev['dst']} at tick {t})")
+                self.report["moved_checks"] = self.lost.moved_checks
+                # Clients fail closed on the epoch bump: reads pinned
+                # to the OLD owner of the moved slots are aborted, not
+                # served from a shard about to be range-deleted.
+                ss = set(ev["slots"])
+                self._pending_reads = [
+                    (key, g, target, h)
+                    for (key, g, target, h) in self._pending_reads
+                    if not (g == ev["src"] and
+                            slot_of(key, self.plan.nslots) in ss)]
+            elif kind == "done":
+                self.avail.verb_resolved()
+                key = {"split": "reshard_splits",
+                       "merge": "reshard_merges",
+                       "migrate": "reshard_migrations"}[ev["verb"]]
+                self.report[key] += 1
+                if not self._km.frozen:
+                    self.lost.check_exclusive(
+                        self._km, self._gkv,
+                        context=f" (verb {ev['id']} {ev['verb']} done "
+                                f"at tick {t})")
+                    self.report["exclusive_checks"] = \
+                        self.lost.exclusive_checks
+            elif kind == "abort":
+                self.avail.verb_resolved()
+                self.report["reshard_aborted"] += 1
+        # Availability probes: writes OUTSIDE the moving range, armed
+        # in clean air while a verb is in flight.
+        if self.coord is not None and self.coord.busy \
+                and t % self.plan.probe_every == 0 \
+                and self._quiet(t, t + self.plan.probe_ticks + 1):
+            from raftsql_tpu_torch.reshard.keymap import slot_of
+            for k in range(self.KEYS):
+                key = f"k{k}"
+                if not self._km.is_frozen(key):
+                    g = self._km.group_of(key)
+                    value = f"v{self._wseq}"
+                    self._wseq += 1
+                    self.lin.begin_write(key, value)
+                    self.node.propose_many(
+                        g, [f"SET {key} {value}".encode()])
+                    self.avail.arm_probe(t, key, value)
+                    self.report["reshard_probes"] += 1
+                    break
+
+    # -- invariant cadence ----------------------------------------------
+
+    def _observe(self, t: int) -> None:
+        super()._observe(t)
+        self.avail.check(t)
+        self.report["reshard_probes_confirmed"] = \
+            self.avail.probes_confirmed
+        if t and t % self.EXCLUSIVE_EVERY == 0 \
+                and self.coord is not None and not self.coord.busy \
+                and not self._km.frozen:
+            self.lost.check_exclusive(
+                self._km, self._gkv,
+                context=f" (steady state at tick {t})")
+            self.report["exclusive_checks"] = self.lost.exclusive_checks
+        if t == self.sched.ticks - 1:
+            self.avail.final_check(t)
+
+    def _report(self) -> dict:
+        r = super()._report()
+        r["plan_digest"] = self.plan.digest()
+        r["keymap"] = self._km.to_doc()
+        return r
 
 
 class OverloadChaosRunner(FusedChaosRunner):

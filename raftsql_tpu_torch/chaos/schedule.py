@@ -11,7 +11,9 @@ MembershipChaosPlan, TcpRebindPlan) with their generators, the
 process-plane plan (ProcChaosPlan and its ProcKill, ProcStall,
 ProcRestartStorm and ProcFsioSpec events, `generate_procs`) and the
 overload nemesis plan (OverloadNemesisPlan, OverloadBurst,
-`generate_overload`, `falsification_overload_plan`), the pod plans and
+`generate_overload`, `falsification_overload_plan`), the reshard
+nemesis plan (ReshardNemesisPlan, ReshardEvent, `generate_reshard`,
+`falsification_reshard_plan`), the pod plans and
 the read-replica plan (ReplicaChaosPlan, ReplicaFault,
 `generate_replica`, `falsification_replica_plan`).  Every
 schedule derives from one integer seed
@@ -1077,6 +1079,182 @@ def generate_node_plan(seed: int, ticks: int = 320,
                          down=int(rng.integers(25, 40))))
     return NodeChaosPlan(seed=seed, ticks=ticks, partitions=parts,
                          crashes=crashes)
+
+
+# ---------------------------------------------------------------------------
+# Elastic keyspace: the reshard nemesis
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ReshardEvent:
+    """One reshard verb requested at `tick` (retried each tick while the
+    coordinator is busy).  `src`/`dst` < 0 are resolved at issue time
+    from live state — deterministically, since the runner's state is
+    seed-determined:
+
+      split:   src -1 = group owning the most slots; dst -1 = a retired
+               group if one exists, else the group owning the fewest
+               slots; `move_slots` slots move (acked-key-bearing slots
+               first, so the verb always has data to prove itself on).
+      merge:   src -1 = group owning the fewest slots; dst -1 = group
+               owning the most slots (never src).
+      migrate: src -1 = lowest live group; dst is a PEER (-1 = the
+               group leader's successor slot).
+    """
+    tick: int
+    verb: str
+    src: int = -1
+    dst: int = -1
+    move_slots: int = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class ReshardNemesisPlan:
+    """Scripted elastic-keyspace attack (fused plane,
+    chaos/scenarios.py ReshardChaosRunner): seeded split/merge/migrate
+    schedules race partitions, message drops, whole-cluster crash+
+    restart, coordinator SIGKILL mid-verb, and disk faults on the
+    snapshot-fork ship path, under live acked-PUT load — checked by
+    NoAckedWriteLost (every acked write readable in exactly one
+    post-reshard group, WAL-fold post-mortem included) and
+    NoAvailabilityLoss (writes outside the moving range never stall
+    past a bound; verbs always resolve) on top of the standing
+    election-safety / durability / linearizability invariants.
+
+    A SEPARATE plan class on purpose (ReadNemesisPlan precedent):
+    extending ChaosSchedule would change the asdict() digest of every
+    existing family.  The runner projects the fault fields into a
+    ChaosSchedule internally so fault application shares the proven
+    code paths.
+
+    `broken_flip=True` builds the deliberately broken coordinator that
+    journals the copy fence and flips the router WITHOUT waiting for
+    the destination group to apply the copied rows — the falsification
+    variant NoAckedWriteLost must CATCH.  `part_group` anchors
+    LEADER_TARGET partition windows on that group's leader (the
+    directed plan aims them at the split's destination group to starve
+    the copy path).  `presplit_transfer=True` moves the destination
+    group's leadership off the source group's leader during warmup so
+    the directed partition stalls ONLY the copy path."""
+    seed: int
+    ticks: int
+    peers: int = 3
+    groups: int = 4
+    nslots: int = 16
+    keys: int = 16
+    reshards: Tuple[ReshardEvent, ...] = ()
+    # Ticks at which the coordinator process is SIGKILLed; a fresh
+    # coordinator recovers from the journal fold `down` ticks later.
+    coordinator_kills: Tuple[int, ...] = ()
+    coordinator_down_ticks: int = 6
+    drops: Tuple[DropWindow, ...] = ()
+    partitions: Tuple[PartitionWindow, ...] = ()
+    asym_partitions: Tuple[AsymPartitionWindow, ...] = ()
+    crashes: Tuple[CrashEvent, ...] = ()
+    election_ticks: int = 10
+    part_group: int = 0
+    presplit_transfer: bool = False
+    # fsync ordinal (0-based) on the migrate ship path to disk-fault;
+    # -1 = no fork fault.  The faulted migrate must ABORT cleanly.
+    fork_fault_op: int = -1
+    # A verb still unresolved this many ticks after issue is an
+    # availability violation (generous: covers coordinator kills and
+    # directed copy starvation windows).
+    verb_deadline_ticks: int = 220
+    # Probe writes to keys OUTSIDE the moving range, armed in quiet air
+    # while a verb is active, must commit within this bound.
+    probe_ticks: int = 30
+    probe_every: int = 12
+    retry_steps: int = 40
+    broken_flip: bool = False
+    prop_rate: float = 0.7
+    read_rate: float = 0.25
+    # The port's repaired directed plan (falsification_reshard_plan):
+    # the warm-up transfer also keeps dst's leadership off peer 0, the
+    # runner's apply plane.  describe() leaves the field out while it
+    # is False, so every plan the JAX package builds keeps its digest.
+    presplit_spare_apply_peer: bool = False
+
+    def describe(self) -> dict:
+        d = dataclasses.asdict(self)
+        if not d["presplit_spare_apply_peer"]:
+            del d["presplit_spare_apply_peer"]
+        return d
+
+    def digest(self) -> str:
+        blob = json.dumps(self.describe(), sort_keys=True,
+                          separators=(",", ":")).encode()
+        return hashlib.sha256(blob).hexdigest()[:16]
+
+
+def generate_reshard(seed: int, ticks: int = 520,
+                     peers: int = 3) -> ReshardNemesisPlan:
+    """The reshard-under-nemesis family: a split whose coordinator is
+    SIGKILLed mid-verb (recovery must resume or abort cleanly from the
+    journal), a merge racing a leader-targeted partition, a migrate in
+    clean air (must complete through the catch-up-gated transfer
+    kernel), a second migrate whose snapshot ship hits a disk fault
+    (must abort cleanly), a whole-cluster crash, and a post-crash split
+    whose coordinator is killed AFTER the copy fence (recovery must
+    resume FORWARD through flip+cleanup) — all under acked-PUT load."""
+    rng = np.random.default_rng(seed ^ 0x2E54)
+    warmup = 50
+    split1 = ReshardEvent(warmup + 10, "split",
+                          move_slots=int(rng.integers(2, 4)))
+    kill1 = split1.tick + 8                   # mid-verb, pre-fence-ish
+    merge = ReshardEvent(150, "merge")
+    part = PartitionWindow(merge.tick + 4,
+                           merge.tick + 4 + int(rng.integers(18, 26)),
+                           LEADER_TARGET)
+    mig1 = ReshardEvent(230, "migrate")
+    drop0 = int(rng.integers(268, 276))
+    drop = DropWindow(drop0, drop0 + int(rng.integers(14, 22)),
+                      float(rng.uniform(0.08, 0.18)))
+    mig2 = ReshardEvent(300, "migrate")       # ship disk-faulted: abort
+    crash = CrashEvent(340)
+    split2 = ReshardEvent(368, "split",
+                          move_slots=int(rng.integers(2, 4)))
+    kill2 = split2.tick + 12                  # post-fence: resume forward
+    return ReshardNemesisPlan(
+        seed=seed, ticks=max(ticks, split2.tick + 150), peers=peers,
+        reshards=(split1, merge, mig1, mig2, split2),
+        coordinator_kills=(kill1, kill2),
+        drops=(drop,), partitions=(part,), crashes=(crash,),
+        fork_fault_op=1)
+
+
+def falsification_reshard_plan(seed: int = 0, broken: bool = True,
+                               repaired: bool = True
+                               ) -> ReshardNemesisPlan:
+    """DIRECTED reshard-falsification scenario: a split moves two
+    acked-key-bearing slots from group 0 to group 2 while a
+    leader-targeted partition (anchored on group 2, the DESTINATION)
+    stalls the copy path — after a warmup transfer made sure group 2's
+    leader is not group 0's leader, so the source group's journal keeps
+    committing.  The CORRECT coordinator waits out the partition behind
+    the copy fence and flips only after group 2 applied every copied
+    row: the verb completes.  broken=True flips the router the moment
+    the copies are PROPOSED: the freshly-flipped owner serves the moved
+    keys from an empty shard, and NoAckedWriteLost MUST fire on the
+    identical schedule — proving the harness detects a premature
+    router flip, not chaos in general.
+
+    `repaired=False` is the JAX package's plan, digest for digest.  Its
+    warm-up only keeps group 2's leader off group 0's leader; under the
+    partitionable threefry draws group 2 is led by peer 0, the runner's
+    apply plane, so the partition stalls group 0's journal too, the
+    verb begins only after the heal, the copies land before the flip
+    and the broken coordinator goes uncaught.  `repaired=True` (the
+    default) also keeps group 2's leadership off peer 0."""
+    part = PartitionWindow(58, 140, LEADER_TARGET)
+    split = ReshardEvent(60, "split", src=0, dst=2, move_slots=2)
+    return ReshardNemesisPlan(
+        seed=seed, ticks=300, peers=3, groups=4,
+        reshards=(split,), partitions=(part,),
+        election_ticks=16, part_group=2, presplit_transfer=True,
+        verb_deadline_ticks=250, broken_flip=broken,
+        prop_rate=1.0, read_rate=0.2,
+        presplit_spare_apply_peer=repaired)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,5 +1,6 @@
 """Build and load the native storage plane (native/wal.cc) through
-ctypes, and build the HTTP load generator (native/http_load.cc).
+ctypes, and build the HTTP load generator (native/http_load.cc) and the
+WAL's sanitizer stress harness (native/wal_stress.cc).
 
 wal.cc is host C++ (no CUDA): the WAL writers, the `plog_*` payload log,
 the combined `walplog_*` calls and the `kv_*` apply plane, behind a plain
@@ -235,6 +236,60 @@ def build_http_load(build_dir: Optional[str] = None) -> str:
         if res.returncode != 0:
             raise RuntimeError(f"http_load: g++ failed on "
                                f"{HTTP_LOAD_SOURCE} ({res.returncode}):\n"
+                               f"{res.stdout}{res.stderr}")
+        os.replace(tmp, exe)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return exe
+
+
+STRESS_SOURCE = os.path.join(_DIR, "wal_stress.cc")
+# Sanitizer variants of the WAL stress harness (the JAX package's flags):
+# -O1 keeps stacks honest in reports, -fno-omit-frame-pointer makes asan
+# traces readable, -fno-sanitize-recover turns every ubsan diagnostic
+# into a nonzero exit.
+SANITIZERS = {
+    "asan": ("-pthread", "-fsanitize=address", "-fno-omit-frame-pointer"),
+    "ubsan": ("-pthread", "-fsanitize=undefined",
+              "-fno-sanitize-recover=all"),
+    "tsan": ("-pthread", "-fsanitize=thread"),
+}
+
+
+def build_wal_stress(sanitizer: str,
+                     build_dir: Optional[str] = None) -> str:
+    """Compile native/wal_stress.cc with native/wal.cc under `sanitizer`
+    (a SANITIZERS key) into `build_dir` (default build/native/) as
+    wal_stress_<sanitizer>_<digest> unless that build is there already;
+    returns the executable's path.  Raises RuntimeError with the
+    compiler's output when g++ is missing or fails (the JAX package's
+    build returns None and its script skips).  Usage of the binary:
+    `wal_stress <dir> [iters]`: four threads on one WAL handle in
+    <dir>."""
+    build_dir = BUILD_DIR if build_dir is None else build_dir
+    flags = ("-O1", "-g", "-std=c++17", *SANITIZERS[sanitizer])
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in (STRESS_SOURCE, SOURCE):
+        with open(src, "rb") as f:
+            h.update(f.read())
+    exe = os.path.join(build_dir,
+                       f"wal_stress_{sanitizer}_{h.hexdigest()[:16]}")
+    if os.path.exists(exe):
+        return exe
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = f"{exe}.{os.getpid()}.{threading.get_ident()}.tmp"
+    try:
+        try:
+            res = subprocess.run(
+                ["g++", *flags, "-o", tmp, STRESS_SOURCE, SOURCE],
+                capture_output=True, text=True, timeout=300)
+        except (OSError, subprocess.TimeoutExpired) as e:
+            raise RuntimeError(f"wal_stress[{sanitizer}]: cannot run g++: "
+                               f"{e}") from e
+        if res.returncode != 0:
+            raise RuntimeError(f"wal_stress[{sanitizer}]: g++ failed "
+                               f"({res.returncode}):\n"
                                f"{res.stdout}{res.stderr}")
         os.replace(tmp, exe)
     finally:

@@ -1,9 +1,8 @@
 """The placement controller: EWMA traffic in, leadership transfers out.
 
 Copy of raftsql_tpu/placement/controller.py for the PyTorch port (pure
-Python and numpy); the controller never touches device state.  The JAX
-package's keyspace verbs (split-hottest, merge-coldest) come with its
-reshard plane (ROADMAP Queue 1 item 14).
+Python and numpy); the controller never touches device state, its
+keyspace verbs (split-hottest, merge-coldest) included.
 
 One pass (`evaluate()`, driven by a daemon thread at `interval_s`):
 
@@ -71,6 +70,12 @@ class PlacementController:
         # Per-group retry state: group -> (not-before monotonic time,
         # current backoff seconds).
         self._backoff: Dict[int, tuple] = {}
+        # Elastic-keyspace plane (raftsql_tpu_torch/reshard/plane.py),
+        # attached by the server when both --placement and --reshard
+        # are on: enables the split-hottest / merge-coldest verbs.
+        self.reshard = None
+        self.reshard_issued = 0
+        self.reshard_refused = 0
         self._seen_outcome_tick = -1
         self._mu = threading.Lock()
         self._stop_evt = threading.Event()
@@ -214,6 +219,94 @@ class PlacementController:
         self.decisions.append(d)
         return d
 
+    # -- elastic-keyspace verbs (raftsql_tpu_torch/reshard/) ------------------
+
+    def _group_rates(self):
+        """(rates ndarray, live group list) from the traffic EWMA and
+        the reshard plane's keymap, or None without both planes."""
+        traffic = getattr(self.node, "traffic", None)
+        if traffic is None or self.reshard is None:
+            return None
+        with traffic._mu:
+            traffic._advance_rates_locked()
+            rates = traffic._rate_p.copy()
+        live = sorted(self.reshard.keymap.live_groups())
+        return rates, live
+
+    def split_hottest(self) -> Optional[dict]:
+        """Rebalance the KEYSPACE, not just leadership: carve half of
+        the hottest group's hash slots out to the least-loaded group
+        (preferring a retired group id, which re-enters service).
+        Returns the enqueued verb doc, or None when nothing qualifies;
+        refusals (verb in flight) count and return None."""
+        got = self._group_rates()
+        if got is None:
+            return None
+        rates, live = got
+        km = self.reshard.keymap
+        cand = [g for g in live if len(km.slots_of(g)) >= 2]
+        if not cand:
+            return None
+        src = max(cand, key=lambda g: (float(rates[g]), -g))
+        retired = sorted(km.retired)
+        if retired:
+            dst = retired[0]
+        else:
+            others = [g for g in live if g != src]
+            if not others:
+                return None
+            dst = min(others, key=lambda g: (float(rates[g]), g))
+        owned = km.slots_of(src)
+        hits = getattr(self.reshard, "slot_hits", None)
+        if hits and any(hits[s] for s in owned):
+            # Traffic-weighted partition: halving by slot COUNT under a
+            # skewed workload can hand the hot slots themselves to dst,
+            # crowning it the new hottest group (the zipfian demo in
+            # scripts/bench_reshard.py regresses exactly that way).
+            # Greedy heaviest-first into the lighter of keep/move bins
+            # splits the observed per-slot load instead; with >= 2
+            # owned slots and a nonzero total both bins end non-empty.
+            keep = [0, []]
+            move = [0, []]
+            for s in sorted(owned, key=lambda s: (-hits[s], s)):
+                b = keep if keep[0] <= move[0] else move
+                b[0] += hits[s]
+                b[1].append(s)
+            slots = move[1]
+        else:
+            # No per-slot signal (plane without counters, or a cold
+            # group picked by the rate EWMA alone): halve by count.
+            slots = owned[:len(owned) // 2]
+        try:
+            doc = self.reshard.enqueue("split", src, dst, slots)
+            self.reshard_issued += 1
+            return doc
+        except Exception as e:                      # noqa: BLE001
+            self.reshard_refused += 1
+            log.info("split-hottest refused: %s", e)
+            return None
+
+    def merge_coldest(self) -> Optional[dict]:
+        """Fold the coldest group's slots into the next-coldest live
+        group and retire its id (shrink G under a fading keyspace)."""
+        got = self._group_rates()
+        if got is None:
+            return None
+        rates, live = got
+        if len(live) < 2:
+            return None
+        src = min(live, key=lambda g: (float(rates[g]), g))
+        rest = [g for g in live if g != src]
+        dst = min(rest, key=lambda g: (float(rates[g]), g))
+        try:
+            doc = self.reshard.enqueue("merge", src, dst)
+            self.reshard_issued += 1
+            return doc
+        except Exception as e:                      # noqa: BLE001
+            self.reshard_refused += 1
+            log.info("merge-coldest refused: %s", e)
+            return None
+
     # -- exports --------------------------------------------------------
 
     def doc(self) -> dict:
@@ -229,4 +322,6 @@ class PlacementController:
         """Numeric gauges for /metrics (prom-renderable leaves only)."""
         return {"issued": self.issued, "refused": self.refused,
                 "last_imbalance": round(self.last_imbalance, 3),
-                "backoff_groups": len(self._backoff)}
+                "backoff_groups": len(self._backoff),
+                "reshard_issued": self.reshard_issued,
+                "reshard_refused": self.reshard_refused}

@@ -49,6 +49,13 @@ nothing else parses these):
       op 3 DOC      body = document name (metrics/health/members/...)
       op 4 MEMBER   body = json {group, op, peer}
       op 5 XFER     body = json {group, target} (leadership transfer)
+      op 6 RESHARD  body = json {verb, src, dst, slots} (POST /reshard)
+      op 7 KV       body = json {method, key, value, epoch, mode}
+                    (the keyed /kv surface: the engine's reshard plane
+                    routes the key and proposes or reads in the same
+                    request, so a worker never routes by a mapping the
+                    router may have moved; token = retry token for PUT,
+                    session watermark for GET)
       deadline: absolute CLOCK_MONOTONIC milliseconds after which the
       request is dead (0 = none).  Rings are same-machine mmaps, so the
       monotonic clock is shared; the engine sheds expired records at the
@@ -64,6 +71,23 @@ nothing else parses these):
                      refusal or ring-drain deadline shed; leader =
                      Retry-After in MILLISECONDS, the controller's
                      jittered drain-rate estimate)
+      status 5 WRONG_EPOCH (op 7: body = json {error, have, keymap};
+                     409 class)
+      status 6 REFUSED (op 7: the key's slot is frozen, leader = the
+                     slot; 503 class, retryable; op 6: the verb was
+                     refused; 409 class)
+      status 7 DOC_FILE (op 3: body = the name of a file in the ring
+                     directory that holds the document, for a document
+                     too large for the completion ring; the worker reads
+                     and removes it)
+  An op 7 OK carries body = json {group, epoch, rows} (rows for GET).
+  Ops 6 and 7 are the port's repair of the JAX package's worker plane,
+  whose api/aio.py handlers call the reshard plane's methods on
+  RingClient.reshard, a method there: POST /reshard and /kv at a JAX
+  worker answer 400.  Status 7 is its repair of GET /trace (and any
+  document) at a worker: the JAX package's engine answers a document
+  larger than the completion ring (4 MiB) with an error, and its worker
+  drops the connection.
 """
 from __future__ import annotations
 
@@ -88,7 +112,10 @@ _REQ = struct.Struct("<BQIBQQ")       # op, req_id, group, flags, token,
 _CPL = struct.Struct("<QBI")          # req_id, status, leader
 
 OP_PUT, OP_GET, OP_DOC, OP_MEMBER, OP_XFER, OP_RESHARD = 1, 2, 3, 4, 5, 6
+OP_KV = 7
 ST_OK, ST_ERR, ST_NOT_LEADER, ST_UNAVAILABLE, ST_OVERLOADED = 0, 1, 2, 3, 4
+ST_WRONG_EPOCH, ST_REFUSED = 5, 6
+ST_DOC_FILE = 7
 
 DEFAULT_RING_BYTES = 4 << 20
 
@@ -659,8 +686,19 @@ class RingServer:
                                f"unknown document {name!r}".encode())
                 return
             try:
-                self._complete(worker, req_id, ST_OK, 0,
-                               render().encode("utf-8"))
+                doc = render().encode("utf-8")
+                if len(doc) > self._cpl[worker].cap // 4:
+                    # Too large for one completion record: hand it over
+                    # as a file beside the rings.
+                    fname = f"doc-{worker}-{req_id}.json"
+                    path = os.path.join(self.dirname, fname)
+                    with open(path + ".tmp", "wb") as f:
+                        f.write(doc)
+                    os.replace(path + ".tmp", path)
+                    self._complete(worker, req_id, ST_DOC_FILE, 0,
+                                   fname.encode())
+                else:
+                    self._complete(worker, req_id, ST_OK, 0, doc)
             except Exception as e:                      # noqa: BLE001
                 self._complete(worker, req_id, ST_ERR, 0,
                                self._err_body(e))
@@ -715,19 +753,27 @@ class RingServer:
     def _handle_reshard(self, worker: int, req_id: int,
                         body: bytes) -> None:
         """POST /reshard over the ring (op 6): enqueue an elastic-
-        keyspace verb at the engine's reshard plane.  Busy (one verb
-        in flight) and no-plane refusals surface as ST_ERR text the
-        worker maps back onto 409/503."""
+        keyspace verb at the engine's reshard plane.  A refused verb
+        (one in flight, invalid arguments) answers ST_REFUSED, no plane
+        ST_UNAVAILABLE, anything else ST_ERR: the worker maps them back
+        onto 409, 503 and 400 as the in-process plane answers."""
+        from raftsql_tpu_torch.reshard.coordinator import ReshardRefused
+
         def _run():
             try:
                 if self.rdb.reshard is None:
-                    raise ValueError("no reshard plane (--reshard)")
+                    self._complete(worker, req_id, ST_UNAVAILABLE, 0,
+                                   b"no reshard plane (--reshard)")
+                    return
                 req = json.loads(body.decode("utf-8") or "{}")
                 got = self.rdb.reshard.enqueue(
                     str(req.get("verb", "")),
                     int(req.get("src", -1)),
                     int(req.get("dst", -1)),
                     req.get("slots"))
+            except ReshardRefused as e:
+                self._complete(worker, req_id, ST_REFUSED, 0,
+                               self._err_body(e))
             except Exception as e:                      # noqa: BLE001
                 self._complete(worker, req_id, ST_ERR, 0,
                                self._err_body(e))
@@ -737,6 +783,85 @@ class RingServer:
                                .encode("utf-8"))
 
         self._read_pool.submit(_run)
+
+    def _handle_kv(self, worker: int, req_id: int, token: int,
+                   body: bytes,
+                   deadline_ms: Optional[float] = None) -> None:
+        """The keyed /kv surface over the ring (op 7): the engine's
+        reshard plane routes the key (epoch fail-closed, frozen-slot
+        refusal) and the engine proposes or reads it in the same
+        request, as the in-process HTTP planes do."""
+        from raftsql_tpu_torch.overload import Overloaded
+        from raftsql_tpu_torch.reshard.plane import FrozenSlot, WrongEpoch
+        from raftsql_tpu_torch.runtime.db import NotLeaderError
+        plane = self.rdb.reshard
+
+        def _fail(e: BaseException) -> None:
+            if isinstance(e, WrongEpoch):
+                self._complete(worker, req_id, ST_WRONG_EPOCH, 0,
+                               json.dumps({"error": str(e),
+                                           "have": e.have,
+                                           "keymap": plane.keymap.to_doc()},
+                                          sort_keys=True).encode())
+            elif isinstance(e, FrozenSlot):
+                self._complete(worker, req_id, ST_REFUSED, e.slot,
+                               self._err_body(e))
+            elif isinstance(e, Overloaded):
+                self._complete(worker, req_id, ST_OVERLOADED,
+                               min(int(e.retry_after_s * 1000),
+                                   0xFFFFFFFF), self._err_body(e))
+            elif isinstance(e, NotLeaderError):
+                self._complete(worker, req_id, ST_NOT_LEADER,
+                               max(e.leader, 0), self._err_body(e))
+            elif isinstance(e, TimeoutError):
+                self._complete(worker, req_id, ST_UNAVAILABLE, 0,
+                               self._err_body(e))
+            else:
+                self._complete(worker, req_id, ST_ERR, 0,
+                               self._err_body(e))
+
+        def _ok(group: int, rows: Optional[str] = None) -> None:
+            self._complete(worker, req_id, ST_OK, self._watermark(group),
+                           json.dumps({"group": group,
+                                       "epoch": plane.keymap.epoch,
+                                       "rows": rows}).encode())
+
+        if plane is None:
+            self._complete(worker, req_id, ST_UNAVAILABLE, 0,
+                           b"no reshard plane (--reshard)")
+            return
+        req = json.loads(body.decode("utf-8"))
+        epoch = req.get("epoch")
+        if req.get("method") == "PUT":
+            try:
+                group, sql = plane.kv_put(req["key"], req["value"], epoch)
+                fut = self.rdb.propose(
+                    sql, group, token=token or None,
+                    **({} if deadline_ms is None
+                       else {"deadline_ms": deadline_ms}))
+            except Exception as e:                      # noqa: BLE001
+                _fail(e)
+                return
+            self.proposed += 1
+            fut.add_done_callback(
+                lambda err: _ok(group) if err is None else _fail(err))
+            return
+        mode = req.get("mode") or "local"
+
+        def _read():
+            try:
+                group, sql = plane.kv_get(req["key"], epoch)
+                rows = self.rdb.query(
+                    sql, group, mode=mode, watermark=token,
+                    timeout=self.timeout_s,
+                    **({} if deadline_ms is None
+                       else {"deadline_ms": deadline_ms}))
+            except Exception as e:                      # noqa: BLE001
+                _fail(e)
+            else:
+                _ok(group, rows)
+
+        self._read_pool.submit(_read)
 
     # -- the drain loop --------------------------------------------------
 
@@ -785,6 +910,9 @@ class RingServer:
                         self._handle_transfer(worker, req_id, body)
                     elif op == OP_RESHARD:
                         self._handle_reshard(worker, req_id, body)
+                    elif op == OP_KV:
+                        self._handle_kv(worker, req_id, token, body,
+                                        deadline_ms)
                     else:
                         self._complete(worker, req_id, ST_ERR, 0,
                                        f"unknown op {op}".encode())
@@ -842,6 +970,7 @@ class RingClient:
                 if time.monotonic() > deadline:
                     raise
                 time.sleep(0.05)
+        self.dirname = dirname
         self.worker = worker
         self._mu = threading.Lock()                 # producer + id alloc
         self._next_id = 1
@@ -873,6 +1002,10 @@ class RingClient:
         self._shm = None
         self._shm_hits = 0
         self._shm_fallbacks = 0
+        self._kmap_adoptions = 0
+        # The elastic-keyspace surface (POST /reshard, /kv) the HTTP
+        # planes call on `rdb.reshard`, over ops 6 and 7.
+        self.reshard = RingKeyspace(self)
         if os.environ.get("RAFTSQL_SHM_READS", "1") != "0":
             try:
                 from raftsql_tpu_torch.runtime.shm import ShmSnapshotReader
@@ -888,7 +1021,8 @@ class RingClient:
 
     _OP_NAMES = {OP_PUT: "ring.put", OP_GET: "ring.get",
                  OP_DOC: "ring.doc", OP_MEMBER: "ring.member",
-                 OP_XFER: "ring.transfer", OP_RESHARD: "ring.reshard"}
+                 OP_XFER: "ring.transfer", OP_RESHARD: "ring.reshard",
+                 OP_KV: "ring.kv"}
 
     def _submit(self, op: int, group: int, flags: int, token: int,
                 body: bytes, deadline_s: Optional[float] = None,
@@ -1059,6 +1193,13 @@ class RingClient:
                     self._wm[group] = wm
                 return rows
             self._shm_fallbacks += 1
+            if self._shm is not None:
+                # A reshard flip moved the published mapping version:
+                # this read fails closed to the ring.  The worker routes
+                # no key by itself (op 7 routes at the engine), so it
+                # adopts the new version and its next reads serve from
+                # the mapped snapshot again.
+                self.adopt_keymap_epoch(self._shm.keymap_epoch())
         fut = self._submit(OP_GET, group, flags,
                            max(int(watermark), 0),
                            query.encode("utf-8"),
@@ -1104,24 +1245,24 @@ class RingClient:
             raise NotLeaderError(group, leader)
         raise ValueError(body.decode("utf-8", "replace"))
 
-    def reshard(self, verb: str, src: int, dst: int,
-                slots=None) -> dict:
-        """POST /reshard over the ring (op 6): enqueue an elastic-
-        keyspace verb — same surface as ReshardPlane.enqueue."""
-        fut = self._submit(OP_RESHARD, 0, 0, 0,
-                           json.dumps({"verb": verb, "src": src,
-                                       "dst": dst,
-                                       "slots": slots}).encode(),
-                           deadline_s=10.0)
-        status, _leader, body = fut.wait_raw(10.0)
-        if status == ST_OK:
-            return json.loads(body.decode("utf-8"))
-        raise ValueError(body.decode("utf-8", "replace"))
+    def adopt_keymap_epoch(self, epoch: int) -> None:
+        """Revalidate the shm fast path against the engine's current
+        elastic-keyspace mapping version (shm.py note_keymap_epoch)."""
+        if self._shm is not None and epoch != self._shm._kmap_epoch:
+            self._shm.note_keymap_epoch(epoch)
+            self._kmap_adoptions += 1
 
     def _doc(self, name: str, timeout: float = 5.0) -> str:
         fut = self._submit(OP_DOC, 0, 0, 0, name.encode(),
                            deadline_s=timeout)
         status, _leader, body = fut.wait_raw(timeout)
+        if status == ST_DOC_FILE:
+            path = os.path.join(self.dirname, body.decode("utf-8"))
+            try:
+                with open(path, "rb") as f:
+                    return f.read().decode("utf-8")
+            finally:
+                os.unlink(path)
         if status != ST_OK:
             raise RuntimeError(body.decode("utf-8", "replace"))
         return body.decode("utf-8")
@@ -1136,6 +1277,8 @@ class RingClient:
         r["shm_hits"] = int(r.get("shm_hits", 0)) + self._shm_hits
         r["shm_fallbacks"] = (int(r.get("shm_fallbacks", 0))
                               + self._shm_fallbacks)
+        r["shm_keymap_adoptions"] = (int(r.get("shm_keymap_adoptions", 0))
+                                     + self._kmap_adoptions)
         return doc
 
     def render_metrics(self) -> str:
@@ -1214,3 +1357,91 @@ class RingFuture:
         if not self._evt.wait(timeout):
             raise TimeoutError("no answer from engine in time")
         return self._raw
+
+
+class RingKeyspace:
+    """A worker's `rdb.reshard`: the elastic-keyspace surface the HTTP
+    planes call (POST /reshard: `enqueue`; the keyed /kv surface: `kv`),
+    carried to the engine's ReshardPlane over ring ops 6 and 7, with the
+    in-process plane's refusals (ReshardRefused, WrongEpoch, FrozenSlot,
+    NotLeaderError, Overloaded) raised again here.  `keymap` is the last
+    mapping the engine answered with (epoch and document only)."""
+
+    def __init__(self, client: "RingClient"):
+        self._client = client
+        self.keymap = _KeymapEcho()
+
+    def enqueue(self, verb: str, src: int, dst: int,
+                slots=None) -> dict:
+        from raftsql_tpu_torch.reshard.coordinator import ReshardRefused
+        fut = self._client._submit(
+            OP_RESHARD, 0, 0, 0,
+            json.dumps({"verb": verb, "src": src, "dst": dst,
+                        "slots": slots}).encode(), deadline_s=10.0)
+        status, _leader, body = fut.wait_raw(10.0)
+        text = body.decode("utf-8", "replace")
+        if status == ST_OK:
+            return json.loads(text)
+        if status == ST_REFUSED:
+            raise ReshardRefused(text)
+        if status == ST_UNAVAILABLE:
+            raise TimeoutError(text)
+        raise ValueError(text)
+
+    def kv(self, method: str, key: str, value: Optional[str] = None,
+           epoch: Optional[int] = None, mode: Optional[str] = None,
+           session: int = 0, token: Optional[int] = None,
+           timeout: float = 10.0,
+           deadline_ms: Optional[float] = None) -> dict:
+        """One keyed request at the engine: {"group", "epoch", "rows"}
+        (rows for GET), or the in-process plane's exception."""
+        from raftsql_tpu_torch.overload import Overloaded
+        from raftsql_tpu_torch.reshard.plane import FrozenSlot, WrongEpoch
+        from raftsql_tpu_torch.runtime.db import NotLeaderError
+        c = self._client
+        if deadline_ms is not None:
+            timeout = min(timeout, max(deadline_ms / 1000.0, 0.0))
+        tok = (token or 0) if method == "PUT" else max(int(session), 0)
+        fut = c._submit(OP_KV, 0, 0, tok,
+                        json.dumps({"method": method, "key": key,
+                                    "value": value, "epoch": epoch,
+                                    "mode": mode}).encode(),
+                        deadline_s=timeout, deadline_ms=deadline_ms)
+        status, leader, body = fut.wait_raw(timeout)
+        text = body.decode("utf-8", "replace")
+        if status == ST_OK:
+            got = json.loads(text)
+            g = int(got["group"])
+            if leader > c._wm.get(g, 0):
+                c._wm[g] = leader
+            self.keymap.epoch = int(got["epoch"])
+            c.adopt_keymap_epoch(self.keymap.epoch)
+            return got
+        if status == ST_WRONG_EPOCH:
+            got = json.loads(text)
+            self.keymap.epoch = int(got["have"])
+            self.keymap.doc = got["keymap"]
+            c.adopt_keymap_epoch(self.keymap.epoch)
+            raise WrongEpoch(int(got["have"]),
+                             -1 if epoch is None else int(epoch))
+        if status == ST_REFUSED:
+            raise FrozenSlot(key, leader)
+        if status == ST_NOT_LEADER:
+            raise NotLeaderError(0, leader)
+        if status == ST_UNAVAILABLE:
+            raise TimeoutError(text)
+        if status == ST_OVERLOADED:
+            raise Overloaded("ring", max(leader, 10) / 1000.0, text)
+        raise ValueError(text)
+
+
+class _KeymapEcho:
+    """The engine's mapping as a worker last saw it: `epoch`, and the
+    document a 409 carried (`to_doc`)."""
+
+    def __init__(self):
+        self.epoch = 0
+        self.doc: dict = {}
+
+    def to_doc(self) -> dict:
+        return self.doc

@@ -22,11 +22,11 @@ shard slots (--mesh, runtime/mesh.py) and the multi-process pod (--pod,
 raftsql_tpu_torch/pod/).  `--workers N` moves HTTP into N worker
 processes that share the engine through mmap rings (runtime/ring.py,
 server/worker.py); `--replica-listen PORT` publishes the read-replica
-delta stream (raftsql_tpu_torch/replica/).  The plane not ported yet
-(--reshard) exits with an error naming it.
+delta stream (raftsql_tpu_torch/replica/).
 `--placement` runs the traffic-aware leadership controller
 (raftsql_tpu_torch/placement/) over the co-located host plane's
-transfer latch.
+transfer latch; `--reshard` the elastic keyspace
+(raftsql_tpu_torch/reshard/: POST /reshard, the keyed /kv surface).
 """
 from __future__ import annotations
 
@@ -330,6 +330,23 @@ def attach_placement(rdb: RaftDB, interval_s: float = 0.5,
     return pc
 
 
+def attach_reshard(rdb: RaftDB, nslots: int = 64,
+                   ship_dir: str | None = None):
+    """--reshard: start the elastic-keyspace plane
+    (raftsql_tpu_torch/reshard/plane.py) over `rdb`; it recovers the
+    journal fold, then drives its coordinator thread.  MIGRATE ships
+    images into `ship_dir` (default reshard-ship/ in the working
+    directory, beside the data dirs).  With placement attached, the
+    split-hottest / merge-coldest verbs ride the controller.  Returns
+    the plane (stop() ends its thread)."""
+    from raftsql_tpu_torch.reshard.plane import ReshardPlane
+    plane = ReshardPlane(rdb, nslots=nslots, ship_dir=ship_dir)
+    plane.start()
+    if rdb.placement is not None:
+        rdb.placement.reshard = plane
+    return plane
+
+
 # Exit code for "the consensus engine failed" (unrecoverable WAL fsync,
 # injected ENOSPC): a server that can no longer participate must crash,
 # visibly, rather than keep answering HTTP with a dead engine behind it.
@@ -381,13 +398,6 @@ def _watch_fatal(rdb) -> None:
 
     threading.Thread(target=_work, daemon=True,
                      name="fatal-watch").start()
-
-
-# Flags of the JAX package's CLI whose deployment or plane this port has
-# not reached yet: set, each exits with this error.
-_NOT_PORTED = {
-    "reshard": "--reshard (ROADMAP Queue 1 item 14)",
-}
 
 
 def main(argv=None) -> None:
@@ -476,7 +486,17 @@ def main(argv=None) -> None:
     ap.add_argument("--placement-imbalance", type=float, default=2.0,
                     help="hottest/coldest per-peer load ratio that "
                          "triggers a transfer")
-    ap.add_argument("--reshard", action="store_true", help="not ported")
+    ap.add_argument("--reshard", action="store_true",
+                    help="elastic keyspace (raftsql_tpu_torch/reshard/): "
+                         "a coordinator thread executes SPLIT / MERGE / "
+                         "MIGRATE verbs (POST /reshard) journaled "
+                         "through the raft logs, and the keyed "
+                         "PUT/GET /kv/<key> surface routes by the "
+                         "versioned hash-slot keymap (clients fail "
+                         "closed on X-Raft-Keymap-Epoch mismatch)")
+    ap.add_argument("--reshard-nslots", type=int, default=64,
+                    help="hash slots in the key->group map (crc32 "
+                         "%% nslots; fixed for the cluster's life)")
     ap.add_argument("--replica-listen", type=int, default=0,
                     help="publish the read-replica delta stream on "
                          "this TCP port (raftsql_tpu_torch/replica/): "
@@ -522,9 +542,6 @@ def main(argv=None) -> None:
                          "ladder disengages")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
-    for name, what in _NOT_PORTED.items():
-        if getattr(args, name):
-            ap.error(f"{what} is not ported to raftsql_tpu_torch yet")
     geometry = (args.write_quorum is not None
                 or args.election_quorum is not None or args.witness)
     if args.pod:
@@ -534,12 +551,12 @@ def main(argv=None) -> None:
                      "mesh runtime, which refuses them too)")
         if args.mesh or args.fused:
             ap.error("--pod is its own deployment; drop --mesh/--fused")
-        if args.placement or args.workers:
-            # Replicated controllers: N hosts each running a placement
-            # controller would issue the same verbs N times; the ring
-            # worker plane has no pod story yet.
-            ap.error("--placement/--workers are not supported with "
-                     "--pod yet")
+        if args.placement or args.reshard or args.workers:
+            # Replicated controllers: N hosts each running a placement/
+            # reshard controller would issue the same verbs N times;
+            # the ring worker plane has no pod story yet.
+            ap.error("--placement/--reshard/--workers are not "
+                     "supported with --pod yet")
         if args.replica_listen:
             ap.error("--replica-listen is not supported with --pod yet "
                      "(the stream tee rides the single-engine shm "
@@ -638,6 +655,8 @@ def main(argv=None) -> None:
     if args.placement:
         attach_placement(rdb, interval_s=args.placement_interval,
                          imbalance=args.placement_imbalance)
+    if args.reshard:
+        attach_reshard(rdb, nslots=args.reshard_nslots)
     if args.workers > 0:
         _serve_workers(rdb, args)    # replica plane attaches there,
         return                       # reusing the ring's shm publisher

@@ -70,15 +70,29 @@ def test_group_header_routes(server):
     ["--cluster", "http://127.0.0.1:1", "--id", "1",
      "--replica-listen", "9", "--reshard"],
     ["--mesh", "--reshard"], ["--fused", "--reshard"],
-    ["--fused", "--workers", "2", "--reshard"]])
-def test_cli_refuses_unported_deployments(argv, capsys):
-    """--reshard is the one plane not ported; with it set, even beside
-    the ported --workers and --replica-listen, the CLI exits with an
-    error naming it."""
-    with pytest.raises(SystemExit) as e:
+    ["--fused", "--workers", "2", "--reshard"],
+    ["--pod", "--reshard"]])
+def test_cli_refuses_unported_deployments(argv, capsys, tmp_path,
+                                          monkeypatch):
+    """No flag of the JAX package's CLI is refused as not ported any
+    more: --reshard, the last, is served now.  Beside every deployment
+    but the pod it gets past the CLI's checks, and the engine's default
+    device (cuda) then raises without a card; with --pod the CLI refuses
+    it, as the JAX package's does."""
+    if "--pod" in argv:
+        with pytest.raises(SystemExit) as e:
+            main(argv)
+        assert e.value.code != 0
+        err = capsys.readouterr().err
+        assert "not supported with --pod" in err
+        assert "not ported" not in err
+        return
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="cuda"):
         main(argv)
-    assert e.value.code != 0
-    assert "not ported" in capsys.readouterr().err
+    assert "not ported" not in capsys.readouterr().err
 
 
 def test_cli_cluster_node_needs_the_card_by_default(tmp_path,

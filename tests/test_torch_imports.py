@@ -70,7 +70,9 @@ def test_module_list_covers_the_slice():
               "chaos.pod", "runtime.ring", "runtime.shm",
               "server.worker", "replica", "replica.__main__",
               "replica.node", "replica.publisher", "replica.stream",
-              "chaos.replica"):
+              "chaos.replica", "reshard", "reshard.keymap",
+              "reshard.journal", "reshard.fork", "reshard.coordinator",
+              "reshard.plane", "obs.trace_demo", "native.sanitize"):
         assert f"raftsql_tpu_torch.{m}" in MODULES, m
 
 

@@ -276,9 +276,7 @@ def _decisions(Placement, Config, Traffic, Refused, leaders, rates, wit,
         d = pc.evaluate()
         if d is not None:
             d = {k: v for k, v in d.items() if k != "at"}
-        m = {k: v for k, v in pc.metrics_doc().items()
-             if not k.startswith("reshard_")}    # the keyspace verbs:
-        out.append((d, list(eng.transfers), m))  # reshard plane, item 14
+        out.append((d, list(eng.transfers), pc.metrics_doc()))
     return out
 
 
