@@ -13,17 +13,29 @@ exit, no result line) at the first phase that fails:
      card (exact equality) at 1 to 385 peers (the generic kernel on
      both sides of the peer count past which it reads its rows from
      device memory), with no, all and random leader rows, ragged and
-     misaligned inputs; kernel and plain times by CUDA events, the
-     kernel's device time by torch.profiler;
+     misaligned inputs; at the main path's P = 3, kernel and plain
+     times by CUDA events and the kernel's device time by
+     torch.profiler;
   4. the fused tick (the main path's device program) at G = 100,000,
      P = 3, W = 256, E = 32 with commit_rule="pallas": the launch
      counts are zeroed just before and read just after; one tick of
      each kernel has its inputs copied, and K1 and K2 are then timed on
-     those tensors; then a card run and a CPU run of the same ticks at
-     G = 8192, each booted from the same seed, must be bit-identical;
-     then the device event ring's cost at G = 100,000 ([64, 3, 100000,
-     9] int32): the fused tick without and with a ring record per tick,
-     and the durable node's tick (native WALs, G = 10,000: its elections
+     those tensors; then a card run and a CPU run of the same 64 ticks
+     at G = 8192, each booted from the same seed, must be bit-identical;
+     then the bench's device helpers at its saturated headline shape
+     (bench.py bench_throughput, the same G, W, E and rule, T = 32):
+     one cluster_run of T ticks whose stacked [T, P, G] infos (~0.8 GB)
+     running_commit and commit_latency_ticks reduce on the card to the
+     commit delta and the p50 and p99 latency in ticks (only scalars
+     cross to the host), ms per tick, K1 launched exactly T times (count
+     zeroed just before, read just after), one tick's K1 inputs copied
+     (R = 300,000); a card run and a CPU run of cluster_run + K8 at G =
+     8192 from one seed must be bit-identical; then the device event
+     ring's cost at G = 100,000 ([64, 3, 100000, 9] int32): the fused
+     tick without and with a ring record per tick, the host history's
+     rows and bytes and the process RSS after each of three 64-slot
+     drains (bytes within the ring's 256 MiB budget, RSS growth within
+     the budget plus one drain's block), and the durable node's tick (native WALs, G = 10,000: its elections
      take 52 s at G = 100,000, 14.6 s at 25,000) without and with
      enable_tracing;
   5. the membership and transfer planes at G = 10,000 on 4 slots
@@ -56,8 +68,11 @@ exit, no result line) at the first phase that fails:
      quorum and transfers families (commit_rule="pallas"), once each
      (RUNS), through raftsql_tpu_torch.chaos.run; every
      schedule and result digest must equal the JAX package's
-     (CHAOS_DIGESTS), and K1 must launch in the default's and the
-     nemesis families' runs; then the falsification pairs of the three
+     (CHAOS_DIGESTS), K1 must launch in the default's and the
+     nemesis families' runs, and the signature tripwire armed over the
+     default's runs prints its `signature-tripwire:` line and must see
+     one call signature of cluster_step_host; then the falsification
+     pairs of the three
      gauntlets (the broken lease bound, the unsafe transfer kernel,
      quorum arms A and B) must be caught and their controls pass;
  10. the distributed runtime at the bench's node shape: 3 RaftNodes on
@@ -87,7 +102,9 @@ exit, no result line) at the first phase that fails:
      package's, CHAOS_DIGESTS; K1 launches in corrupt and snapshot, K2
      in membership, where the inputs of its first call on joint masks,
      R = 2 rows of one peer at P = 4, are copied, held to the plain
-     version and timed), tcp and tcp_rebind once each (invariants hold,
+     version and timed; a device time the profiler does not catch in
+     three captures fails the phase, as on every main path), tcp and
+     tcp_rebind once each (invariants hold,
      faults fired);
  13. the overload gauntlet (chaos.run overload_gauntlet, what --overload
      runs) at the plan's own size, G = 4, P = 3, 160 ticks, 32 offered
@@ -216,7 +233,8 @@ exit, no result line) at the first phase that fails:
      g++ where the script runs; a failed build or a report fails the
      phase);
  24. the kernels line (JSON: K1 as phase 4 measured it, K2 on phase 5's
-     joint masks, launches summed over the paths, and each kernel's
+     joint masks, launches summed over the paths; K1's launches and time
+     on phase 4's cluster_run path, R = 300,000; each kernel's
      node-path launches and time: K1 at R = 10,000 from phase 10, K2 at
      R = 2 from phase 12; K1's launches and time on the overload path of
      phase 13, R = 12; K1's launches in phase 15; K1 and K2 on the mesh
@@ -442,22 +460,30 @@ def kernel_device_us(fn, reps=20, name="quorum_commit"):
     `name` (every kernel when None), from torch.profiler: the kernels'
     own time (the CUDA-event time around one call also holds the
     wrapper's host work, during which the card idles); None where the
-    trace has none."""
+    trace has none.  Each kernel's time is the mean over the launches
+    the trace recorded, times its launches per call: a capture on this
+    card records no launch, or only some, now and then, and the total
+    over `reps` calls would then read low."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    # A profiling session now and then records no kernel on this card
-    # (seen once in a few sessions): the trace is taken again, up to
-    # three times, before the time is reported as not measured.
-    for _ in range(3):
+    # A capture that records no kernel is taken again with ten times the
+    # launches, twice, before the time is reported as not measured
+    # (main_path_kernels then fails).
+    for i, n in enumerate((reps, 10 * reps, 10 * reps)):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(n):
                 fn()
             torch.cuda.synchronize()
         ev = [e for e in prof.key_averages()
               if (name is None or name in e.key) and _self_device_us(e) > 0]
         if ev:
-            return sum(_self_device_us(e) for e in ev) / reps
+            got = sum(e.count for e in ev)
+            if i or got < n:
+                log(f"profiler: {name} on capture {i + 1}: {got} kernel "
+                    f"launches recorded of {n} calls")
+            return sum(_self_device_us(e) / e.count
+                       * max(1, round(e.count / n)) for e in ev)
     return None
 
 
@@ -557,8 +583,8 @@ def _equal(kern, plain, what) -> int:
 
 def check_kernels(card: str, dev="cuda", G=100_000) -> None:
     """K1 and K2 against their plain versions: seeded cases at G rows
-    (timed), the peer counts of both the unrolled and the generic
-    kernels, and the edge cases (untimed)."""
+    (timed at P = 3), the peer counts of both the unrolled and the
+    generic kernels, and the edge cases (untimed)."""
     W = 256
     cases = [(G, P, None, None, "rand", 0) for P in (3, 5, 15)]
     cases += [(G, P, kind, size, "rand", 0)
@@ -592,7 +618,9 @@ def check_kernels(card: str, dev="cuda", G=100_000) -> None:
         what = (f"{'K1' if masks is None else 'K2'} R={rows} P={P} W={W} "
                 f"masks={kind} size={size} leaders={lead} offset={off}")
         _equal(kern, plain, what)
-        if i >= len(cases):
+        # Timed: the main path's peer count (P = 3) at G and at the
+        # fused tick's rows; the other peer counts are checked only.
+        if i >= len(cases) or P != 3:
             continue
         ms, plain_ms = time_ms(kern), time_ms(plain)
         bms, by, _ = bound(args, masks, cand)
@@ -604,11 +632,12 @@ def check_kernels(card: str, dev="cuda", G=100_000) -> None:
         f"{card}")
 
 
-def main_path_kernels(card: str, captured: dict) -> dict:
+def main_path_kernels(card: str, captured: dict, detail=True) -> dict:
     """K1 and K2 on the tensors a main path handed them (captured in
     phase 4's fused tick, phase 5's membership node and phase 10's node
-    cluster): equality, per-call (CUDA events), host and device time,
-    the plain version, the bound, and what bounds the kernel from
+    cluster): equality, per-call (CUDA events), host and device time
+    (a device time the profiler cannot catch fails the phase), the plain
+    version, the bound, and (with `detail`) what bounds the kernel from
     below."""
     results = {}
     for name, (args, kw) in captured.items():
@@ -620,6 +649,9 @@ def main_path_kernels(card: str, captured: dict) -> dict:
         err = _equal(kern, plain, f"{name} on the main path's tensors")
         ms, plain_ms = time_ms(kern, reps=100), time_ms(plain)
         dev_us, h_us = kernel_device_us(kern), host_us(kern)
+        if dev_us is None:
+            raise AssertionError(f"{name}: the profiler caught no launch "
+                                 f"of the kernel in three captures")
         bms, by, all_rows_ms = bound(args, masks, cand)
         leaders = int(args[5].sum())
         log(f"main path {name}: R={args[0].shape[0]} P={P} "
@@ -628,6 +660,12 @@ def main_path_kernels(card: str, captured: dict) -> dict:
             f"device {_us(dev_us)}; plain {plain_ms * 1e3:.1f} us; bound "
             f"{bms * 1e3:.2f} us by {by} (all-rows count "
             f"{all_rows_ms * 1e3:.2f} us) on {card}")
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bms, bound_by=by,
+                             rows=args[0].shape[0], device_us=dev_us,
+                             host_us=h_us)
+        if not detail:
+            continue
         # What holds it back: the same launch with no leader (every row
         # reads is_leader and commit and writes out), one warp, and the
         # wrapper's host work by part.
@@ -643,10 +681,6 @@ def main_path_kernels(card: str, captured: dict) -> dict:
         if masks is None:
             log(f"main path {name} host parts: "
                 f"{k1_host_parts(args, size)} on {card}")
-        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bms, bound_by=by,
-                             rows=args[0].shape[0], device_us=dev_us,
-                             host_us=h_us)
     return results
 
 
@@ -682,12 +716,21 @@ def run_ticks(cfg, st, ib, ticks, seed, record=False, ring=None):
     return st, ib, int(st.commit[0].sum()) - commit0, infos
 
 
+def rss_mb() -> float:
+    """This process's resident set, from /proc/self/status."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024
+    raise AssertionError("no VmRSS in /proc/self/status")
+
+
 def _self_device_us(e) -> float:
     return float(getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0.0)))
 
 
-def profile_ticks(cfg, st, ib, card, ticks=8):
+def profile_ticks(cfg, st, ib, card, ticks=4):
     """torch.profiler over a few ticks: the device's busy time per tick
     (the sum of its kernels' self time) against the wall time, and the
     ops that take the most device time."""
@@ -782,7 +825,7 @@ def fused_tick(card: str, dev="cuda", G=100_000, g=8192) -> dict:
         raise AssertionError(f"a kernel of the path never ran: {launches}")
     del st, ib
 
-    # Card vs CPU: the same 128 ticks, bit for bit, each side booted
+    # Card vs CPU: the same 64 ticks, bit for bit, each side booted
     # from the same seed (the boot draws are made on the host).
     scfg = RaftConfig(num_groups=g, num_peers=P, log_window=W,
                       max_entries_per_msg=E, commit_rule="pallas")
@@ -790,8 +833,8 @@ def fused_tick(card: str, dev="cuda", G=100_000, g=8192) -> dict:
     cib = cluster.empty_cluster_inbox(scfg, device="cpu")
     gst = cluster.init_cluster_state(scfg, device=dev)
     gib = cluster.empty_cluster_inbox(scfg, device=dev)
-    gst, gib, gcom, ginfo = run_ticks(scfg, gst, gib, 128, 4, record=True)
-    cst, cib, ccom, cinfo = run_ticks(scfg, cst, cib, 128, 4, record=True)
+    gst, gib, gcom, ginfo = run_ticks(scfg, gst, gib, 64, 4, record=True)
+    cst, cib, ccom, cinfo = run_ticks(scfg, cst, cib, 64, 4, record=True)
     for t, (a, b) in enumerate(zip(ginfo, cinfo)):
         if not np.array_equal(a, b):
             raise AssertionError(f"card and CPU packed info differ at "
@@ -801,10 +844,128 @@ def fused_tick(card: str, dev="cuda", G=100_000, g=8192) -> dict:
         for k in a:
             if a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k]):
                 raise AssertionError(f"card and CPU differ: {part}.{k}")
-    log(f"card vs CPU at G={g}: 128 ticks bit-identical "
+    log(f"card vs CPU at G={g}: 64 ticks bit-identical "
         f"({gcom} entries committed)")
     return {"ms_per_tick": dt / ticks * 1e3, "commits": commits,
             "launches": launches, "captured": captured}
+
+
+def run_reduce(cfg, st, ib, T, prop):
+    """`cluster_run` over T ticks, then the bench's reduction of its
+    stacked infos on the device (bench.py make_bench_run): the commit
+    delta, and the latency of the tick-0 proposals, the first tick at
+    which each group's running commit reaches its tick-0 log length.
+    Returns the state, the inbox, the infos, the first-hit ticks and the
+    scalars (the only values that cross to the host)."""
+    from raftsql_tpu_torch.ops.commit_scan import (commit_latency_ticks,
+                                                   running_commit)
+    commit0 = st.commit.amax(0)                                  # [G]
+    st, ib, infos = cluster.cluster_run(cfg, st, ib, T, prop)
+    ctraj = infos.commit.amax(1)                                 # [T, G]
+    first = commit_latency_ticks(running_commit(ctraj),
+                                 infos.new_log_len[0].amax(0))
+    ok = first < T
+    n_ok = int(ok.sum())
+    lats = torch.sort(torch.where(ok, (first + 1).float(),
+                                  torch.inf)).values
+    q = [float(lats[min(max(int(p * (n_ok - 1)), 0), len(lats) - 1)])
+         if n_ok else float("inf") for p in (0.5, 0.99)]
+    return st, ib, infos, first, {
+        "committed": int((ctraj[-1] - commit0).sum()), "n_ok": n_ok,
+        "p50_ticks": q[0], "p99_ticks": q[1]}
+
+
+def run_path(card: str, dev="cuda", G=100_000, T=32, g=8192) -> dict:
+    """The bench's device helpers at its saturated headline shape
+    (bench.py bench_throughput: G = 100,000, P = 3, W = 256, E = 32,
+    commit_rule="pallas", T = 32 ticks a cluster_run): the warm-up runs
+    at zero load (4 election intervals), then one cluster_run at E
+    proposals a group a tick with K1's count zeroed just before and read
+    just after (it must launch exactly T times), its stacked [T, P, G]
+    infos reduced on the card by running_commit and
+    commit_latency_ticks; one more run with the first K1 call's inputs
+    copied (R = 300,000).  Then a card run and a CPU run of the same
+    warm-up and loaded cluster_run + reduction at G = g, each booted
+    from one seed, must be bit-identical: every info leaf of every tick,
+    the final states and inboxes, the first-hit ticks and the scalars."""
+    P, W, E = 3, 256, 32
+    cfg = RaftConfig(num_groups=G, num_peers=P, log_window=W,
+                     max_entries_per_msg=E, commit_rule="pallas")
+    k1 = "pallas_quorum_commit_index"
+    t_in = time.monotonic()
+
+    def warm(c, st, ib, d):
+        zero = torch.zeros((T, P, c.num_groups), dtype=torch.int32,
+                           device=d)
+        for _ in range(max(1, -(-4 * c.election_ticks // T))):
+            st, ib, _ = cluster.cluster_run(c, st, ib, T, zero)
+        return st, ib
+
+    st = cluster.init_cluster_state(cfg, device=dev)
+    ib = cluster.empty_cluster_inbox(cfg, device=dev)
+    st, ib = warm(cfg, st, ib, dev)
+    full = torch.full((T, P, G), E, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    pq.reset_launches()                        # the run path starts here
+    t0 = time.monotonic()
+    st, ib, infos, _, got = run_reduce(cfg, st, ib, T, full)
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    launches = pq.launches[k1]                 # ... and ends here
+    mib = sum(x.numel() * x.element_size() for x in infos) / 2**20
+    log(f"cluster_run G={G} P={P} W={W} E={E} pallas T={T}: "
+        f"{dt / T * 1e3:.2f} ms/tick with the on-card reduction, "
+        f"{got['committed']} entries committed ({got['committed'] / dt:.0f}"
+        f"/s), tick-0 latency p50 {got['p50_ticks']:.0f} p99 "
+        f"{got['p99_ticks']:.0f} ticks over {got['n_ok']} of {G} groups; "
+        f"stacked infos {mib:.0f} MiB; K1 launches {launches} on {card}")
+    expect(launches, T, "K1 launches in one cluster_run of T ticks")
+    if got["committed"] <= 0 or got["n_ok"] < G:
+        raise AssertionError(f"cluster_run made no progress: {got}")
+    del infos
+    captured = {}
+    real = getattr(pq, k1)
+
+    def spy(*args, **kw):
+        if k1 not in captured:
+            captured[k1] = ([a.clone() for a in args], dict(kw))
+        return real(*args, **kw)
+
+    setattr(pq, k1, spy)
+    try:
+        st, ib, _, _, _ = run_reduce(cfg, st, ib, 1, full[:1])
+    finally:
+        setattr(pq, k1, real)
+    if k1 not in captured:
+        raise AssertionError("cluster_run never called K1")
+    del st, ib, full
+
+    # Card vs CPU at G = g: warm-up and one loaded run from one seed.
+    scfg = dataclasses.replace(cfg, num_groups=g)
+    out = {}
+    for d in (dev, "cpu"):
+        s0 = cluster.init_cluster_state(scfg, seed=7, device=d)
+        i0 = cluster.empty_cluster_inbox(scfg, device=d)
+        s0, i0 = warm(scfg, s0, i0, d)
+        prop = torch.from_numpy(np.random.default_rng(8).integers(
+            0, E + 1, (T, P, g)).astype(np.int32)).to(d)
+        s0, i0, inf, first, sc = run_reduce(scfg, s0, i0, T, prop)
+        out[d] = (_np(s0), _np(i0), _np(inf), first.cpu().numpy(), sc)
+    for part, i in (("state", 0), ("inbox", 1), ("infos", 2)):
+        a, b = out[dev][i], out["cpu"][i]
+        for k in a:
+            if a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k]):
+                raise AssertionError(f"cluster_run card and CPU differ: "
+                                     f"{part}.{k}")
+    if not np.array_equal(out[dev][3], out["cpu"][3]) \
+            or out[dev][4] != out["cpu"][4]:
+        raise AssertionError(f"K8 card and CPU differ: {out[dev][4]} "
+                             f"!= {out['cpu'][4]}")
+    log(f"cluster_run + K8 card vs CPU at G={g}: bit-identical "
+        f"({out['cpu'][4]}); the run path took "
+        f"{time.monotonic() - t_in:.1f} s")
+    return {"ms_per_tick": dt / T * 1e3, "launches": launches,
+            "captured": captured, **got}
 
 
 def traced_tick(card: str, dev="cuda", G=100_000, ticks=64,
@@ -815,13 +976,18 @@ def traced_tick(card: str, dev="cuda", G=100_000, ticks=64,
     on the durable node (FusedClusterNode: the fused tick plus the host
     plane, idle after the elections, on native WALs) without and with
     enable_tracing, in turns, `node_ticks` a block.  And the ring's slot
-    write alone (CUDA events) and one drain of the full ring.  The
+    write alone (CUDA events) and one drain of the full ring.  After
+    each of the three 64-slot drains the host history's rows and bytes
+    and this process's RSS are logged: the bytes must stay within the
+    ring's byte budget (DEFAULT_BUDGET_BYTES: 24 rows of 10.8 MB here)
+    and the RSS growth within the budget plus one drain's block.  The
     durable node runs at node_G = 10,000, as phase 5 does: at G =
     100,000 its elections took 52.1 s on native WALs too (the staging
     and payload-log work per row stay in Python), 14.6 s at 25,000; the
     whole script must stay under its time limit with the mesh and pod
     phases."""
-    from raftsql_tpu_torch.obs.device_ring import (DeviceEventRing,
+    from raftsql_tpu_torch.obs.device_ring import (DEFAULT_BUDGET_BYTES,
+                                                   DeviceEventRing,
                                                    _record_slot)
     from raftsql_tpu_torch.runtime.fused import FusedClusterNode
     cfg = RaftConfig(num_groups=G, num_peers=3, log_window=256,
@@ -832,12 +998,26 @@ def traced_tick(card: str, dev="cuda", G=100_000, ticks=64,
     st, ib, _, _ = run_ticks(cfg, st, ib, 32, seed=1)     # elect leaders
     ring = DeviceEventRing(P, G, device=dev)
     loop = {"off": [], "on": []}
+    # The host history's bytes and this process's RSS after each drain
+    # (a traced block of `ticks` = depth ticks ends in one).
+    rss0, drains = rss_mb(), []
+
+    def after_drain():
+        drains.append((len(ring), ring.history_bytes(), rss_mb()))
+        n, b, r = drains[-1]
+        log(f"ring at G={G}: drain {ring.drains}: history {n} rows, "
+            f"{b / 2**20:.1f} MiB (budget {DEFAULT_BUDGET_BYTES / 2**20:.0f}"
+            f" MiB, {ring.capacity} rows), RSS {r:.0f} MiB "
+            f"(+{r - rss0:.0f} MiB) on {card}")
+
     for i, mode in enumerate(("off", "on", "off", "on")):
         t0 = time.monotonic()
         st, ib, _, _ = run_ticks(cfg, st, ib, ticks, seed=10 + i,
                                  ring=ring if mode == "on" else None)
         loop[mode].append((time.monotonic() - t0) / ticks * 1e3)
-    if len(ring) != 2 * ticks or ring.drains != 2:
+        if mode == "on":
+            after_drain()
+    if len(ring) != min(2 * ticks, ring.capacity) or ring.drains != 2:
         raise AssertionError(f"ring: {len(ring)} rows, {ring.drains} "
                              f"drains after {2 * ticks} traced ticks")
     app = torch.zeros((P, G), dtype=torch.int32, device=dev)
@@ -853,6 +1033,15 @@ def traced_tick(card: str, dev="cuda", G=100_000, ticks=64,
     t0 = time.monotonic()
     ring.drain()
     drain_ms = (time.monotonic() - t0) * 1e3
+    after_drain()
+    block = ring.depth * ring.row_bytes / 2**20
+    for n, b, r in drains:
+        if b > DEFAULT_BUDGET_BYTES or r - rss0 > \
+                DEFAULT_BUDGET_BYTES / 2**20 + block:
+            raise AssertionError(
+                f"ring history {b} B (budget {DEFAULT_BUDGET_BYTES}), RSS "
+                f"growth {r - rss0:.0f} MiB (limit: the budget plus one "
+                f"{block:.0f} MiB drain block)")
     mb = ring._ring.numel() * 4 / 1e6
     fmt = lambda xs: ", ".join(f"{x:.2f}" for x in xs)  # noqa: E731
     log(f"ring at G={G}: fused tick {statistics.mean(loop['off']):.2f} "
@@ -916,7 +1105,8 @@ def traced_tick(card: str, dev="cuda", G=100_000, ticks=64,
             f"WAL + fsync {(m.t_wal_ms - m0[2]) / n:.2f} ms, publish "
             f"{(m.t_publish_ms - m0[3]) / n:.2f} ms on {card}")
         return {"loop": loop, "node_off": off, "node_on": on,
-                "record_ms": rec_ms, "drain_ms": drain_ms}
+                "record_ms": rec_ms, "drain_ms": drain_ms,
+                "drains": drains, "rss0": rss0}
     finally:
         node.stop()
         shutil.rmtree(d, ignore_errors=True)
@@ -1376,11 +1566,13 @@ def chaos(card: str, dev="cuda") -> dict:
     then the falsification pairs of those three gauntlets, which must be
     caught.  Returns the wall time of each run in seconds and the K1
     launches of each path."""
+    from raftsql_tpu_torch.analysis.tripwire import SignatureTripwire
     from raftsql_tpu_torch.chaos import run as crun
     from raftsql_tpu_torch.chaos.schedule import generate
     k1 = "pallas_quorum_commit_index"
     walls, launches = {}, {}
     pq.reset_launches()                       # the chaos path starts here
+    tripwire = SignatureTripwire()
     for i in range(RUNS):
         t0 = time.monotonic()
         r = crun.run_fused(generate(0, ticks=240), device=dev,
@@ -1394,6 +1586,11 @@ def chaos(card: str, dev="cuda") -> dict:
             f"{walls[f'default#{i + 1}']:.2f} s on {card}")
         expect(got, CHAOS_DIGESTS["default"], "chaos default digests")
     launches["default"] = pq.launches[k1]     # ... and ends here
+    tripwire.disarm()
+    sigs = {k: v for k, v in tripwire.compiles().items() if v > 0}
+    log(f"signature-tripwire: {json.dumps(sigs, sort_keys=True)}")
+    tripwire.check()
+    expect(sigs, {"cluster_step_host": 1}, "the default run's signatures")
     if launches["default"] <= 0:
         raise AssertionError("the chaos runs never launched K1")
     log(f"chaos default: K1 launches {launches['default']} over {RUNS} "
@@ -2841,7 +3038,10 @@ def pod_servers(card: str, dev="cuda", groups=8, threads=16,
     try:
         cli.wait_healthy(0, deadline_s=180.0)
         t_up = time.monotonic() - t0
-        expect(cli.refresh_hints(timeout_s=5.0), groups, "pod hints")
+        # Host 1 boots beside host 0 and may answer /healthz later: its
+        # groups' hints come once it does.
+        _until(lambda: cli.refresh_hints(timeout_s=5.0) == groups,
+               "pod hints for every group", timeout_s=120.0)
         expect(len(cli.nodes), 2, "host 1 adopted from /healthz")
         for g in range(groups):
             cli.put("CREATE TABLE main.t (name text)", group=g,
@@ -4127,6 +4327,10 @@ def main(argv=None) -> int:
     if want(4):
         tick = fused_tick(card)
         kern = main_path_kernels(card, tick.pop("captured"))
+        runp = run_path(card)
+        # K1 on cluster_run's tensors: R = 300,000, P = 3.
+        run_kern = main_path_kernels(card, runp.pop("captured"),
+                                     detail=False)
         traced_tick(card)
         done("fused tick")
     if want(5):
@@ -4223,15 +4427,18 @@ def main(argv=None) -> int:
     pod_launches = {k1: pdry["launches"], k2: 0}
     workers_launches = {k1: wk["launches"], k2: 0}
     reshard_launches = {k1: rsh["launches"], k2: 0}
+    run_launches = {k1: runp["launches"], k2: 0}
     launches = {
-        k1: (tick["launches"][k1] + k1_server + place["launches"]
+        k1: (tick["launches"][k1] + run_launches[k1] + k1_server
+             + place["launches"]
              + ch["launches"]["default"] + ch["launches"]["nemesis"]
              + node_launches[k1] + k1_overload + durable["launches"]
              + mesh_launches[k1] + pod_launches[k1]
              + workers_launches[k1] + reshard_launches[k1]),
         k2: (tick["launches"][k2] + mem["launches"][k2] + node_launches[k2]
              + mesh_launches[k2])}
-    log(f"launches by path: fused tick {tick['launches']}, membership "
+    log(f"launches by path: fused tick {tick['launches']}, cluster_run "
+        f"K1 {runp['launches']}, membership "
         f"node {mem['launches']}, server K1 {k1_server}, placement "
         f"server K1 {place['launches']}, chaos K1 {ch['launches']}, node "
         f"cluster {node['launches']}, node chaos {nch['launches']}, "
@@ -4284,6 +4491,7 @@ def main(argv=None) -> int:
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": None,
+               "run_path_launches": run_launches[name],
                "node_path_launches": node_launches[name],
                "overload_path_launches":
                    k1_overload if name == k1 else 0,
@@ -4293,7 +4501,8 @@ def main(argv=None) -> int:
                "pod_path_launches": pod_launches[name],
                "workers_path_launches": workers_launches[name],
                "reshard_path_launches": reshard_launches[name]}
-        for path, got in (("node_path", node_kern),
+        for path, got in (("run_path", run_kern),
+                          ("node_path", node_kern),
                           ("overload_path", over_kern),
                           ("mesh_path", mesh_kern),
                           ("pod_path", pod_kern),

@@ -953,21 +953,31 @@ def main(argv=None) -> int:
     if args.matrix or args.family:
         return run_matrix(args.seed, only=args.family, **kw)
 
+    from raftsql_tpu_torch.analysis.tripwire import SignatureTripwire
     from raftsql_tpu_torch.chaos.schedule import generate
 
     sched = generate(args.seed, ticks=args.ticks)
+    # Armed before the first dispatch; the verdict prints OUTSIDE the
+    # digested reports (call signatures are host-side facts, and the
+    # result digests must stay comparable across tripwire changes).
     reports = []
-    for run in range(args.runs):
-        r = run_fused(sched, steps=args.steps, **kw)
-        r["run"] = run
-        reports.append(r)
-        print(json.dumps(r, sort_keys=True))
+    with SignatureTripwire() as tripwire:
+        for run in range(args.runs):
+            r = run_fused(sched, steps=args.steps, **kw)
+            r["run"] = run
+            reports.append(r)
+            print(json.dumps(r, sort_keys=True))
     ok = _check(all(r["fsync_faults"] >= 1 and r["torn_writes"] >= 1
                     for r in reports),
                 "a scheduled storage fault never fired")
     digests = {(r["schedule_digest"], r["result_digest"])
                for r in reports}
     ok &= _check(len(digests) == 1, f"non-deterministic run: {digests}")
+    sigs = {k: v for k, v in tripwire.compiles().items() if v > 0}
+    print(f"signature-tripwire: {json.dumps(sigs, sort_keys=True)}")
+    ok &= _check(not tripwire.offenders(limit=1),
+                 f"a step entry point saw a second call signature "
+                 f"mid-run: {tripwire.offenders(limit=1)}")
     if ok:
         print(f"chaos ok: seed={args.seed} ticks={args.ticks} "
               f"schedule={reports[0]['schedule_digest']} "

@@ -4,8 +4,11 @@ Port of raftsql_tpu/core/cluster.py.  All P peers' states are stacked on
 a leading axis and stepped together by the batched `peer_step` (where the
 JAX package vmapped it); messages are delivered by transposing the
 outbox, src->dst becoming dst->src with one `transpose(0, 2)`.  The
-multi-step dispatch is a Python loop over the steps (the JAX package's
-`lax.scan`).  No jit and no donation: each step returns fresh tensors.
+multi-step dispatch and `cluster_run` are Python loops over the steps
+(the JAX package's `lax.scan`).  No jit and no donation: each step
+returns fresh tensors.  The entry points (`cluster_step_host`,
+`cluster_multistep_host`, `cluster_run`) report their call signature
+to core/signature.py while a tripwire is armed.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from typing import Tuple
 import torch
 
 from raftsql_tpu_torch.config import MSG_REQ, MSG_RESP, RaftConfig
+from raftsql_tpu_torch.core import signature
 from raftsql_tpu_torch.core.state import (I32, Inbox, Outbox, PeerState,
                                           StepInfo, empty_inbox,
                                           init_peer_state)
@@ -69,6 +73,9 @@ def cluster_step_host(cfg: RaftConfig, states: PeerState, inboxes: Inbox,
     """Fused step for the durable co-located runtime (runtime/fused.py):
     returns (states, inboxes, packed [P, G, INFO_NCOLS] info, busy), with
     `busy` a 0-dim bool tensor on the device."""
+    if signature.ARMED:
+        signature.note("cluster_step_host", (cfg,),
+                       (states, inboxes, prop_n, timer_inc))
     st, ib, infos = cluster_step(cfg, states, inboxes, prop_n, timer_inc)
     return st, ib, pack_info(infos), _busy(ib)
 
@@ -79,6 +86,9 @@ def cluster_multistep_host(cfg: RaftConfig, states: PeerState,
     """`steps` fused steps in one dispatch: prop_n [S, P, G]; returns the
     packed infos stacked [S, P, G, INFO_NCOLS] and busy OR-reduced over
     the steps."""
+    if signature.ARMED:
+        signature.note("cluster_multistep_host", (cfg, steps),
+                       (states, inboxes, prop_n, timer_inc))
     pinfos, busy = [], None
     for s in range(steps):
         states, inboxes, info = cluster_step(cfg, states, inboxes,
@@ -87,3 +97,24 @@ def cluster_multistep_host(cfg: RaftConfig, states: PeerState,
         b = _busy(inboxes)
         busy = b if busy is None else busy | b
     return states, inboxes, torch.stack(pinfos), busy
+
+
+def cluster_run(cfg: RaftConfig, states: PeerState, inboxes: Inbox,
+                num_ticks: int, prop_n: torch.Tensor
+                ) -> Tuple[PeerState, Inbox, StepInfo]:
+    """`num_ticks` fused steps in lockstep; prop_n is [T, P, G].
+
+    Returns the final states and inboxes and the per-tick infos, every
+    leaf stacked [T, P, G, ...] as the JAX package's scan stacks them:
+    the bench reduces those on the device (ops/commit_scan.py) so that
+    only scalars cross to the host.  Under commit_rule="pallas" each
+    tick launches K1 once (K2 once voter masks are live)."""
+    if signature.ARMED:
+        signature.note("cluster_run", (cfg, num_ticks),
+                       (states, inboxes, prop_n))
+    infos = []
+    for t in range(num_ticks):
+        states, inboxes, info = cluster_step(cfg, states, inboxes,
+                                             prop_n[t])
+        infos.append(info)
+    return states, inboxes, _stack(infos)

@@ -25,6 +25,7 @@ from raftsql_tpu_torch.config import (CANDIDATE, FLOOR_HINT_BIAS, FOLLOWER,
                                       MSG_PRERESP, MSG_REQ, MSG_RESP,
                                       MSG_TIMEONOW, NO_LEADER, NO_VOTE,
                                       NO_XFER, PRECANDIDATE, RaftConfig)
+from raftsql_tpu_torch.core import signature
 from raftsql_tpu_torch.core.state import (I32, Inbox, Outbox, PeerState,
                                           StepInfo, tbl_floor, term_at_tbl,
                                           witness_row)
@@ -582,6 +583,10 @@ def peer_step_packed(cfg: RaftConfig, state: PeerState, packed: torch.Tensor,
     info [G, INFO_NCOLS], next_idx [G, P], timer_margin []).  Under
     commit_rule="pallas" Phase 7 launches the quorum kernel once, on the
     peer's G rows."""
+    if signature.ARMED:
+        signature.note("peer_step_packed", (cfg,),
+                       (state, packed, prop_n, self_id, timer_inc,
+                        force_bcast))
     st, ob, info = peer_step(cfg, state, unpack_inbox(packed), prop_n,
                              self_id, timer_inc=timer_inc,
                              force_bcast=force_bcast)

@@ -33,6 +33,8 @@ from raftsql_tpu_torch.core.step import INFO_FIELDS
 EVENT_FIELDS = ("tick", "term", "role", "leader", "commit", "applied",
                 "log_len", "inbox_depth", "votes")
 NEV = len(EVENT_FIELDS)
+# The drained history's byte budget (DeviceEventRing budget_bytes).
+DEFAULT_BUDGET_BYTES = 256 << 20
 
 _C = {n: i for i, n in enumerate(INFO_FIELDS)}
 
@@ -62,16 +64,25 @@ def _record_slot(ring: torch.Tensor, slot: int, tick_no: int,
 class DeviceEventRing:
     """Host manager for the on-device ring: owns the device tensor, the
     write cursor, and the drained host-side history (a bounded deque of
-    [P, G, NEV] numpy rows, newest last)."""
+    [P, G, NEV] numpy rows, newest last).
+
+    The history keeps at most `keep` rows and at most `budget_bytes` of
+    them: max(1, min(keep, budget_bytes // row_bytes)) rows, where a row
+    is P * G * NEV * 4 bytes.  At the server shapes (8 groups x 3 peers,
+    864 B a row) that is the JAX package's 4,096 rows; at P = 3 and G =
+    100,000 (10.8 MB a row) it is 24 rows under the default 256 MiB."""
 
     def __init__(self, num_peers: int, num_groups: int,
-                 depth: int = 64, keep: int = 4096, device="cuda"):
+                 depth: int = 64, keep: int = 4096,
+                 budget_bytes: int = DEFAULT_BUDGET_BYTES, device="cuda"):
         self.depth = depth
         self.device = resolve_device(device)
         self._ring = torch.zeros((depth, num_peers, num_groups, NEV),
                                  dtype=torch.int32, device=self.device)
         self._slot = 0
-        self._events: deque = deque(maxlen=keep)
+        self.row_bytes = num_peers * num_groups * NEV * 4
+        self.capacity = max(1, min(keep, budget_bytes // self.row_bytes))
+        self._events: deque = deque(maxlen=self.capacity)
         self.drains = 0
         # record() runs on the tick thread; drain()/rows() also run on
         # scrape threads (GET /trace, GET /events, the flight
@@ -99,12 +110,21 @@ class DeviceEventRing:
     def _drain_locked(self) -> None:
         if self._slot == 0:
             return
-        # A copy on every device: on the CPU a plain .cpu() would alias
-        # the ring, and the next slots would overwrite drained history.
-        host = self._ring[:self._slot].to("cpu", copy=True).numpy()
-        self._events.extend(host)
+        # Only the slots the history keeps cross to the host, and each
+        # kept row is a copy of its own: a row that were a view of the
+        # drained block would hold the whole block alive, and the budget
+        # would bound nothing.  (On the CPU a plain .cpu() would also
+        # alias the ring, and the next slots would overwrite history.)
+        lo = max(0, self._slot - self.capacity)
+        host = self._ring[lo:self._slot].to("cpu", copy=True).numpy()
+        self._events.extend(row.copy() for row in host)
         self._slot = 0
         self.drains += 1
+
+    def history_bytes(self) -> int:
+        """Bytes of drained history held on the host."""
+        with self._mu:
+            return sum(r.nbytes for r in self._events)
 
     def rows(self, last: Optional[int] = None) -> List[dict]:
         """Drained history as JSON-ready per-tick dicts (newest-last):

@@ -4,7 +4,9 @@ Port of raftsql_tpu/pod/config.py (pure Python).  The JAX package's
 opt-in `init_distributed` (one jax.distributed program over every
 host's devices) has no counterpart: the port's pod is the replicated
 default, in which every host steps the whole global program and no
-process group is needed.
+process group is needed.  ROADMAP Queue 1 keeps the opt-in last: its
+process group would exchange shard blocks over NCCL between hosts'
+cards, and one card cannot hold two ranks.
 
 A pod is N host processes that jointly own one cluster: process i owns
 a subset of the group shards (its WAL dirs + its SQLite files), every

@@ -585,8 +585,10 @@ class ClusterHostPlane:
     def enable_tracing(self, ring_depth: int = 64,
                        keep: int = 4096) -> None:
         """Turn on both observability planes (raftsql_tpu_torch/obs/):
-        the host span tracer and the event ring on the node's device.
-        Safe to call before the tick loop starts; idempotent."""
+        the host span tracer and the event ring on the node's device,
+        whose drained history holds at most `keep` rows and the ring's
+        byte budget (obs/device_ring.py DEFAULT_BUDGET_BYTES).  Safe to
+        call before the tick loop starts; idempotent."""
         from raftsql_tpu_torch.obs.device_ring import DeviceEventRing
         from raftsql_tpu_torch.obs.spans import SpanTracer
         if self.tracer is None:

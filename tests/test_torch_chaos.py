@@ -87,7 +87,9 @@ def test_cli_default_family_cpu(capsys):
     assert out[-1] == ("chaos ok: seed=0 ticks=240 "
                        "schedule=622b22c59545816b "
                        "result=3bcaa6784fc0a2d8 (x2 identical)")
-    assert [json.loads(line)["run"] for line in out[:-1]] == [0, 1]
+    # The signature tripwire's verdict, outside the digested reports.
+    assert out[-2] == 'signature-tripwire: {"cluster_step_host": 1}'
+    assert [json.loads(line)["run"] for line in out[:-2]] == [0, 1]
 
 
 def test_entry_points_default_to_the_card(tmp_path, capsys):

@@ -72,7 +72,15 @@ def test_module_list_covers_the_slice():
               "replica.node", "replica.publisher", "replica.stream",
               "chaos.replica", "reshard", "reshard.keymap",
               "reshard.journal", "reshard.fork", "reshard.coordinator",
-              "reshard.plane", "obs.trace_demo", "native.sanitize"):
+              "reshard.plane", "obs.trace_demo", "native.sanitize",
+              "core.signature", "analysis", "analysis.__main__",
+              "analysis.cli", "analysis.config", "analysis.core",
+              "analysis.tripwire", "analysis.checkers",
+              "analysis.checkers.vetrules",
+              "analysis.checkers.determinism",
+              "analysis.checkers.ownership",
+              "analysis.checkers.failclosed",
+              "analysis.checkers.jit_stability"):
         assert f"raftsql_tpu_torch.{m}" in MODULES, m
 
 

@@ -115,6 +115,90 @@ def test_ring_defaults_to_the_card():
         DeviceEventRing(3, 4)
 
 
+def _ring_inputs(G):
+    """One fused step's packed info and post-step leaves at P = 3."""
+    from raftsql_tpu_torch.core import cluster
+    cfg = TConfig(**cfg_kw(num_groups=G))
+    st = cluster.init_cluster_state(cfg, 3, device="cpu")
+    ib = cluster.empty_cluster_inbox(cfg, device="cpu")
+    st, ib, pinfo, _ = cluster.cluster_step_host(
+        cfg, st, ib, torch.zeros((3, G), dtype=torch.int32))
+    return pinfo, st.votes, ib.v_type, ib.a_type, np.zeros((3, G), np.int64)
+
+
+def test_ring_history_is_bounded_in_bytes():
+    """Where the byte budget binds, the history holds budget // row_bytes
+    rows (the newest), under the budget, whatever the drains' sizes."""
+    G = 100
+    row_bytes = 3 * G * len(EVENT_FIELDS) * 4
+    budget = 10 * row_bytes + row_bytes // 2
+    ring = DeviceEventRing(3, G, depth=8, budget_bytes=budget,
+                           device="cpu")
+    assert ring.row_bytes == row_bytes and ring.capacity == 10
+    args = _ring_inputs(G)
+    for t in range(27):
+        ring.record(t, *args)
+        if t == 12:
+            ring.drain()                  # a partial drain of 5 slots
+        assert ring.history_bytes() <= budget
+    ring.drain()
+    assert ring.drains == 4 and len(ring) == 10
+    assert ring.history_bytes() == 10 * row_bytes <= budget
+    assert [r["tick"] for r in ring.rows()] == list(range(17, 27))
+    assert [r["tick"] for r in ring.rows(last=3)] == [24, 25, 26]
+
+
+def test_kept_rows_do_not_share_the_drained_block():
+    """Each kept row owns its bytes: a view would hold the whole drained
+    [slots, P, G, NEV] block alive past the budget."""
+    ring = DeviceEventRing(3, 50, depth=16, budget_bytes=4 * 3 * 50 * 36,
+                           device="cpu")
+    args = _ring_inputs(50)
+    for t in range(16):                   # one full drain of 16 slots
+        ring.record(t, *args)
+    kept = list(ring._events)
+    assert len(kept) == 4 and ring.drains == 1
+    for i, row in enumerate(kept):
+        assert row.base is None and row.flags.owndata
+        assert not np.shares_memory(row, ring._ring.numpy())
+        for other in kept[i + 1:]:
+            assert not np.shares_memory(row, other)
+
+
+def test_server_shape_history_keeps_the_jax_packages_rows():
+    """At 8 groups x 3 peers (864 B a row) the budget does not bind: the
+    history keeps 4,096 rows, as the JAX package's ring does."""
+    from raftsql_tpu.obs.device_ring import DeviceEventRing as JRing
+    ring = DeviceEventRing(3, 8, device="cpu")
+    assert ring.row_bytes == 864
+    assert ring.capacity == 4096 == JRing(3, 8)._events.maxlen
+    args = _ring_inputs(8)
+    for t in range(4096 + 64):
+        ring.record(t, *args)
+    assert len(ring) == 4096 and ring.drains == 65
+    assert ring.rows(last=1)[0]["tick"] == 4096 + 63
+    assert ring.rows()[0]["tick"] == 64
+
+
+def test_enable_tracing_keeps_the_ring_budget(tmp_path):
+    """The node's ring takes the byte budget with `keep`: a small keep
+    binds first, and the history holds that many rows."""
+    from raftsql_tpu_torch.obs.device_ring import DEFAULT_BUDGET_BYTES
+    node = TNode(TConfig(**cfg_kw(num_groups=100)), str(tmp_path),
+                 device="cpu")
+    try:
+        node.enable_tracing(ring_depth=4, keep=3)
+        assert node.ring.capacity == 3
+        assert DEFAULT_BUDGET_BYTES // node.ring.row_bytes > 3
+        for _ in range(10):
+            node.tick()
+        node.ring.drain()
+        assert len(node.ring) == 3 and node.ring.drains == 3
+        assert node.ring.history_bytes() == 3 * node.ring.row_bytes
+    finally:
+        node.stop()
+
+
 # -- host plane (spans) ------------------------------------------------
 
 def test_span_lifecycle_fused(traced_node):
