@@ -66,19 +66,20 @@ exit, no result line) at the first phase that fails:
   9. chaos: the default family at SEED=0 (240 ticks,
      commit_rule="pallas"), the five fused families, and the reads,
      quorum and transfers families (commit_rule="pallas"), once each
-     (RUNS), through raftsql_tpu_torch.chaos.run; every
+     (RUNS), through raftsql_tpu_torch.chaos.run (the five in a
+     process of their own beside the rest); every
      schedule and result digest must equal the JAX package's
      (CHAOS_DIGESTS), K1 must launch in the default's and the
      nemesis families' runs, and the signature tripwire armed over the
      default's runs prints its `signature-tripwire:` line and must see
-     one call signature of cluster_step_host; then the falsification
-     pairs of the three
-     gauntlets (the broken lease bound, the unsafe transfer kernel,
-     quorum arms A and B) must be caught and their controls pass;
+     one call signature of cluster_step_host; meanwhile, in a process
+     of its own, the falsification pairs of the three gauntlets (the
+     broken lease bound, the unsafe transfer kernel, quorum arms A and
+     B) must be caught and their controls pass;
  10. the distributed runtime at the bench's node shape: 3 RaftNodes on
      the card over LoopbackHub(codec=False), G = 10,000, P = 3, W = 64,
      E = 8, tick_interval_s = 0, commit_rule="pallas", in lockstep
-     through the elections, then 24 ticks draining E proposals per
+     through the elections, then 12 ticks draining E proposals per
      group per tick queued ahead: node 1's commits/s and per-phase ms
      per tick, every WAL native; K1 must launch once per node tick, and
      one tick's K1 inputs (R = 10,000, one peer's rows) are copied, held
@@ -103,9 +104,10 @@ exit, no result line) at the first phase that fails:
      in membership, where the inputs of its first call on joint masks,
      R = 2 rows of one peer at P = 4, are copied, held to the plain
      version and timed; a device time the profiler does not catch in
-     three captures fails the phase, as on every main path), tcp and
-     tcp_rebind once each (invariants hold,
-     faults fired);
+     three captures fails the phase, as on every main path; snapshot in
+     a process of its own, its launches counted there); meanwhile, in
+     another, tcp and tcp_rebind once each (invariants hold, faults
+     fired);
  13. the overload gauntlet (chaos.run overload_gauntlet, what --overload
      runs) at the plan's own size, G = 4, P = 3, 160 ticks, 32 offered
      writes a tick plus bursts, commit_rule="pallas", twice: plan and
@@ -120,9 +122,11 @@ exit, no result line) at the first phase that fails:
      gauntlet at seed 0, 80 ticks, once (RUNS; every fault family fires,
      no unexpected exit, the verdict digest the reference's all-pass
      digest, PROC_VERDICTS), the read and transfer arms once each on
-     generate_procs(0, ticks=60), and a SIGSTOP probe (a stalled CUDA
-     leader's survivors: device ms per node tick and ticks per second
-     before and during the stall);
+     generate_procs(0, ticks=60), one after another (at once, the
+     transfer arm issued no transfer: it needs the PUT rate a gauntlet
+     gets alone), and a SIGSTOP probe (a stalled
+     CUDA leader's survivors: device ms per node tick and ticks per
+     second before and during the stall);
  15. the durable storage plane at the bench's accelerator durable shape
      (bench.py bench_durable_fused): FusedClusterNode, G = 10,000, P =
      3, W = 64, E = 8, tick_interval_s = 0, commit_rule="pallas", WAL
@@ -130,7 +134,7 @@ exit, no result line) at the first phase that fails:
      (RAFTSQL_FUSED_NATIVE_PLOG=1) with NativeKV applying peer 0's
      stream, arm (b) the Python payload log with one KVStateMachine a
      group draining it, in turns (a, then b), each booted from seed 0,
-     elected, then 24 ticks with E SET proposals a group a tick queued
+     elected, then 12 ticks with E SET proposals a group a tick queued
      ahead: every WAL native, the same commit indexes, KV state and WAL
      records in both arms, K1 launched once per device step; commits/s
      and ms per tick by phase of each arm;
@@ -139,7 +143,7 @@ exit, no result line) at the first phase that fails:
      whose eight shards share the card, commit_rule="pallas": the sharded
      host step and the fused cluster_step_host in lockstep from boot
      (at least 48 ticks, until every group has a leader; packed info and
-     busy bit equal every tick), then blocks of 32
+     busy bit equal every tick), then blocks of 16
      ticks in turns (fused, mesh, mesh, fused) for ms per tick, the final
      states equal; K1 launched pp x gg = 8 times a mesh step (counts
      zeroed before the first mesh block, read after); one shard's K1
@@ -149,7 +153,7 @@ exit, no result line) at the first phase that fails:
  17. the durable mesh node (bench.py's runtime="mesh" rung): G = 10,000,
      P = 3, W = 64, E = 8 over 8 group shards on the card, native WALs
      per shard dir, the rung's queue-drain KV apply, booted from seed 0,
-     elected, 24 ticks with E SETs a group queued ahead: commits/s and ms
+     elected, 12 ticks with E SETs a group queued ahead: commits/s and ms
      per tick by phase beside phase 15's arm (b), the same commit indexes
      and KV state per group, K1 launched 8 times a device step;
  18. the mesh server: `python -m raftsql_tpu_torch.server.main --mesh
@@ -160,15 +164,26 @@ exit, no result line) at the first phase that fails:
  19. mesh chaos: mesh_skew at seed 0, RUNS times, commit_rule="pallas",
      8 shard slots: digests equal to the fused skew family's
      (CHAOS_DIGESTS["mesh_skew"]), K1 launched once per shard per step;
- 20. the pod: two `--pod --pod-procs 2` server processes on the card (8
-     groups, --group-shards 2): writes through a client at host 0 that
-     follows the 421 to the owner, every acked PUT read back from its
-     owner, PUT p50/p99; then `pod.dryrun --mode equiv` with 2 processes
-     (G = 1024 over 8 shards, commit_rule="pallas") equal to the
+ 20. the pod: two pods of two `--pod --pod-procs 2` server processes
+     on the card (8 groups, --group-shards 2), the replicated default
+     and the one program over hosts (RAFTSQL_POD_JAX_DISTRIBUTED=1 over
+     a gloo process group), booted at once: for each, writes through a
+     client at host 0 that follows the 421 to the owner, every acked PUT
+     read back from its owner, PUT p50/p99; then `pod.dryrun --mode
+     equiv` with 2 processes, replicated and distributed pairs at once
+     (G = 1024 over 8 shards, commit_rule="pallas"), equal to the
      single-controller run in this process (the pod path's K1 count, 8 a
-     device step, and one shard's K1 inputs, R = 384, P = 3); then the
-     pod gauntlet at seed 0, RUNS times (every fault fires, no unexpected
-     exit, PROC_VERDICTS["pod"]) and its falsification pair;
+     device step, and one shard's K1 inputs, R = 384, P = 3), the pod
+     gauntlet (below) running beside it; then the
+     distributed step at the bench's multichip group count (G = 32,768,
+     P = 3, W = 64, E = 8, 8 shards): two ranks on the card over gloo,
+     each for 64 ticks bit-identical to the single-process sharded step,
+     K1 launched owned shards x steps a rank, one owned shard's K1
+     inputs (R = 12,288) held to the plain version, ms per tick against
+     the replicated step and the all-gather's ms; one rank alone over
+     NCCL, 16 ticks equal; the pod gauntlet at seed 0, RUNS times
+     (every fault fires, no unexpected exit, PROC_VERDICTS["pod"]) and
+     its falsification pair;
  21. the workers plane (--workers): the engine in this process on the
      card (build_fused_node, 8 groups, parity mode, commit_rule="pallas",
      native WALs) with a RingServer and 2 worker processes spawned as
@@ -182,7 +197,7 @@ exit, no result line) at the first phase that fails:
      before the engine boots, read after it closed), the inputs of K1's
      first call with a leader row copied (R = 24, P = 3); then the load
      ladder: native/http_load.cc (built with g++; a failed build raises)
-     at 192 connections, 5 s a rung, against phase 6's in-process aio
+     at 192 connections, 3 s a rung, against phase 6's in-process aio
      server and 1 and 2 workers, each a fresh engine (req/s, p50/p99,
      0 errors; a 4-worker rung gave no more than 2 and was cut to keep
      the script near its time budget); then `python -m raftsql_tpu_torch.server.main --fused
@@ -223,23 +238,24 @@ exit, no result line) at the first phase that fails:
      it, the engine the only compute process on the card, GET /trace
      valid with the workers' ring spans, SIGTERM exit 0; (c) the
      reshard gauntlet at seed 0 (RUNS times, commit_rule="pallas") with
-     its repaired falsification pair, then the JAX package's unrepaired
-     pair: the nemesis digests and the unrepaired pair's result digests
+     its repaired falsification pair, beside it in a process of its own
+     the JAX package's unrepaired pair: the nemesis digests and the
+     unrepaired pair's result digests
      equal the JAX package's (RESHARD_DIGESTS), the broken flip caught
      and its control passed, K1 launches equal to device steps; (d) the
      trace demo (obs/trace_demo.py: a traced 4-group fused cluster on
      the card, its Chrome trace valid) and the native WAL's stress
      harness under asan, ubsan and tsan (native/sanitize.py, built with
-     g++ where the script runs; a failed build or a report fails the
-     phase);
+     g++ where the script runs, the three at once and while (c) runs; a
+     failed build or a report fails the phase);
  24. the kernels line (JSON: K1 as phase 4 measured it, K2 on phase 5's
      joint masks, launches summed over the paths; K1's launches and time
      on phase 4's cluster_run path, R = 300,000; each kernel's
      node-path launches and time: K1 at R = 10,000 from phase 10, K2 at
      R = 2 from phase 12; K1's launches and time on the overload path of
      phase 13, R = 12; K1's launches in phase 15; K1 and K2 on the mesh
-     path of phases 16, 17 and 19 and K1 on the pod path of phase 20,
-     with their per-shard times; K1's launches on the workers path of
+     path of phases 16, 17 and 19 and K1 on the pod paths of phase 20
+     (replicated and distributed), with their per-shard times; K1's launches on the workers path of
      phase 21 and its time at R = 24; K1's launches on the reshard path
      of phase 23 and its time at R = 24) and the result line.
 
@@ -340,6 +356,14 @@ REPLACES = {
 
 def log(*a):
     print(*a, flush=True)
+
+
+def _mem_available_gib() -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
 
 
 def expect(got, want, what: str) -> None:
@@ -794,7 +818,7 @@ def fused_tick(card: str, dev="cuda", G=100_000, g=8192) -> dict:
     pq.reset_launches()                        # the main path starts here
     st, ib, _, _ = run_ticks(cfg, st, ib, 32, seed=1)   # elect leaders
     t0 = time.monotonic()
-    ticks = 256
+    ticks = 128
     st, ib, commits, _ = run_ticks(cfg, st, ib, ticks, seed=2)
     dt = time.monotonic() - t0
     leaders = int((st.role == 2).sum())
@@ -969,7 +993,7 @@ def run_path(card: str, dev="cuda", G=100_000, T=32, g=8192) -> dict:
 
 
 def traced_tick(card: str, dev="cuda", G=100_000, ticks=64,
-                node_ticks=8, node_G=10_000) -> dict:
+                node_ticks=4, node_G=10_000) -> dict:
     """The event ring's cost at G = 100,000.  First on phase 4's fused
     tick: blocks of `ticks` ticks without and with a DeviceEventRing
     record per tick (one full drain per traced block), in turns.  Then
@@ -1557,15 +1581,134 @@ def placement_server(card: str, dev="cuda", groups=8) -> dict:
 
 # ---- phase 9 ---------------------------------------------------------------
 
+def side_job(name: str, out: str, dev="cuda") -> int:
+    """A part of a phase run as a process of its own beside the rest of
+    the phase (`chip_smoke.py --side NAME --side-out PATH`), its result
+    JSON at `out`: "families", the five fused families, and
+    "falsify", the falsification pairs of the reads, quorum and
+    transfers gauntlets (phase 9); "snapshot", the snapshot node family
+    with its K1 and K2 launches, and "tcp", the tcp and tcp_rebind node
+    families (phase 12); "unrepaired", the JAX package's unrepaired
+    reshard falsification pair (phase 23).  Each runs a seeded plan in
+    lockstep, so a process of its own changes no digest; a job's
+    launches are counted in its process and reported."""
+    from raftsql_tpu_torch.chaos import run as crun
+    pq.build()
+    res = {}
+    if name == "families":
+        for fam, (gen, fired) in crun.family_specs().items():
+            if fam in ("reads", "quorum", "transfers"):
+                continue
+            t0 = time.monotonic()
+            r = crun.run_fused(gen(0), device=dev)
+            res[fam] = {"digests": [r["schedule_digest"],
+                                    r["result_digest"]],
+                        "fired": bool(fired(r)),
+                        "wall": time.monotonic() - t0}
+    elif name == "snapshot":
+        fired = crun.node_family_specs()["snapshot"][3]
+        pq.reset_launches()
+        runs = []
+        for _ in range(RUNS):
+            t0 = time.monotonic()
+            r = crun.run_node("snapshot", 0, device=dev,
+                              commit_rule="pallas")
+            runs.append({"report": r, "fired": bool(fired(r)),
+                         "wall": time.monotonic() - t0})
+        res = {"runs": runs, "launches": dict(pq.launches)}
+    elif name == "unrepaired":
+        from raftsql_tpu_torch.chaos import schedule as S
+        t0 = time.monotonic()
+        for broken in (True, False):
+            plan = S.falsification_reshard_plan(0, broken, repaired=False)
+            r = crun.run_fused(plan, device=dev, commit_rule="pallas")
+            res["broken" if broken else "control"] = r["result_digest"]
+        res["wall"] = time.monotonic() - t0
+    elif name == "falsify":
+        for fam in ("reads", "quorum", "transfers"):
+            t0 = time.monotonic()
+            ok = crun.run_falsification(fam, 0, device=dev,
+                                        commit_rule="pallas")
+            res[fam] = {"ok": bool(ok), "wall": time.monotonic() - t0}
+    elif name == "tcp":
+        specs = crun.node_family_specs()
+        for fam in ("tcp", "tcp_rebind"):
+            t0 = time.monotonic()
+            r = crun.run_node(fam, 0, device=dev, commit_rule="pallas")
+            res[fam] = {"report": r, "fired": bool(specs[fam][3](r)),
+                        "wall": time.monotonic() - t0}
+    else:
+        raise SystemExit(f"unknown side job {name!r}")
+    with open(out + ".tmp", "w") as f:
+        json.dump(res, f, default=str)
+    os.replace(out + ".tmp", out)
+    return 0
+
+
+def _side_start(name: str):
+    """Start side job `name`; returns its handle for _side_finish."""
+    work = os.path.join(ROOT, "build", "chip_smoke_side")
+    os.makedirs(work, exist_ok=True)
+    out = os.path.join(work, f"{name}.json")
+    logp = os.path.join(work, f"{name}.log")
+    for f in (out, logp):
+        if os.path.exists(f):
+            os.remove(f)
+    with open(logp, "ab") as logf:
+        p = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--side", name,
+             "--side-out", out], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=ROOT), stdout=logf,
+            stderr=subprocess.STDOUT)
+    return name, p, out, logp
+
+
+def _side_kill(job) -> None:
+    """Stop a side job that is still running (a phase that failed)."""
+    p = job[1]
+    if p.poll() is None:
+        p.kill()
+        p.wait()
+
+
+def _side_finish(job, timeout=600) -> dict:
+    """Wait for a side job; its log joins this one, then its result."""
+    name, p, out, logp = job
+    try:
+        rc = p.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        rc = p.wait()
+    with open(logp, errors="replace") as f:
+        text = f.read().strip()
+    if text:
+        log(text)
+    if rc != 0:
+        raise AssertionError(f"side job {name} exited {rc}")
+    with open(out) as f:
+        return json.load(f)
+
+
 def chaos(card: str, dev="cuda") -> dict:
     """The seed-0 chaos digests on the card: the default family with
     commit_rule="pallas", then each fused family, then the read, quorum
     and transfer nemesis families with commit_rule="pallas" (K1's
     launch count zeroed just before those runs and read just after,
     twice: the default's and the nemesis families'), each `RUNS` times,
-    then the falsification pairs of those three gauntlets, which must be
-    caught.  Returns the wall time of each run in seconds and the K1
-    launches of each path."""
+    and meanwhile, each in a process of its own (side_job "families"
+    and "falsify"), the five fused families and the falsification pairs
+    of those three gauntlets, which must be caught.
+    Returns the wall time of each run in seconds and the K1 launches of
+    each path."""
+    sides = [_side_start("families"), _side_start("falsify")]
+    try:
+        return _chaos_runs(card, dev, sides)
+    finally:
+        for side in sides:
+            _side_kill(side)
+
+
+def _chaos_runs(card, dev, sides) -> dict:
     from raftsql_tpu_torch.analysis.tripwire import SignatureTripwire
     from raftsql_tpu_torch.chaos import run as crun
     from raftsql_tpu_torch.chaos.schedule import generate
@@ -1597,18 +1740,6 @@ def chaos(card: str, dev="cuda") -> dict:
         f"run(s)")
     nemesis = ("reads", "quorum", "transfers")
     specs = crun.family_specs()
-    for name, (gen, fired) in specs.items():
-        if name in nemesis:
-            continue
-        t0 = time.monotonic()
-        r = crun.run_fused(gen(0), device=dev)
-        walls[name] = time.monotonic() - t0
-        got = (r["schedule_digest"], r["result_digest"])
-        log(f"chaos {name}: schedule={got[0]} result={got[1]} "
-            f"{walls[name]:.2f} s on {card}")
-        expect(got, CHAOS_DIGESTS[name], f"chaos {name} digests")
-        if not fired(r):
-            raise AssertionError(f"chaos {name}: its faults never fired")
     pq.reset_launches()                       # the nemesis path starts here
     for name in nemesis:
         gen, fired = specs[name]
@@ -1629,16 +1760,24 @@ def chaos(card: str, dev="cuda") -> dict:
         raise AssertionError("the nemesis families never launched K1")
     log(f"chaos nemesis families: K1 launches {launches['nemesis']} over "
         f"{3 * RUNS} runs")
+    fams = _side_finish(sides[0])
+    for name, f in fams.items():
+        walls[name] = f["wall"]
+        got = tuple(f["digests"])
+        log(f"chaos {name}: schedule={got[0]} result={got[1]} "
+            f"{walls[name]:.2f} s (a process of its own) on {card}")
+        expect(got, CHAOS_DIGESTS[name], f"chaos {name} digests")
+        if not f["fired"]:
+            raise AssertionError(f"chaos {name}: its faults never fired")
+    fals = _side_finish(sides[1])
     for name in nemesis:
-        t0 = time.monotonic()
-        ok = crun.run_falsification(name, 0, device=dev,
-                                    commit_rule="pallas")
-        walls[f"{name} falsification"] = time.monotonic() - t0
-        if not ok:
+        walls[f"{name} falsification"] = fals[name]["wall"]
+        if not fals[name]["ok"]:
             raise AssertionError(f"chaos {name}: a falsification arm was "
                                  f"not caught or its control failed")
         log(f"chaos {name} falsification: every broken arm caught, every "
-            f"control passed, {walls[f'{name} falsification']:.2f} s on "
+            f"control passed, {walls[f'{name} falsification']:.2f} s (a "
+            f"process of its own, beside the runs above) on "
             f"{card}")
     return {"walls": walls, "launches": launches}
 
@@ -1745,7 +1884,7 @@ def _load_nodes(nodes, G, n_cmds) -> None:
         m.t_send_ms = m.t_publish_ms = 0.0
 
 
-def node_cluster(card: str, dev="cuda", G=10_000, ticks=24,
+def node_cluster(card: str, dev="cuda", G=10_000, ticks=12,
                  g_cmp=512) -> dict:
     """The distributed runtime at the bench's node shape (bench.py
     bench_durable, BENCH_DURABLE_MODE=node): 3 RaftNodes on the card over
@@ -2027,11 +2166,22 @@ def node_chaos(card: str, dev="cuda") -> dict:
     membership `RUNS` times each with commit_rule="pallas" (their plan and
     result digests must equal the JAX package's, CHAOS_DIGESTS; K1 must
     launch in each family's runs and K2 in membership's, whose conf
-    entries switch every node to the masked rule), then tcp and
-    tcp_rebind once each (real sockets: their invariants must hold and
-    their faults fire).  In the first membership run, the inputs of the
+    entries switch every node to the masked rule; snapshot in a process
+    of its own, side_job "snapshot", its launches counted there), and
+    meanwhile, in another (side_job "tcp"), tcp and tcp_rebind once
+    each (real sockets: their invariants must hold and their faults
+    fire).  In the first membership run, the inputs of the
     first K2 call with joint masks live are copied.  Returns the wall
     time of each run, the launches of each family and the copy."""
+    sides = [_side_start("snapshot"), _side_start("tcp")]
+    try:
+        return _node_chaos_runs(card, dev, sides)
+    finally:
+        for side in sides:
+            _side_kill(side)
+
+
+def _node_chaos_runs(card, dev, sides) -> dict:
     from raftsql_tpu_torch.chaos import run as crun
     walls, launches, captured = {}, {}, {}
     specs = crun.node_family_specs()
@@ -2046,7 +2196,7 @@ def node_chaos(card: str, dev="cuda") -> dict:
                              for k, v in kw.items()})
         return real(*args, **kw)
 
-    for name in ("corrupt", "snapshot", "membership"):
+    for name in ("corrupt", "membership"):
         fired = specs[name][3]
         pq.reset_launches()                    # this family starts here
         for i in range(RUNS):
@@ -2075,15 +2225,32 @@ def node_chaos(card: str, dev="cuda") -> dict:
     if launches["membership"][k2] <= 0 or k2 not in captured:
         raise AssertionError("node chaos membership never launched K2 "
                              "(on joint masks)")
+    snap = _side_finish(sides[0])
+    for i, run in enumerate(snap["runs"]):
+        r = run["report"]
+        walls[f"snapshot#{i + 1}"] = run["wall"]
+        got = (r["plan_digest"], r["result_digest"])
+        log(f"node chaos snapshot run {i + 1}: plan={got[0]} "
+            f"result={got[1]} ({r['commits']} commits, {r['crashes']} "
+            f"crashes) {run['wall']:.2f} s (a process of its own) on "
+            f"{card}")
+        expect(got, CHAOS_DIGESTS["snapshot"], "node chaos snapshot digests")
+        if not run["fired"]:
+            raise AssertionError(f"node chaos snapshot: its faults never "
+                                 f"fired ({r})")
+    launches["snapshot"] = snap["launches"]
+    if launches["snapshot"]["pallas_quorum_commit_index"] <= 0:
+        raise AssertionError("node chaos snapshot never launched K1")
+    tcp = _side_finish(sides[1])
     for name in ("tcp", "tcp_rebind"):
-        t0 = time.monotonic()
-        r = crun.run_node(name, 0, device=dev, commit_rule="pallas")
-        walls[name] = time.monotonic() - t0
-        if not specs[name][3](r):
+        r = tcp[name]["report"]
+        walls[name] = tcp[name]["wall"]
+        if not tcp[name]["fired"]:
             raise AssertionError(f"node chaos {name}: faults never fired "
                                  f"or too few commits ({r})")
         log(f"node chaos {name}: invariants held, {r} "
-            f"{walls[name]:.2f} s on {card}")
+            f"{walls[name]:.2f} s (a process of its own, beside the "
+            f"families above) on {card}")
     log(f"node chaos launches by family: {launches}")
     return {"walls": walls, "launches": launches, "captured": captured}
 
@@ -2496,7 +2663,7 @@ def durable_arm(card, dev, native_plog, G, ticks, E=8, seed=0,
             "state": state, "files": files}
 
 
-def durable_plane(card: str, dev="cuda", G=10_000, ticks=24) -> dict:
+def durable_plane(card: str, dev="cuda", G=10_000, ticks=12) -> dict:
     """The durable storage plane at the bench's accelerator durable shape
     (bench.py bench_durable_fused, G = 10,000): arm (a) the native
     payload log with NativeKV applying peer 0's stream, arm (b) the
@@ -2581,7 +2748,7 @@ def _device_busy_ms(fn, ticks: int):
         sum(e.count for e in kern) // ticks
 
 
-def mesh_tick(card: str, dev="cuda", G=32_768, g=512, T=32) -> dict:
+def mesh_tick(card: str, dev="cuda", G=32_768, g=512, T=16) -> dict:
     """BASELINE config 5 at its own shape (bench.py bench_multichip): G =
     32,768 groups (8,192 a group shard), P = 4, W = 64, E = 8 over a 2 x
     4 mesh whose eight shards share the card, commit_rule="pallas".
@@ -2757,7 +2924,7 @@ def _ms(x) -> str:
 
 # ---- phase 17 ---------------------------------------------------------------
 
-def durable_mesh(card: str, dev="cuda", G=10_000, ticks=24,
+def durable_mesh(card: str, dev="cuda", G=10_000, ticks=12,
                  arm_b=None) -> dict:
     """The bench's runtime="mesh" durable rung (bench.py
     bench_durable_fused, runtime="mesh"): G = 10,000, P = 3, W = 64,
@@ -3009,107 +3176,170 @@ def mesh_chaos(card: str, dev="cuda") -> dict:
 
 # ---- phase 20 ---------------------------------------------------------------
 
+POD_DIST_ENV = "RAFTSQL_POD_JAX_DISTRIBUTED"
+
+
+def _coord_pair() -> str:
+    """A localhost pod coordinator `host:port` whose port and the port
+    above it are free: the distributed pod's process group meets at
+    port + 1 (pod/config.py PodConfig.distributed_address)."""
+    for _ in range(64):
+        a, b = socket.socket(), socket.socket()
+        try:
+            a.bind(("127.0.0.1", 0))
+            port = a.getsockname()[1]
+            b.bind(("127.0.0.1", port + 1))
+        except OSError:
+            continue
+        finally:
+            a.close()
+            b.close()
+        return f"127.0.0.1:{port}"
+    raise AssertionError("no free pair of localhost ports")
+
+
 def pod_servers(card: str, dev="cuda", groups=8, threads=16,
                 per=25) -> dict:
-    """Two `python -m raftsql_tpu_torch.server.main --pod --pod-procs 2`
-    processes on the card (8 groups, --group-shards 2, 2 shard slots
-    each): writes go through a client pointed at host 0, which follows
-    the 421 to the owner; every acked PUT is read back from its owner
-    (host 0 owns groups 0-3, host 1 groups 4-7); a misdirected write
-    answers 421 naming the owner; host 0, stopped first, exits 0, and
-    host 1 exits 0 or the pod-wide fail-stop code."""
+    """Two pods of two `python -m raftsql_tpu_torch.server.main --pod
+    --pod-procs 2` processes each on the card (8 groups, --group-shards
+    2, 2 shard slots each), booted at once: the replicated default and
+    the one program over hosts (RAFTSQL_POD_JAX_DISTRIBUTED=1,
+    --pod-dist-backend gloo: NCCL refuses two ranks on one card).  For
+    each pod in turn: writes go through a client pointed at host 0,
+    which follows the 421 to the owner; every acked PUT is read back
+    from its owner (host 0 owns groups 0-3, host 1 groups 4-7); a
+    misdirected write answers 421 naming the owner; host 0, stopped
+    first, exits 0, and host 1 exits 0 or the pod-wide fail-stop
+    code."""
     from raftsql_tpu_torch.api.client import RaftSQLClient
     from raftsql_tpu_torch.server.main import EXIT_CODE_FATAL
     work = os.path.join(ROOT, "build", "chip_smoke_pod")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    ports = [_free_port(), _free_port()]
-    coord = f"127.0.0.1:{_free_port()}"
-    hosts = ",".join(f"127.0.0.1:{p}" for p in ports)
     t0 = time.monotonic()
-    procs = [_spawn(["--pod", "--pod-procs", "2", "--pod-id", str(i),
-                     "--pod-coord", coord, "--pod-hosts", hosts,
-                     "--port", str(p), "--groups", str(groups),
-                     "--group-shards", "2", "--device", dev],
-                    work, f"pod{i}", {"RAFTSQL_SHARD_SLOTS": "2"})
-             for i, p in enumerate(ports)]
-    cli = RaftSQLClient([f"127.0.0.1:{ports[0]}"], timeout_s=15.0)
+    pods = {}
+    for tag, env, extra in (
+            ("replicated", {}, []),
+            ("distributed", {POD_DIST_ENV: "1"},
+             ["--pod-dist-backend", "gloo"])):
+        ports = [_free_port(), _free_port()]
+        coord = _coord_pair()
+        hosts = ",".join(f"127.0.0.1:{p}" for p in ports)
+        os.makedirs(os.path.join(work, tag))     # each pod its data dirs
+        pods[tag] = (ports, [
+            _spawn(["--pod", "--pod-procs", "2", "--pod-id", str(i),
+                    "--pod-coord", coord, "--pod-hosts", hosts,
+                    "--port", str(p), "--groups", str(groups),
+                    "--group-shards", "2", "--device", dev, *extra],
+                   os.path.join(work, tag), f"host{i}",
+                   dict(env, RAFTSQL_SHARD_SLOTS="2"))
+            for i, p in enumerate(ports)])
     owner = lambda g: 0 if g < groups // 2 else 1  # noqa: E731
+    out = {}
     try:
-        cli.wait_healthy(0, deadline_s=180.0)
-        t_up = time.monotonic() - t0
-        # Host 1 boots beside host 0 and may answer /healthz later: its
-        # groups' hints come once it does.
-        _until(lambda: cli.refresh_hints(timeout_s=5.0) == groups,
-               "pod hints for every group", timeout_s=120.0)
-        expect(len(cli.nodes), 2, "host 1 adopted from /healthz")
-        for g in range(groups):
-            cli.put("CREATE TABLE main.t (name text)", group=g,
-                    deadline_s=120.0)
-        st, hdrs, _ = cli.raw(0, "PUT", "/",
-                              'INSERT INTO main.t (name) VALUES ("x")',
-                              headers={"X-Raft-Group": str(groups - 1)})
-        expect((st, hdrs.get("X-Raft-Leader")), (421, "2"),
-               "misdirected pod write")
-        acked, lat = _client_load([f"127.0.0.1:{ports[0]}"], groups,
-                                  threads, per, "pod")
-        _read_back(cli, owner, groups, lambda g: [], acked,
-                   "pod servers")
-        docs = [json.loads(cli.raw(i, "GET", "/metrics")[2])
-                for i in range(2)]
+        for tag, (ports, procs) in pods.items():
+            cli = RaftSQLClient([f"127.0.0.1:{ports[0]}"], timeout_s=15.0)
+            try:
+                cli.wait_healthy(0, deadline_s=180.0)
+                t_up = time.monotonic() - t0
+                # Host 1 boots beside host 0 and may answer /healthz
+                # later: its groups' hints come once it does.
+                _until(lambda: cli.refresh_hints(timeout_s=5.0) == groups,
+                       f"{tag} pod hints for every group", timeout_s=120.0)
+                expect(len(cli.nodes), 2, f"{tag} pod: host 1 adopted "
+                                          "from /healthz")
+                for g in range(groups):
+                    cli.put("CREATE TABLE main.t (name text)", group=g,
+                            deadline_s=120.0)
+                st, hdrs, _ = cli.raw(
+                    0, "PUT", "/", 'INSERT INTO main.t (name) VALUES ("x")',
+                    headers={"X-Raft-Group": str(groups - 1)})
+                expect((st, hdrs.get("X-Raft-Leader")), (421, "2"),
+                       f"misdirected {tag} pod write")
+                acked, lat = _client_load([f"127.0.0.1:{ports[0]}"],
+                                          groups, threads, per, tag)
+                _read_back(cli, owner, groups, lambda g: [], acked,
+                           f"{tag} pod servers")
+                docs = [json.loads(cli.raw(i, "GET", "/metrics")[2])
+                        for i in range(2)]
+                health = [cli.health(i)["pod"] for i in range(2)]
+            finally:
+                cli.close()
+            expect([h.get("distributed", False) for h in health],
+                   [tag == "distributed"] * 2, f"{tag} pod: /healthz pod")
+            codes = [_stop(p) for p in procs]
+            # Host 0 (the coordinator) is stopped first, with host 1
+            # still up, so it must stop clean; host 1 then loses the
+            # coordinator and may fail-stop before its own SIGTERM lands.
+            if codes[0] != 0 or codes[1] not in (0, EXIT_CODE_FATAL):
+                raise AssertionError(f"{tag} pod server exit codes {codes}")
+            p50 = lat[len(lat) // 2] * 1e3
+            p99 = lat[int(len(lat) * 0.99)] * 1e3
+            dist_s = ""
+            if tag == "distributed":
+                dist_s = (f"; process group {health[0]['dist_backend']}, "
+                          f"all-gathers {[h['dist_gathers'] for h in health]}"
+                          f", ms each {[h['dist_gather_ms_per_tick'] for h in health]}")
+            log(f"pod servers ({tag}): up {t_up:.1f} s after spawn; "
+                f"{len(lat)} PUTs from {threads} threads through host 0 "
+                f"(421s followed to the owner) acked and read back from "
+                f"their owners, PUT p50 {p50:.2f} ms p99 {p99:.2f} ms; pod "
+                f"gathers {[d['pod']['gathers'] for d in docs]}, proposals "
+                f"routed {[d['pod']['proposals_routed'] for d in docs]}, "
+                f"phase_ms_per_tick host 0 {docs[0]['phase_ms_per_tick']}"
+                f"{dist_s}; exit codes {codes} on {card}")
+            out[tag] = {"p50": p50, "p99": p99}
     except BaseException:
-        for i in range(2):
-            log(f"--- pod host {i} log tail ---\n{_tail(work, f'pod{i}')}")
+        for tag in pods:
+            for i in range(2):
+                log(f"--- {tag} pod host {i} log tail ---\n"
+                    f"{_tail(os.path.join(work, tag), f'host{i}')}")
         raise
     finally:
-        cli.close()
-        codes = [_stop(p) for p in procs]
-    # Host 0 (the coordinator) is stopped first, with host 1 still up,
-    # so it must stop clean; host 1 then loses the coordinator and may
-    # fail-stop before its own SIGTERM lands.
-    if codes[0] != 0 or codes[1] not in (0, EXIT_CODE_FATAL):
-        raise AssertionError(f"pod server exit codes {codes}")
-    p50, p99 = lat[len(lat) // 2] * 1e3, lat[int(len(lat) * 0.99)] * 1e3
-    log(f"pod servers: up {t_up:.1f} s after spawn; {len(lat)} PUTs from "
-        f"{threads} threads through host 0 (421s followed to the owner) "
-        f"acked and read back from their owners, PUT p50 {p50:.2f} ms "
-        f"p99 {p99:.2f} ms; pod gathers "
-        f"{[d['pod']['gathers'] for d in docs]}, proposals routed "
-        f"{[d['pod']['proposals_routed'] for d in docs]}, phase_ms_per_"
-        f"tick host 0 {docs[0]['phase_ms_per_tick']}; exit codes {codes} "
-        f"on {card}")
+        for _ports, procs in pods.values():
+            for p in procs:
+                if p.poll() is None:
+                    _stop(p)
     shutil.rmtree(work, ignore_errors=True)
-    return {"p50": p50, "p99": p99}
+    return dict(out["replicated"], distributed=out["distributed"])
 
 
 def pod_dryrun(card: str, dev="cuda", groups=1024, ticks=60) -> dict:
     """`pod.dryrun --mode equiv` with 2 processes on the card (G = 1024
-    over 8 group shards, 8 shard slots each, commit_rule="pallas"), and
-    the single-controller run of the same workload in this process (a
-    procs == 1 pod): every dump's digest must be equal.  The in-process
-    run is the pod path's K1 count: one launch per shard per device
-    step; one shard's K1 inputs are copied."""
+    over 8 group shards, 8 shard slots each, commit_rule="pallas"), a
+    second pair at once with the one program over hosts
+    (RAFTSQL_POD_JAX_DISTRIBUTED=1, --dist-backend gloo: each steps its
+    4 shards), and the single-controller run of the same workload in
+    this process (a procs == 1 pod): every dump's digest must be equal.
+    The in-process run is the pod path's K1 count: one launch per shard
+    per device step; one shard's K1 inputs are copied."""
     from raftsql_tpu_torch.pod.dryrun import (build_pod_node, drain_commits,
                                               seeded_workload, state_doc)
     from raftsql_tpu_torch.runtime.hostplane import ClusterHostPlane
     work = os.path.join(ROOT, "build", "chip_smoke_pod_dryrun")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    coord = f"127.0.0.1:{_free_port()}"
-    env = dict(os.environ, PYTHONPATH=ROOT, RAFTSQL_SHARD_SLOTS="8")
     t0 = time.monotonic()
     procs = []
-    for i in range(2):
-        with open(os.path.join(work, f"h{i}.log"), "ab") as logf:
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m", "raftsql_tpu_torch.pod.dryrun",
-                 "--procs", "2", "--proc-id", str(i), "--coord", coord,
-                 "--data-dir", os.path.join(work, f"h{i}"),
-                 "--groups", str(groups), "--group-shards", "8",
-                 "--ticks", str(ticks), "--seed", "0",
-                 "--commit-rule", "pallas", "--device", dev,
-                 "--out", os.path.join(work, f"h{i}.json")],
-                cwd=work, env=env, stdout=logf, stderr=subprocess.STDOUT))
+    names = ["h0", "h1", "d0", "d1"]
+    for tag, extra, more in (("h", {}, []),
+                             ("d", {POD_DIST_ENV: "1"},
+                              ["--dist-backend", "gloo"])):
+        coord = _coord_pair()
+        env = dict(os.environ, PYTHONPATH=ROOT, RAFTSQL_SHARD_SLOTS="8",
+                   **extra)
+        for i in range(2):
+            with open(os.path.join(work, f"{tag}{i}.log"), "ab") as logf:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "raftsql_tpu_torch.pod.dryrun",
+                     "--procs", "2", "--proc-id", str(i), "--coord", coord,
+                     "--data-dir", os.path.join(work, f"{tag}{i}"),
+                     "--groups", str(groups), "--group-shards", "8",
+                     "--ticks", str(ticks), "--seed", "0",
+                     "--commit-rule", "pallas", "--device", dev, *more,
+                     "--out", os.path.join(work, f"{tag}{i}.json")],
+                    cwd=work, env=env, stdout=logf,
+                    stderr=subprocess.STDOUT))
 
     class _A:
         procs = 1
@@ -3161,27 +3391,243 @@ def pod_dryrun(card: str, dev="cuda", groups=1024, ticks=60) -> dict:
         ClusterHostPlane._readback = staticmethod(real)
         node.stop()
     codes = [p.wait(timeout=300) for p in procs]
-    if codes != [0, 0]:
-        for i in range(2):
-            log(f"--- pod dryrun host {i} log tail ---\n"
-                f"{_tail(work, f'h{i}')}")
+    if codes != [0] * 4:
+        for n in names:
+            log(f"--- pod dryrun {n} log tail ---\n{_tail(work, n)}")
         raise AssertionError(f"pod dryrun exit codes {codes}")
     docs = []
-    for i in range(2):
-        with open(os.path.join(work, f"h{i}.json")) as f:
+    for n in names:
+        with open(os.path.join(work, f"{n}.json")) as f:
             docs.append(json.load(f))
-    expect([d["digest"] for d in docs], [ref["digest"]] * 2,
-           "pod dryrun dumps against the single-controller run")
+    expect([d["digest"] for d in docs], [ref["digest"]] * 4,
+           "pod dryrun dumps (replicated and distributed) against the "
+           "single-controller run")
     expect(launches, 8 * steps[0], "pod path K1 launches against device "
                                    "steps x 8 shards")
+    expect([sorted(os.listdir(os.path.join(work, n, "p1")))
+            for n in ("d0", "d1")],
+           [[f"s{j}" for j in (0, 2, 4, 6)], [f"s{j}" for j in (1, 3, 5, 7)]],
+           "distributed pod dryrun: each host's owned shard dirs")
     log(f"pod dryrun equiv G={groups} over 8 shards, 2 processes on the "
-        f"card: both dumps digest {docs[0]['digest']}, "
+        f"card, replicated and (at once) distributed over a gloo process "
+        f"group: all four dumps digest {docs[0]['digest']}, "
         f"{len(docs[0]['kv_stream'])} applied rows, equal to the "
         f"single-controller run's; single controller "
         f"{dt / ticks * 1e3:.1f} ms/tick, K1 launches {launches} "
         f"({time.monotonic() - t0:.1f} s with the children) on {card}")
     shutil.rmtree(work, ignore_errors=True)
     return {"launches": launches, "captured": captured, "steps": steps[0]}
+
+
+DIST_G, DIST_SHARDS = 32_768, 8     # bench.py bench_multichip's G
+
+
+def dist_rank(rank: int, procs: int, coord: str, backend: str, out: str,
+              ticks: int, timed: int, dev="cuda", G=DIST_G,
+              after: str = "") -> int:
+    """One rank of the distributed pod step (`chip_smoke.py --pod-rank
+    R`, a child of phase 20): G = 32,768, P = 3, W = 64, E = 8 over 8
+    group shards on the card, commit_rule="pallas", this rank holding
+    its owned shards (PodConfig.shard_owner) in a process group of
+    `procs` over `backend`.  For `ticks` ticks of seeded proposals and
+    a skewed timer advance (every rank draws the same), the distributed
+    step and the single-process sharded step of the whole state run in
+    lockstep: packed info and busy equal every tick; K1's launches in
+    the distributed step alone are counted, and rank 0 copies the
+    inputs of its first owned shard's K1 call in the last tick.  Then
+    `timed` ticks of each (the distributed step on every rank at once,
+    then the replicated step on every rank at once, as replicated hosts
+    sharing the card), ms per tick and the collective's ms per tick,
+    once the file `after` exists (another process's result: the timed
+    ticks then have the card to themselves).  Writes dist<rank>.json
+    (and dist_k1.pt) under `out`."""
+    import torch.distributed as dist
+
+    from raftsql_tpu_torch.parallel import (make_distributed_cluster_step_host,
+                                            make_mesh,
+                                            make_sharded_cluster_step_host,
+                                            shard, shard_cluster_arrays)
+    from raftsql_tpu_torch.parallel.sharded import inbox_specs, state_specs
+    from raftsql_tpu_torch.pod import PodConfig
+    P, W, E, gg = 3, 64, 8, DIST_SHARDS
+    k1 = "pallas_quorum_commit_index"
+    pod = PodConfig(procs=procs, proc_id=rank, coordinator=coord)
+    pq.build()
+    got = pod.init_distributed(device=dev, backend=backend, timeout_s=300)
+    try:
+        ranks = pod.rank_group(gg)
+        cfg = RaftConfig(num_groups=G, num_peers=P, log_window=W,
+                         max_entries_per_msg=E, commit_rule="pallas")
+        mesh = make_mesh(1, gg, devices=[torch.device(dev)] * gg)
+        dstep = make_distributed_cluster_step_host(cfg, mesh, ranks)
+        rstep = make_sharded_cluster_step_host(cfg, mesh)
+        st0 = cluster.init_cluster_state(cfg, device=dev)
+        ib0 = cluster.empty_cluster_inbox(cfg, device=dev)
+        ds = shard(mesh, st0, state_specs(), ranks.owned)
+        di = shard(mesh, ib0, inbox_specs(), ranks.owned)
+        rs, ri = shard_cluster_arrays(mesh, st0, ib0)
+        del st0, ib0
+        rng = np.random.default_rng(20)
+
+        def inputs(n):
+            pn = rng.integers(0, E + 1, (n, P, G)).astype(np.int32)
+            ti = rng.integers(0, 3, (n, P)).astype(np.int32)
+            return (torch.from_numpy(pn).to(dev),
+                    torch.from_numpy(ti).to(dev))
+
+        real = pq.pallas_quorum_commit_index
+        captured = {}
+
+        def spy(*args, **kw):
+            if k1 not in captured:
+                captured[k1] = ([a.clone() for a in args], dict(kw))
+            return real(*args, **kw)
+
+        launches = 0
+        pns, tis = inputs(ticks)
+        for t in range(ticks):
+            if t == ticks - 1 and rank == 0:
+                pq.pallas_quorum_commit_index = spy
+            n0 = pq.launches[k1]
+            try:
+                ds, di, dinfo, dbusy, _ = dstep(ds, di, pns[t], tis[t])
+            finally:
+                pq.pallas_quorum_commit_index = real
+            launches += pq.launches[k1] - n0
+            rs, ri, rinfo, rbusy = rstep(rs, ri, pns[t], tis[t])
+            if not torch.equal(dinfo.to(dev), rinfo) \
+                    or bool(dbusy) != bool(rbusy):
+                raise AssertionError(f"rank {rank}: the distributed step "
+                                     f"!= the sharded step at tick {t}")
+        leaders = int(sum(int(((rs.blocks[0][j].role == 2).sum(0) > 0)
+                              .sum()) for j in range(gg)))
+        doc = {"rank": rank, "procs": procs, "backend": got,
+               "owned": ranks.owned, "steps": ticks, "launches": launches,
+               "leaders": leaders}
+        if timed:
+            pns, tis = inputs(timed)
+            until = time.monotonic() + 300.0
+            while after and not os.path.exists(after):
+                if time.monotonic() > until:
+                    raise AssertionError(f"{after} never appeared")
+                time.sleep(0.1)
+            dist.barrier()
+            _sync(dev)
+            g0, s0 = ranks.gathers, ranks.gather_s
+            t0 = time.perf_counter()
+            for t in range(timed):
+                ds, di, dinfo, dbusy, _ = dstep(ds, di, pns[t], tis[t])
+                bool(dbusy)                 # the host plane's readback
+            doc["dist_ms"] = (time.perf_counter() - t0) / timed * 1e3
+            doc["coll_ms"] = ((ranks.gather_s - s0)
+                              / max(ranks.gathers - g0, 1) * 1e3)
+            dist.barrier()
+            _sync(dev)
+            t0 = time.perf_counter()
+            for t in range(timed):
+                rs, ri, rinfo, rbusy = rstep(rs, ri, pns[t], tis[t])
+                bool(rbusy)
+            doc["repl_ms"] = (time.perf_counter() - t0) / timed * 1e3
+            dist.barrier()
+        if captured:
+            torch.save(captured, os.path.join(out, "dist_k1.pt"))
+        tmp = os.path.join(out, f"dist{rank}.json.tmp")
+        with open(tmp, "w") as f:
+            json.dump(doc, f)
+        os.replace(tmp, os.path.join(out, f"dist{rank}.json"))
+    finally:
+        PodConfig.destroy_distributed()
+    return 0
+
+
+def _start_ranks(work, procs, backend, ticks, timed, after=""):
+    """Start `procs` rank processes of dist_rank (results under
+    `work`)."""
+    os.makedirs(work, exist_ok=True)
+    coord = _coord_pair()
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    ps = []
+    for r in range(procs):
+        with open(os.path.join(work, f"rank{r}.log"), "ab") as logf:
+            ps.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--pod-rank",
+                 str(r), "--pod-procs", str(procs), "--pod-coord", coord,
+                 "--pod-backend", backend, "--pod-out", work,
+                 "--pod-ticks", str(ticks), "--pod-timed", str(timed),
+                 "--pod-after", after],
+                cwd=ROOT, env=env, stdout=logf, stderr=subprocess.STDOUT))
+    return ps
+
+
+def _finish_ranks(work, ps, backend, timeout=600):
+    """Wait for the ranks; their result docs, each K1 count checked."""
+    try:
+        codes = [p.wait(timeout=timeout) for p in ps]
+    finally:
+        for p in ps:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if codes != [0] * len(ps):
+        for r in range(len(ps)):
+            log(f"--- distributed rank {r} of {len(ps)} ({backend}) log "
+                f"tail ---\n{_tail(work, f'rank{r}')}")
+        raise AssertionError(f"distributed pod ranks ({backend}) exit "
+                             f"codes {codes}")
+    docs = []
+    for r in range(len(ps)):
+        with open(os.path.join(work, f"dist{r}.json")) as f:
+            docs.append(json.load(f))
+    for d in docs:
+        expect(d["launches"], len(d["owned"]) * d["steps"],
+               f"rank {d['rank']} of {len(ps)} ({backend}): K1 launches "
+               "against owned shards x steps")
+    return docs
+
+
+def pod_distributed(card: str, dev="cuda", ticks=64, timed=32) -> dict:
+    """The one program over hosts at the bench's multichip group count
+    (see dist_rank): two ranks on the card over a gloo process group
+    (NCCL refuses two ranks on one device), each bit-identical to the
+    single-process sharded step for `ticks` ticks and K1 launched once
+    per owned shard per step; then one rank alone over NCCL, the
+    backend a CUDA host gets by default, for 16 ticks.  Both ranks share
+    one card and gloo stages the collective through host memory, so
+    the times show what the sharded program costs here, not scaling."""
+    work = os.path.join(ROOT, "build", "chip_smoke_pod_dist")
+    shutil.rmtree(work, ignore_errors=True)
+    gw, nw = os.path.join(work, "gloo"), os.path.join(work, "nccl")
+    t0 = time.monotonic()
+    # The NCCL rank runs beside the pair's lockstep ticks; the pair
+    # times its ticks only once the NCCL rank is done.
+    nccl_ps = _start_ranks(nw, 1, "nccl", 16, 0)
+    gloo_ps = _start_ranks(gw, 2, "gloo", ticks, timed,
+                           after=os.path.join(nw, "dist0.json"))
+    nccl = _finish_ranks(nw, nccl_ps, "nccl")[0]
+    docs = _finish_ranks(gw, gloo_ps, "gloo")
+    wall = time.monotonic() - t0
+    captured = torch.load(os.path.join(gw, "dist_k1.pt"), map_location=dev)
+    for d in docs:
+        log(f"pod distributed G={DIST_G} P=3 W=64 E=8 pallas over "
+            f"{DIST_SHARDS} shards, rank {d['rank']} of 2 (gloo, one "
+            f"card): owns shards {d['owned']}, {d['steps']} ticks "
+            f"bit-identical to the single-process sharded step "
+            f"({d['leaders']} groups with a leader), K1 launches "
+            f"{d['launches']} = {len(d['owned'])} owned shards x "
+            f"{d['steps']} steps; ms/tick distributed "
+            f"{d['dist_ms']:.2f} (of it the all-gather "
+            f"{d['coll_ms']:.2f}) against replicated {d['repl_ms']:.2f}, "
+            f"both ranks at once on one card: the sharded program's cost "
+            f"here, not scaling, on {card}")
+    expect(nccl["backend"], "nccl", "one-rank group backend")
+    log(f"pod distributed over NCCL, one rank (world size 1) owning all "
+        f"{len(nccl['owned'])} shards: {nccl['steps']} ticks bit-identical "
+        f"to the replicated step, K1 launches {nccl['launches']}; the "
+        f"three ranks {wall:.1f} s on {card}")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"launches": sum(d["launches"] for d in docs)
+            + nccl["launches"], "captured": captured, "ranks": docs,
+            "nccl": nccl}
 
 
 def pod_chaos(card: str, dev="cuda") -> None:
@@ -3217,7 +3663,7 @@ def pod_chaos(card: str, dev="cuda") -> None:
 # ---- phases 21 and 22: the workers plane and the replica tier ---------------
 
 LADDER_CONNS = 192          # bench.py's http_workers ladder's clients
-LADDER_S = 5.0
+LADDER_S = 3.0
 
 
 def _proc_stat(pid: int):
@@ -3527,7 +3973,7 @@ def workers_plane(card: str, dev="cuda", groups=8) -> dict:
     return res
 
 
-def workers_cli(card, dev, groups, work, threads=8, secs=6.0) -> dict:
+def workers_cli(card, dev, groups, work, threads=8, secs=4.0) -> dict:
     """`python -m raftsql_tpu_torch.server.main --fused --workers 2
     --groups 8` on the card: the recipe, a worker SIGKILLed (and
     respawned) while PUTs continue with every acked PUT read back, then
@@ -4194,7 +4640,6 @@ def reshard_cli(card: str, dev="cuda", groups=8, keys=64) -> dict:
 def reshard_chaos(card: str, dev="cuda") -> dict:
     """Phase 23 (c) (see the module docstring)."""
     from raftsql_tpu_torch.chaos import run as crun
-    from raftsql_tpu_torch.chaos import schedule as S
     from raftsql_tpu_torch.runtime.hostplane import ClusterHostPlane
     k1 = "pallas_quorum_commit_index"
     steps = [0]
@@ -4204,6 +4649,8 @@ def reshard_chaos(card: str, dev="cuda") -> dict:
         steps[0] += 1
         return real(*a, **kw)
 
+    # The JAX package's unrepaired pair runs in a process of its own.
+    side = _side_start("unrepaired")
     pq.reset_launches()                     # the reshard chaos path
     ClusterHostPlane._readback = staticmethod(counted)
     try:
@@ -4211,17 +4658,14 @@ def reshard_chaos(card: str, dev="cuda") -> dict:
         ok, reports = crun.reshard_gauntlet(0, runs=RUNS, device=dev,
                                             commit_rule="pallas")
         wall = time.monotonic() - t0
-        t1 = time.monotonic()
-        unrepaired = {}
-        for broken in (True, False):
-            plan = S.falsification_reshard_plan(0, broken, repaired=False)
-            r = crun.run_fused(plan, device=dev, commit_rule="pallas")
-            unrepaired["broken" if broken else "control"] = \
-                r["result_digest"]
-        wall_u = time.monotonic() - t1
+    except BaseException:
+        _side_kill(side)
+        raise
     finally:
         ClusterHostPlane._readback = staticmethod(real)
     launches = pq.launches[k1]              # ... and ends here
+    unrepaired = _side_finish(side)
+    wall_u = unrepaired.pop("wall")
     if not ok:
         raise AssertionError("the reshard gauntlet failed (see CHAOS FAIL "
                              "above)")
@@ -4245,16 +4689,34 @@ def reshard_chaos(card: str, dev="cuda") -> dict:
     log(f"reshard chaos: gauntlet (nemesis x{RUNS} and the repaired "
         f"falsification pair: broken flip caught, control passed) "
         f"{wall:.2f} s; the JAX package's unrepaired pair "
-        f"{wall_u:.2f} s, both passed (its broken flip NOT caught, as on "
+        f"{wall_u:.2f} s (a process of its own, beside the gauntlet), "
+        f"both passed (its broken flip NOT caught, as on "
         f"the CPU); K1 {launches} launches = {steps[0]} device steps on "
         f"{card}")
     return {"launches": launches, "steps": steps[0], "wall": wall,
             "walls": [r["wall_s"] for r in reports]}
 
 
-def tooling(card: str, dev="cuda") -> dict:
-    """Phase 23 (d) (see the module docstring)."""
+def sanitizers() -> dict:
+    """The native WAL's stress harness under asan, ubsan and tsan, the
+    three builds at once: {name: (build + run s, run s)}; a failed build
+    or a report raises."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from raftsql_tpu_torch.native.sanitize import run_one
+
+    def one(san):
+        t0 = time.monotonic()
+        run = run_one(san)
+        return san, (time.monotonic() - t0, run)
+
+    with ThreadPoolExecutor(max_workers=3) as ex:
+        return dict(ex.map(one, ("asan", "ubsan", "tsan")))
+
+
+def tooling(card: str, dev="cuda", sans=None) -> dict:
+    """Phase 23 (d) (see the module docstring); `sans` is sanitizers()'s
+    result when it already ran."""
     from raftsql_tpu_torch.obs.export import validate_chrome_trace
     from raftsql_tpu_torch.obs.trace_demo import run_demo
     work = os.path.join(ROOT, "build", "chip_smoke_tooling")
@@ -4269,13 +4731,11 @@ def tooling(card: str, dev="cuda") -> dict:
     expect("C" in phases and bool(phases & {"X", "B", "E"}), True,
            "trace demo: counter tracks and spans")
     res = {"trace_demo_s": demo_s, "trace_events": len(doc["traceEvents"])}
-    for san in ("asan", "ubsan", "tsan"):
-        t0 = time.monotonic()
-        run = run_one(san)                 # raises on a build or a report
-        res[san] = (time.monotonic() - t0, run)
+    res.update(sanitizers() if sans is None else sans)
     log(f"tooling: trace demo (4 groups x 3 peers, 200 ticks, traced) "
         f"{res['trace_events']} events, valid, in {demo_s:.1f} s; WAL "
-        f"stress under sanitizers (build + run, run): "
+        f"stress under sanitizers, built and run at once (build + run, "
+        f"run): "
         + ", ".join(f"{k} {res[k][0]:.1f} s / {res[k][1]:.2f} s"
                     for k in ("asan", "ubsan", "tsan"))
         + f", no report, on {card}")
@@ -4284,11 +4744,15 @@ def tooling(card: str, dev="cuda") -> dict:
 
 
 def reshard_plane(card: str, dev="cuda") -> dict:
-    """Phase 23: (a), (b), (c) and (d)."""
+    """Phase 23: (a), (b), (c) and (d); (d)'s sanitizer builds and runs
+    (host processes, no card) go on while (c) runs."""
+    from concurrent.futures import ThreadPoolExecutor
     eng = reshard_engine(card, dev)
     cli = reshard_cli(card, dev)
-    ch = reshard_chaos(card, dev)
-    tools = tooling(card, dev)
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        sans = ex.submit(sanitizers)
+        ch = reshard_chaos(card, dev)
+        tools = tooling(card, dev, sans.result())
     return {"engine": eng, "cli": cli, "chaos": ch, "tooling": tools,
             "launches": eng["launches"] + ch["launches"],
             "steps": eng["steps"] + ch["steps"],
@@ -4306,11 +4770,30 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default="",
                     help="comma separated phases (3-23) to run after the "
                          "build; no result line is printed")
-    only = {int(x) for x in ap.parse_args(argv).only.split(",") if x}
+    # One rank of phase 20's distributed pod step (a child process).
+    ap.add_argument("--pod-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    # A side job of phase 9 or 12 (a child process).
+    ap.add_argument("--side", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--side-out", default="", help=argparse.SUPPRESS)
+    for flag in ("--pod-procs", "--pod-ticks", "--pod-timed"):
+        ap.add_argument(flag, type=int, default=0, help=argparse.SUPPRESS)
+    for flag in ("--pod-coord", "--pod-backend", "--pod-out",
+                 "--pod-after"):
+        ap.add_argument(flag, default="", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.side:
+        return side_job(args.side, args.side_out)
+    if args.pod_rank is not None:
+        return dist_rank(args.pod_rank, args.pod_procs, args.pod_coord,
+                         args.pod_backend, args.pod_out, args.pod_ticks,
+                         args.pod_timed, after=args.pod_after)
+    only = {int(x) for x in args.only.split(",") if x}
     t_start = time.monotonic()
 
     def done(phase):
-        log(f"phase {phase} done at {time.monotonic() - t_start:.1f} s")
+        log(f"phase {phase} done at {time.monotonic() - t_start:.1f} s "
+            f"(host memory available {_mem_available_gib():.1f} GiB)")
 
     def want(phase):
         return not only or phase in only
@@ -4393,12 +4876,23 @@ def main(argv=None) -> int:
         mch = mesh_chaos(card)
         done("mesh chaos")
     if want(20):
+        from concurrent.futures import ThreadPoolExecutor
         psrv = pod_servers(card)
-        pdry = pod_dryrun(card)
+        # The pod gauntlet's processes run beside the dry run's (their
+        # verdicts and digests do not follow the load; the single
+        # controller's ms/tick does), never beside a timed kernel.
+        with ThreadPoolExecutor(max_workers=1) as ex:
+            pch = ex.submit(pod_chaos, card)
+            pdry = pod_dryrun(card)
+            pch.result()
         # K1 on one shard's rows of the pod's replicated step: R = 3 x
         # 128 = 384, P = 3.
         pod_kern = main_path_kernels(card, pdry.pop("captured"))
-        pod_chaos(card)
+        pdist = pod_distributed(card)
+        # K1 on rank 0's first owned shard of the distributed step: R =
+        # 3 x 4,096 = 12,288, P = 3.
+        pod_dist_kern = main_path_kernels(card, pdist.pop("captured"),
+                                          detail=False)
         done("pod")
     if want(21):
         wk = workers_plane(card)
@@ -4425,6 +4919,7 @@ def main(argv=None) -> int:
         k1: (mtick["launches"][k1] + dmesh["launches"] + mch["launches"]),
         k2: mtick["launches"][k2]}
     pod_launches = {k1: pdry["launches"], k2: 0}
+    pod_dist_launches = {k1: pdist["launches"], k2: 0}
     workers_launches = {k1: wk["launches"], k2: 0}
     reshard_launches = {k1: rsh["launches"], k2: 0}
     run_launches = {k1: runp["launches"], k2: 0}
@@ -4434,6 +4929,7 @@ def main(argv=None) -> int:
              + ch["launches"]["default"] + ch["launches"]["nemesis"]
              + node_launches[k1] + k1_overload + durable["launches"]
              + mesh_launches[k1] + pod_launches[k1]
+             + pod_dist_launches[k1]
              + workers_launches[k1] + reshard_launches[k1]),
         k2: (tick["launches"][k2] + mem["launches"][k2] + node_launches[k2]
              + mesh_launches[k2])}
@@ -4445,7 +4941,10 @@ def main(argv=None) -> int:
         f"overload K1 {k1_overload}, durable plane K1 "
         f"{durable['launches']}, mesh tick {mtick['launches']}, durable "
         f"mesh K1 {dmesh['launches']}, mesh chaos K1 {mch['launches']}, "
-        f"pod K1 {pdry['launches']}, workers K1 {wk['launches']} "
+        f"pod K1 {pdry['launches']}, distributed pod K1 "
+        f"{pdist['launches']} (ranks "
+        f"{[d['launches'] for d in pdist['ranks']]}, NCCL rank "
+        f"{pdist['nccl']['launches']}), workers K1 {wk['launches']} "
         f"({wk['steps']} device steps), reshard K1 {rsh['launches']} "
         f"({rsh['steps']} device steps: engine {rsh['engine']['launches']}"
         f", chaos {rsh['chaos']['launches']})")
@@ -4454,7 +4953,13 @@ def main(argv=None) -> int:
         f"{dmesh['commits_per_s']:.0f} commits/s against fused arm (b) "
         f"{dmesh['fused_commits_per_s']:.0f}; mesh server PUT p50 "
         f"{msrv['p50']:.2f} ms p99 {msrv['p99']:.2f} ms; pod servers PUT "
-        f"p50 {psrv['p50']:.2f} ms p99 {psrv['p99']:.2f} ms on {card}")
+        f"p50 {psrv['p50']:.2f} ms p99 {psrv['p99']:.2f} ms, distributed "
+        f"{psrv['distributed']['p50']:.2f} / "
+        f"{psrv['distributed']['p99']:.2f} ms; distributed pod step "
+        f"ms/tick {[round(d['dist_ms'], 2) for d in pdist['ranks']]} "
+        f"(all-gather {[round(d['coll_ms'], 2) for d in pdist['ranks']]})"
+        f" against replicated "
+        f"{[round(d['repl_ms'], 2) for d in pdist['ranks']]} on {card}")
     log(f"procfile cluster PUT p50 {procs['p50']:.2f} ms p99 "
         f"{procs['p99']:.2f} ms; node cluster "
         f"{node['commits_per_s']:.0f} commits/s (node 1 WAL "
@@ -4499,6 +5004,7 @@ def main(argv=None) -> int:
                    durable["launches"] if name == k1 else 0,
                "mesh_path_launches": mesh_launches[name],
                "pod_path_launches": pod_launches[name],
+               "pod_dist_path_launches": pod_dist_launches[name],
                "workers_path_launches": workers_launches[name],
                "reshard_path_launches": reshard_launches[name]}
         for path, got in (("run_path", run_kern),
@@ -4506,6 +5012,7 @@ def main(argv=None) -> int:
                           ("overload_path", over_kern),
                           ("mesh_path", mesh_kern),
                           ("pod_path", pod_kern),
+                          ("pod_dist_path", pod_dist_kern),
                           ("workers_path", workers_kern),
                           ("reshard_path", reshard_kern)):
             if name in got:

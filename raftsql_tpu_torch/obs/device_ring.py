@@ -50,14 +50,24 @@ def _record_slot(ring: torch.Tensor, slot: int, tick_no: int,
     stacked state/inbox leaves; applied is the host's [P, G] apply
     cursor, already on the ring's device."""
     depth = (v_type != 0).sum(-1) + (a_type != 0).sum(-1)       # [P, G]
-    ev = torch.stack([torch.full_like(depth, tick_no),
+    _record_counts_slot(ring, slot, tick_no, pinfo, depth, votes.sum(-1),
+                        applied)
+
+
+def _record_counts_slot(ring: torch.Tensor, slot: int, tick_no: int,
+                        pinfo: torch.Tensor, depth: torch.Tensor,
+                        tally: torch.Tensor, applied: torch.Tensor) -> None:
+    """`_record_slot` with the inbox depth and the vote tally ([P, G]
+    each) already counted."""
+    ev = torch.stack([torch.full_like(pinfo[:, :, 0], tick_no),
                       pinfo[:, :, _C["term"]],
                       pinfo[:, :, _C["role"]],
                       pinfo[:, :, _C["leader_hint"]],
                       pinfo[:, :, _C["commit"]],
                       applied,
                       pinfo[:, :, _C["new_log_len"]],
-                      depth, votes.sum(-1)], dim=-1)
+                      depth.to(pinfo.dtype), tally.to(pinfo.dtype)],
+                     dim=-1)
     ring[slot].copy_(ev)
 
 
@@ -97,6 +107,20 @@ class DeviceEventRing:
         with self._mu:
             _record_slot(self._ring, self._slot, tick_no, pinfo_dev,
                          votes, v_type, a_type, app)
+            self._slot += 1
+            if self._slot >= self.depth:
+                self._drain_locked()
+
+    def record_counts(self, tick_no: int, pinfo_dev, counts,
+                      applied: np.ndarray) -> None:
+        """`record` from counts gathered elsewhere: `counts` [P, G, 2]
+        is the inbox depth and the vote tally per (peer, group)
+        (parallel/sharded.py ring_counts; a distributed pod host holds
+        no other host's state)."""
+        app = torch.from_numpy(applied.astype(np.int32)).to(self.device)
+        with self._mu:
+            _record_counts_slot(self._ring, self._slot, tick_no, pinfo_dev,
+                                counts[..., 0], counts[..., 1], app)
             self._slot += 1
             if self._slot >= self.depth:
                 self._drain_locked()

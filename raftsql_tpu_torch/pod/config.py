@@ -1,12 +1,16 @@
 """PodConfig — the declarative description of a multi-host pod.
 
-Port of raftsql_tpu/pod/config.py (pure Python).  The JAX package's
-opt-in `init_distributed` (one jax.distributed program over every
-host's devices) has no counterpart: the port's pod is the replicated
-default, in which every host steps the whole global program and no
-process group is needed.  ROADMAP Queue 1 keeps the opt-in last: its
-process group would exchange shard blocks over NCCL between hosts'
-cards, and one card cannot hold two ranks.
+Port of raftsql_tpu/pod/config.py.  By default every host of the pod
+steps the whole global program (pod/node.py, the replicated default)
+and no process group exists.  The opt-in, `init_distributed`, is the
+JAX package's `jax.distributed.initialize`: it forms one
+torch.distributed process group over the pod's hosts, after which each
+host steps only the group shards it owns and one all-gather a tick
+hands every host the whole step (parallel/sharded.py
+`make_distributed_cluster_step_host`).  The --pod server and the dry
+run (pod/dryrun.py) take it when RAFTSQL_POD_JAX_DISTRIBUTED=1, the JAX
+package's variable, kept so that a deployment's environment means the
+same in both.
 
 A pod is N host processes that jointly own one cluster: process i owns
 a subset of the group shards (its WAL dirs + its SQLite files), every
@@ -36,6 +40,8 @@ import os
 from typing import List, Optional, Tuple
 
 POD_META = "PODMETA"
+# The opt-in's environment variable (server/main.py --pod, pod/dryrun.py).
+POD_DISTRIBUTED_ENV = "RAFTSQL_POD_JAX_DISTRIBUTED"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +96,90 @@ class PodConfig:
         """Which process originated a pod-global proposal sequence
         number (origin-strided allocation: origin + k * procs)."""
         return seq % self.procs
+
+    # -- the process group (the one program over hosts) ----------------
+
+    def distributed_address(self) -> str:
+        """The process group's rendezvous: `tcp://host:port+1` for the
+        coordinator `host:port`.  A pure function of the config, so a
+        respawned process (the chaos nemesis rebuilds a pod from
+        (procs, proc_id, coordinator)) finds it again; one port above
+        the coordinator's, which pod/transport.py TcpPodTransport
+        binds."""
+        if not self.coordinator:
+            raise ValueError("the distributed pod needs a coordinator "
+                             "address (host:port): its process group "
+                             "meets at the port above it")
+        host, _, port = self.coordinator.rpartition(":")
+        return f"tcp://{host}:{int(port) + 1}"
+
+    def init_distributed(self, device="cuda", backend=None,
+                         timeout_s: float = 600.0) -> str:
+        """Form the pod's torch.distributed process group: world size
+        `procs`, rank `proc_id`, meeting at `distributed_address()`.
+        Returns the backend.
+
+        The backend follows `device`: NCCL for a CUDA device, gloo for
+        the CPU.  `backend="gloo"` with a CUDA device is allowed, and
+        exists only because NCCL refuses two ranks on one card: it lets
+        a pod of several processes on one card (chip_smoke.py) run the
+        distributed step, the collective staged through host memory.
+        NCCL without a card raises; nothing falls back from NCCL to
+        gloo, or from the card to the CPU.  A collective that waits
+        longer than `timeout_s` raises (a lost host)."""
+        import datetime
+
+        import torch
+        import torch.distributed as dist
+
+        from raftsql_tpu_torch.core.state import resolve_device
+        dev = torch.device(device)
+        backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+        if backend not in ("nccl", "gloo"):
+            raise ValueError(f"backend {backend!r}: nccl or gloo")
+        if backend == "nccl" and (dev.type != "cuda"
+                                  or not torch.cuda.is_available()
+                                  or not dist.is_nccl_available()):
+            raise RuntimeError(f"NCCL asked for on {dev} without a CUDA "
+                               "card (torch.cuda.is_available() is "
+                               f"{torch.cuda.is_available()})")
+        resolve_device(dev)                   # a CUDA device needs a card
+        if dev.type == "cuda" and dev.index is not None:
+            torch.cuda.set_device(dev)        # NCCL's card for this rank
+        if dist.is_initialized():
+            raise RuntimeError("this process already has a process group")
+        dist.init_process_group(
+            backend, init_method=self.distributed_address(),
+            world_size=self.procs, rank=self.proc_id,
+            timeout=datetime.timedelta(seconds=timeout_s))
+        return backend
+
+    def rank_group(self, group_shards: int):
+        """The parallel/sharded.py RankGroup of this pod over
+        `group_shards`: shard j's owner is shard_owner(j).  Needs the
+        process group of init_distributed, of this pod's shape."""
+        import torch.distributed as dist
+
+        from raftsql_tpu_torch.parallel.sharded import RankGroup
+        if not dist.is_initialized():
+            raise RuntimeError("no process group: call init_distributed "
+                               "first")
+        if (dist.get_world_size(), dist.get_rank()) != (self.procs,
+                                                       self.proc_id):
+            raise ValueError(
+                f"process group rank {dist.get_rank()} of "
+                f"{dist.get_world_size()} is not pod host {self.proc_id} "
+                f"of {self.procs}")
+        self.validate(group_shards)
+        return RankGroup([self.shard_owner(j) for j in range(group_shards)],
+                         self.proc_id)
+
+    @staticmethod
+    def destroy_distributed() -> None:
+        """Leave the process group, if this process is in one."""
+        import torch.distributed as dist
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
 
     # -- PODMETA --------------------------------------------------------
 

@@ -22,6 +22,11 @@ Launch (one line per process, any order; proc 0 is the coordinator):
         --out pod/h0.json
     ... --proc-id 1 --data-dir pod/h1 --out pod/h1.json
 
+With RAFTSQL_POD_JAX_DISTRIBUTED=1 (the JAX package's variable) every
+process first joins the pod's torch.distributed process group
+(pod/config.py init_distributed, `--dist-backend`) and steps only the
+group shards it owns: the dumps must not change.
+
 `--mode bench` times the same loop and reports commits/s plus the
 per-phase profiler shares with the pod gather wait broken out, so the
 cross-host hop cost is attributed, not guessed (chip_smoke.py's pod
@@ -111,12 +116,13 @@ def state_doc(node, applied_rows: List[tuple]) -> dict:
 
 def build_pod_node(args, transport=None):
     from raftsql_tpu_torch.config import RaftConfig
-    from raftsql_tpu_torch.pod.config import PodConfig
+    from raftsql_tpu_torch.pod.config import POD_DISTRIBUTED_ENV, PodConfig
     from raftsql_tpu_torch.pod.node import PodClusterNode
     from raftsql_tpu_torch.runtime.mesh import MeshConfig
     device = getattr(args, "device", "cuda")
     pod = PodConfig(procs=args.procs, proc_id=args.proc_id,
                     coordinator=args.coord or "")
+    dist = os.environ.get(POD_DISTRIBUTED_ENV) == "1"
     cfg = RaftConfig(num_groups=args.groups, num_peers=args.peers,
                      log_window=32, max_entries_per_msg=4,
                      election_ticks=10, heartbeat_ticks=1,
@@ -125,10 +131,21 @@ def build_pod_node(args, transport=None):
     gg = args.group_shards
     if gg <= 0:
         gg = MeshConfig.for_groups(cfg, device=device).group_shards
-    mesh = MeshConfig(peer_shards=1, group_shards=gg).build(device=device)
-    node = PodClusterNode(pod, cfg, args.data_dir, mesh,
-                          transport=transport, seed=3,
-                          connect_timeout_s=args.connect_timeout)
+    if dist:
+        pod.init_distributed(device=device,
+                             backend=getattr(args, "dist_backend", "")
+                             or None)
+    try:
+        mesh = MeshConfig(peer_shards=1, group_shards=gg).build(
+            device=device, owned=pod.owned_shards(gg) if dist else None)
+        node = PodClusterNode(pod, cfg, args.data_dir, mesh,
+                              transport=transport, seed=3,
+                              connect_timeout_s=args.connect_timeout,
+                              distributed=dist)
+    except BaseException:
+        if dist:
+            pod.destroy_distributed()
+        raise
     return node, cfg
 
 
@@ -210,6 +227,12 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="torch device the consensus state steps on "
                          "(default cuda; 'cpu' runs the plain versions)")
+    ap.add_argument("--dist-backend", default="",
+                    choices=("", "nccl", "gloo"),
+                    help="with RAFTSQL_POD_JAX_DISTRIBUTED=1: the process "
+                         "group's backend (default nccl on a card, gloo "
+                         "on the CPU; gloo on a card runs several "
+                         "processes on one card)")
     ap.add_argument("--out", default="",
                     help="write the result doc here (default stdout)")
     args = ap.parse_args(argv)

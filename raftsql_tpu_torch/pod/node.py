@@ -42,6 +42,18 @@ replicated image — the cross-host analogue of ShardedWAL's merged
 replay, with the same wrong-shard refusal plus the PODMETA assignment
 check (pod/config.py).
 
+The one program over hosts (`distributed=True`, the opt-in of
+pod/config.py init_distributed): compute is sharded too.  Each host
+holds and steps only the group shards it owns — the host that computes
+a shard is the host that fsyncs it — and the mesh runtime's
+distributed step all-gathers the packed info once a tick, so the host
+plane above (and everything this docstring says of `_hard`, `_hints`,
+`_applied`, the proposal merge and the durable plane) is unchanged:
+every host still sees the whole [P, G] step.  Boot still rebuilds the
+full replicated image from the replay exchange, then keeps only the
+owned blocks.  The collective follows the TCP gather in every tick, so
+the process group is lockstepped by the same barrier.
+
 Overlap is disabled on the pod (`self._overlap = False`): the
 collective is the pipeline barrier, and stashing a durable phase past
 it would let this host's disk lag a dispatch other hosts already
@@ -161,14 +173,19 @@ class PodClusterNode(MeshClusterNode):
     Construction joins the pod (transport connect + replay exchange)
     and therefore BLOCKS until all `pod.procs` processes arrive — the
     pod is one program.  `transport` can be injected for tests; by
-    default it is built from the PodConfig."""
+    default it is built from the PodConfig.  `distributed=True` steps
+    only the owned group shards over the process group that
+    `pod.init_distributed()` formed (module docstring); stop() leaves
+    that group."""
 
     def __init__(self, pod: PodConfig, cfg: RaftConfig, data_dir: str,
                  mesh, transport=None, seed: Optional[int] = None,
                  connect_timeout_s: float = 30.0,
-                 io_timeout_s: float = 600.0):
+                 io_timeout_s: float = 600.0,
+                 distributed: bool = False):
         gg = mesh.shape[GROUPS_AXIS]
         pod.validate(gg)
+        ranks = pod.rank_group(gg) if distributed else None
         if cfg.num_groups % gg:
             raise ValueError(f"num_groups {cfg.num_groups} not "
                              f"divisible by group shards {gg}")
@@ -193,7 +210,7 @@ class PodClusterNode(MeshClusterNode):
         g_loc = cfg.num_groups // gg
         self._pod_replay: Optional[Dict[str, Dict[int, GroupLog]]] = \
             self._pod_exchange_replay(cfg, data_dir, g_loc)
-        super().__init__(cfg, data_dir, mesh, seed)
+        super().__init__(cfg, data_dir, mesh, seed, ranks=ranks)
         self._pod_replay = None
         # The collective is the pipeline barrier: durable phase t must
         # complete before this host contributes gather t+1, so the
@@ -399,10 +416,25 @@ class PodClusterNode(MeshClusterNode):
                 "groups_per_shard": self._g_loc,
                 "gathers": int(getattr(tr, "gathers", 0)),
                 "bytes_tx": int(getattr(tr, "bytes_tx", 0)),
-                "bytes_rx": int(getattr(tr, "bytes_rx", 0))}
+                "bytes_rx": int(getattr(tr, "bytes_rx", 0)),
+                **self._dist_doc()}
+
+    def _dist_doc(self) -> dict:
+        """The one program's keys (distributed hosts only)."""
+        r = self._ranks
+        if r is None:
+            return {}
+        return {"distributed": True, "dist_backend": r.backend,
+                "dist_gathers": r.gathers,
+                "dist_gather_ms_per_tick": round(
+                    r.gather_s * 1e3 / max(r.gathers, 1), 4)}
 
     def stop(self) -> None:
         try:
             super().stop()
         finally:
-            self._pod_transport.close()
+            try:
+                self._pod_transport.close()
+            finally:
+                if self._ranks is not None:
+                    self.pod.destroy_distributed()

@@ -457,6 +457,13 @@ class ClusterHostPlane:
 
     # -- subclass seams -------------------------------------------------
 
+    def _ring_record(self, pinfo_dev: torch.Tensor) -> None:
+        """Record this tick's row of the device event ring from the
+        step's packed info and the post-step state and inbox."""
+        self.ring.record(self._tick_no, pinfo_dev, self.states.votes,
+                         self.inboxes.v_type, self.inboxes.a_type,
+                         self._applied)
+
     def _device_step(self, prop_n: np.ndarray,
                      timer_inc: Optional[np.ndarray] = None):
         """Dispatch one cluster step; returns (packed-info device array,
@@ -675,8 +682,21 @@ class ClusterHostPlane:
         P = self.cfg.num_peers
         vrow = np.array([bool(v >> i & 1) for i in range(P)])
         jrow = np.array([bool(j >> i & 1) for i in range(P)])
+        self._set_group_config(p, g, vrow, jrow, bool((v | j) >> p & 1))
+
+    def _set_group_config(self, p: int, g: int, vrow, jrow,
+                          self_is_voter: bool) -> None:
+        """Patch peer row p's view of group g's masks into the device
+        state (a seam: a distributed mesh rank patches only the group
+        shards it holds)."""
         self.states = set_group_config_stacked(
-            self.states, p, g, vrow, jrow, bool((v | j) >> p & 1))
+            self.states, p, g, vrow, jrow, self_is_voter)
+
+    def _set_transfer_target(self, p: int, g: int, target: int) -> None:
+        """Arm or clear peer row p's transfer latch for group g in the
+        device state (a seam, as _set_group_config)."""
+        self.states = set_transfer_target_stacked(self.states, p, g,
+                                                  target)
 
     def _membership_advance(self, pinfo: np.ndarray) -> None:
         """Apply pending conf entries to each peer row whose commit
@@ -819,8 +839,7 @@ class ClusterHostPlane:
         with self._xfer_lock:
             reqs, self._xfer_req = self._xfer_req, []
             for (p, g, tgt) in reqs:
-                self.states = set_transfer_target_stacked(
-                    self.states, p, g, tgt)
+                self._set_transfer_target(p, g, tgt)
                 tr = self._xfers.get(g)
                 if tr is not None:
                     tr["armed"] = True
@@ -846,8 +865,7 @@ class ClusterHostPlane:
                     outcome = "completed"
                 elif now >= tr["deadline"]:
                     if armed_dev:
-                        self.states = set_transfer_target_stacked(
-                            self.states, frm, g, NO_XFER)
+                        self._set_transfer_target(frm, g, NO_XFER)
                     outcome = "aborted"
                 elif not armed_dev and 0 <= h != frm:
                     outcome = "aborted"    # settled elsewhere
@@ -1269,11 +1287,8 @@ class ClusterHostPlane:
             # the device and drains to the host in batches.  A
             # multi-step dispatch records its final step — the ring is
             # tick-indexed at dispatch granularity, like the runtime.
-            self.ring.record(self._tick_no,
-                             pinfo_dev if self._steps == 1
-                             else pinfo_dev[-1],
-                             self.states.votes, self.inboxes.v_type,
-                             self.inboxes.a_type, self._applied)
+            self._ring_record(pinfo_dev if self._steps == 1
+                              else pinfo_dev[-1])
         t1 = _t.monotonic()
         if prof_on:
             prof.record("dispatch", self._tick_no, tb, t1 - tb)

@@ -31,6 +31,20 @@ sharded.  Per-peer clock skew is plumbed: the [P] timer advance splits
 over the `peers` axis, so chaos SkewWindow schedules run on the mesh
 exactly as on the fused runtime.
 
+Under a process group (`ranks`, the pod's opt-in: pod/config.py
+init_distributed) the node is one rank of a program over hosts: it
+holds the blocks of only the group shards it owns and steps them with
+parallel/sharded.py `make_distributed_cluster_step_host`, whose one
+all-gather a tick gives this host plane the whole [P, G] packed info,
+so every host's `_hard`, `_hints` and `_applied` stay the replicated
+ones.  No global state view exists then, and its readers are served
+otherwise: boot builds the full image and keeps the owned blocks;
+membership and transfer patches write only the owned blocks (the
+others' owners write theirs at the same lockstep point); the trace ring
+records from the gathered info and its two gathered count columns; and
+`roles()` answers from the last gathered info.  `states`/`inboxes`
+raise.
+
 Testable without a card: RAFTSQL_SHARD_SLOTS=8 with device="cpu" gives
 eight shard slots on the CPU (the JAX tests force eight host devices).
 """
@@ -45,16 +59,19 @@ import numpy as np
 import torch
 
 from raftsql_tpu_torch.config import RaftConfig
-from raftsql_tpu_torch.parallel.sharded import (GROUPS_AXIS, PEERS_AXIS,
-                                                inbox_specs, make_mesh,
-                                                make_sharded_cluster_step_host,
-                                                shard, shard_slots,
-                                                state_specs)
+from raftsql_tpu_torch.core.state import (set_group_config_stacked,
+                                          set_transfer_target_stacked)
+from raftsql_tpu_torch.core.step import INFO_FIELDS
+from raftsql_tpu_torch.parallel.sharded import (
+    GROUPS_AXIS, PEERS_AXIS, RankGroup, inbox_specs,
+    make_distributed_cluster_step_host, make_mesh,
+    make_sharded_cluster_step_host, shard, shard_slots, state_specs)
 from raftsql_tpu_torch.runtime.hostplane import ClusterHostPlane
 from raftsql_tpu_torch.storage.wal import (DEFAULT_SEGMENT_BYTES, WAL,
                                            wal_exists)
 
 MESH_META = "MESHMETA"
+_ROLE = INFO_FIELDS.index("role")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,11 +104,13 @@ class MeshConfig:
                              f"divisible by group shards "
                              f"{self.group_shards}")
 
-    def build(self, devices=None, device="cuda"):
+    def build(self, devices=None, device="cuda", owned=None):
         """The Mesh over the first `total_devices` shard slots
-        (`devices`, else parallel/sharded.py shard_slots(device))."""
+        (`devices`, else parallel/sharded.py shard_slots(device)); with
+        `owned` (a distributed pod host's group shards) over as many
+        slots as it owns."""
         return make_mesh(self.peer_shards, self.group_shards,
-                         devices=devices, device=device)
+                         devices=devices, device=device, columns=owned)
 
     @staticmethod
     def for_groups(cfg: RaftConfig, devices=None, peer_shards: int = 1,
@@ -271,6 +290,9 @@ class MeshClusterNode(ClusterHostPlane):
     per group shard (ShardedWAL), and one publish worker per group
     shard.  The node's device is the mesh's shard (0, 0) device: where
     the packed info and the busy bit land for the one readback a step.
+    With `ranks` (a parallel/sharded.py RankGroup: the pod's process
+    group) the node holds and steps only its owned group shards (module
+    docstring), and its device is its first owned shard's.
     """
 
     # The per-shard WAL layout supersedes the single-file group-commit
@@ -281,11 +303,19 @@ class MeshClusterNode(ClusterHostPlane):
     supports_group_commit = False
 
     def __init__(self, cfg: RaftConfig, data_dir: str, mesh,
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None,
+                 ranks: Optional[RankGroup] = None):
         gg = mesh.shape[GROUPS_AXIS]
         pp = mesh.shape[PEERS_AXIS]
         MeshConfig(peer_shards=pp, group_shards=gg).validate(cfg)
+        if ranks is not None and pp != 1:
+            raise ValueError(f"the distributed pod shards groups only: "
+                             f"{pp} peer shards refused (peer_shards=1)")
         self.mesh = mesh
+        self._ranks = ranks
+        self._owned = ranks.owned if ranks is not None else None
+        self._role_view = None       # roles() under ranks
+        self._ring_counts = None     # the trace ring's columns, ditto
         self._gg = gg
         self._g_loc = cfg.num_groups // gg
         # The cluster state: per-shard blocks (_st, _ib) and the host
@@ -296,21 +326,30 @@ class MeshClusterNode(ClusterHostPlane):
         self._dirty = set()
         self._check_mesh_meta(data_dir, gg)
         super().__init__(cfg, data_dir, seed, group_commit=False,
-                         device=mesh.devices[0][0])
+                         device=mesh.devices[0][self._owned[0]
+                                               if ranks is not None
+                                               else 0])
         # The sharded step dispatches exactly one consensus step: pin
         # steps-per-dispatch so a RAFTSQL_FUSED_STEPS meant for the
         # single-device runtime cannot misreport the mesh's dispatch.
         self._steps = 1
-        self._sharded_step = make_sharded_cluster_step_host(cfg, mesh)
+        self._sharded_step = self._make_step()
         self._ti_ones = torch.ones((cfg.num_peers,), dtype=torch.int32,
                                    device=self.device)
         self._sync_blocks()
 
     # -- the cluster state: blocks and the host plane's global view -----
 
+    def _make_step(self):
+        if self._ranks is not None:
+            return make_distributed_cluster_step_host(self.cfg, self.mesh,
+                                                      self._ranks)
+        return make_sharded_cluster_step_host(self.cfg, self.mesh)
+
     @property
     def states(self):
         if self._st_view is None:
+            self._no_view()
             self._st_view = self._st.gather()
         return self._st_view
 
@@ -322,6 +361,7 @@ class MeshClusterNode(ClusterHostPlane):
     @property
     def inboxes(self):
         if self._ib_view is None:
+            self._no_view()
             self._ib_view = self._ib.gather()
         return self._ib_view
 
@@ -330,13 +370,36 @@ class MeshClusterNode(ClusterHostPlane):
         self._ib_view = value
         self._dirty.add("inboxes")
 
+    def _no_view(self) -> None:
+        if self._ranks is not None:
+            raise RuntimeError(
+                "a distributed pod host holds only its owned group "
+                "shards: no global state view (read the host caches, "
+                "roles(), or the owned blocks)")
+
     def _sync_blocks(self) -> None:
-        """Lay each written global view back out over the mesh."""
+        """Lay each written global view back out over the mesh (under
+        ranks: the owned blocks only, and the view is dropped)."""
         if "states" in self._dirty:
-            self._st = shard(self.mesh, self._st_view, state_specs())
+            self._st = shard(self.mesh, self._st_view, state_specs(),
+                             self._owned)
+            if self._ranks is not None:
+                self._role_view = self._st_view.role.to(
+                    "cpu", copy=True).numpy()
         if "inboxes" in self._dirty:
-            self._ib = shard(self.mesh, self._ib_view, inbox_specs())
+            self._ib = shard(self.mesh, self._ib_view, inbox_specs(),
+                             self._owned)
+        if self._ranks is not None:
+            self._st_view = self._ib_view = None
         self._dirty.clear()
+
+    def _owned_block(self, g: int):
+        """(block, local group) of `g` when this rank holds it, else
+        (None, None)."""
+        j = g // self._g_loc
+        if j not in self._owned:
+            return None, None
+        return self._st.blocks[0][j], g - j * self._g_loc
 
     @staticmethod
     def _check_mesh_meta(data_dir: str, gg: int) -> None:
@@ -365,8 +428,7 @@ class MeshClusterNode(ClusterHostPlane):
         # (config.py dynamic_membership) so every shard's step reads the
         # masks membership will patch (K2 under commit_rule="pallas").
         super().enable_membership(initial_voters)
-        self._sharded_step = make_sharded_cluster_step_host(self.cfg,
-                                                            self.mesh)
+        self._sharded_step = self._make_step()
 
     def _group_shard_of(self, group: int) -> int:
         """Which mesh group shard owns `group`: the `shard` column of
@@ -395,6 +457,42 @@ class MeshClusterNode(ClusterHostPlane):
         return [np.arange(j * self._g_loc, (j + 1) * self._g_loc)
                 for j in range(self._gg)]
 
+    # -- readers of the state under ranks (hostplane seams) --------------
+
+    def _set_group_config(self, p: int, g: int, vrow, jrow,
+                          self_is_voter: bool) -> None:
+        if self._ranks is None:
+            return super()._set_group_config(p, g, vrow, jrow,
+                                             self_is_voter)
+        blk, gl = self._owned_block(g)
+        if blk is not None:
+            set_group_config_stacked(blk, p, gl, vrow, jrow, self_is_voter)
+
+    def _set_transfer_target(self, p: int, g: int, target: int) -> None:
+        if self._ranks is None:
+            return super()._set_transfer_target(p, g, target)
+        blk, gl = self._owned_block(g)
+        if blk is not None:
+            set_transfer_target_stacked(blk, p, gl, target)
+
+    def _ring_record(self, pinfo_dev) -> None:
+        if self._ranks is None:
+            return super()._ring_record(pinfo_dev)
+        dev = self.ring.device
+        self.ring.record_counts(self._tick_no, pinfo_dev.to(dev),
+                                self._ring_counts.to(dev), self._applied)
+
+    def _readback(self, pinfo_dev, busy_dev):
+        pinfo, busy = ClusterHostPlane._readback(pinfo_dev, busy_dev)
+        if self._ranks is not None:
+            self._role_view = pinfo[:, :, _ROLE].copy()
+        return pinfo, busy
+
+    def roles(self) -> np.ndarray:
+        if self._ranks is None:
+            return super().roles()
+        return self._role_view.copy()
+
     # -- the device step ------------------------------------------------
 
     def _device_step(self, prop_n: np.ndarray,
@@ -411,6 +509,11 @@ class MeshClusterNode(ClusterHostPlane):
                                  device=dev)
         # One host-to-device copy; the shards' blocks split on the card.
         pn = torch.as_tensor(np.asarray(prop_n, np.int32), device=dev)
+        if self._ranks is not None:
+            self._st, self._ib, pinfo_dev, busy, aux = \
+                self._sharded_step(self._st, self._ib, pn, ti)
+            self._ring_counts = aux.ring_counts
+            return pinfo_dev, busy
         self._st, self._ib, pinfo_dev, busy = self._sharded_step(
             self._st, self._ib, pn, ti)
         self._st_view = self._ib_view = None

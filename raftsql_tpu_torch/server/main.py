@@ -10,6 +10,8 @@
     RAFTSQL_SHARD_SLOTS=2 python -m raftsql_tpu_torch.server.main --pod \
         --pod-id I --pod-coord 127.0.0.1:CP --pod-hosts H0,H1 \
         --groups 8 --group-shards 2 --port P [--device cuda]
+    RAFTSQL_POD_JAX_DISTRIBUTED=1 python -m raftsql_tpu_torch.server.main \
+        --pod ... [--pod-dist-backend gloo]   # each host steps its shards
 
 Port of raftsql_tpu/server/main.py: the same composition (proposeC ->
 pipe -> RaftDB -> HTTP, the reference's server/main.go:24-38) with
@@ -262,7 +264,8 @@ def build_pod_node(groups: int = 8, peers: int = 3, tick: float = 0.01,
                    resume: bool = False,
                    compact_every: int = 0, compact_keep: int = 1024,
                    wal_segment_bytes: int = 4 << 20,
-                   trace: bool = False, device="cuda") -> RaftDB:
+                   trace: bool = False, device="cuda",
+                   dist_backend: str = "") -> RaftDB:
     """The --pod deployment (raftsql_tpu_torch/pod/): N host PROCESSES
     jointly own one cluster.  Every host runs the identical replicated
     device step on its own `device`; the durable plane is sharded: this
@@ -271,14 +274,19 @@ def build_pod_node(groups: int = 8, peers: int = 3, tick: float = 0.01,
     collective carries cross-host proposals and is the tick+fsync
     barrier.  Construction BLOCKS until all pod_procs processes join; a
     lost peer is pod-wide fail-stop (the engine error surfaces through
-    _watch_fatal as EXIT_CODE_FATAL)."""
-    from raftsql_tpu_torch.pod.config import PodConfig
+    _watch_fatal as EXIT_CODE_FATAL).  With RAFTSQL_POD_JAX_DISTRIBUTED=1
+    (the JAX package's variable) the hosts form a torch.distributed
+    process group first (PodConfig.init_distributed; `dist_backend`
+    names its backend, default NCCL on a card and gloo on the CPU) and
+    each steps only the group shards it owns."""
+    from raftsql_tpu_torch.pod.config import POD_DISTRIBUTED_ENV, PodConfig
     from raftsql_tpu_torch.pod.node import PodClusterNode
     from raftsql_tpu_torch.runtime.fused import FusedPipe
     from raftsql_tpu_torch.runtime.mesh import MeshConfig
 
     pod = PodConfig(procs=pod_procs, proc_id=pod_id,
                     coordinator=pod_coord, hosts=tuple(pod_hosts))
+    dist = os.environ.get(POD_DISTRIBUTED_ENV) == "1"
     cfg = RaftConfig(num_groups=groups, num_peers=peers,
                      tick_interval_s=tick,
                      wal_segment_bytes=wal_segment_bytes)
@@ -288,10 +296,20 @@ def build_pod_node(groups: int = 8, peers: int = 3, tick: float = 0.01,
     mc.validate(cfg)
     logging.getLogger("raftsql.server").info(
         "pod deployment: host %d/%d, %d groups over %d shards, "
-        "coordinator %s", pod_id, pod.procs, groups, mc.group_shards,
-        pod_coord or "(local)")
-    node = PodClusterNode(pod, cfg, f"{data_prefix}-pod{pod_id}",
-                          mc.build(device=device))
+        "coordinator %s%s", pod_id, pod.procs, groups, mc.group_shards,
+        pod_coord or "(local)",
+        ", one program over a process group" if dist else "")
+    if dist:
+        pod.init_distributed(device=device, backend=dist_backend or None)
+    try:
+        owned = pod.owned_shards(mc.group_shards) if dist else None
+        node = PodClusterNode(pod, cfg, f"{data_prefix}-pod{pod_id}",
+                              mc.build(device=device, owned=owned),
+                              distributed=dist)
+    except BaseException:
+        if dist:
+            pod.destroy_distributed()
+        raise
     if trace:
         node.enable_tracing()
     node.start(interval_s=max(tick, 0.0005))
@@ -463,6 +481,12 @@ def main(argv=None) -> None:
     ap.add_argument("--pod-coord", default="",
                     help="with --pod: host:port the pod collective "
                          "coordinator (host 0) listens on")
+    ap.add_argument("--pod-dist-backend", default="",
+                    choices=("", "nccl", "gloo"),
+                    help="with --pod and RAFTSQL_POD_JAX_DISTRIBUTED=1: "
+                         "the process group's backend (default nccl on a "
+                         "card, gloo on the CPU; gloo on a card runs "
+                         "several hosts on one card)")
     ap.add_argument("--pod-hosts", default="",
                     help="with --pod: comma separated host:port HTTP "
                          "addresses of EVERY pod host in --pod-id order, "
@@ -597,7 +621,8 @@ def main(argv=None) -> None:
                              compact_every=args.compact_every,
                              compact_keep=args.compact_keep,
                              wal_segment_bytes=args.wal_segment_bytes,
-                             trace=args.trace, device=args.device)
+                             trace=args.trace, device=args.device,
+                             dist_backend=args.pod_dist_backend)
     elif args.mesh:
         rdb = build_mesh_node(groups=args.groups, peers=args.peers,
                               tick=args.tick,
