@@ -28,6 +28,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import threading
+import time
 from typing import Optional
 
 from raftsql_tpu_torch.overload import (Overloaded, retry_after_header,
@@ -69,6 +70,24 @@ def _refusal_resp(e: Exception) -> bytes:
     return _resp(code, reason, (str(e) + "\n").encode(),
                  extra=((b"Retry-After",
                          retry_after_header(retry_s).encode()),))
+
+
+def _parsed_kw(rdb) -> dict:
+    """The `parsed` stamp of a write for the engine's span tracer
+    (obs/spans.py), as `RaftDB.propose` keywords; empty with tracing
+    off."""
+    node = getattr(getattr(rdb, "pipe", None), "node", None)
+    if getattr(node, "tracer", None) is None:
+        return {}
+    return {"t_parsed": time.monotonic()}
+
+
+def _note_reply(fut) -> None:
+    """Stamp `reply` on the finished span `fut` carries, if any (the
+    response was just written)."""
+    span = getattr(fut, "span", None)
+    if span is not None:
+        span[0].note_reply(span[1])
 
 
 def _session_extra(rdb, group: int) -> tuple:
@@ -332,6 +351,7 @@ class _Conn(asyncio.Protocol):
             self._finish(_resp(400, b"Bad Request",
                                (str(e) + "\n").encode()))
             return
+        parsed = _parsed_kw(rdb)
         dl = headers["deadline"]
         if self._shed_expired(dl):
             return
@@ -344,7 +364,7 @@ class _Conn(asyncio.Protocol):
         try:
             fut = rdb.propose(query, group, token=headers["token"],
                               **({} if dl is None
-                                 else {"deadline_ms": dl}))
+                                 else {"deadline_ms": dl}), **parsed)
             afut = self.srv.loop.create_future()
             fut.add_done_callback(
                 lambda err: self.srv.bridge.deliver(afut, err))
@@ -407,6 +427,7 @@ class _Conn(asyncio.Protocol):
                              + b"\r\n\r\n")
             else:
                 self._finish(_204)
+        _note_reply(fut)
 
     async def _do_members(self, body: bytes) -> None:
         """POST /members — membership admin write, parity with
@@ -529,11 +550,12 @@ class _Conn(asyncio.Protocol):
             if method == b"PUT":
                 group, sql = plane.kv_put(key, body.decode("utf-8"),
                                           headers["kepoch"])
+                parsed = _parsed_kw(rdb)
                 if self._shed_expired(dl):
                     return
                 fut = rdb.propose(sql, group, token=headers["token"],
                                   **({} if dl is None
-                                     else {"deadline_ms": dl}))
+                                     else {"deadline_ms": dl}), **parsed)
                 afut = self.srv.loop.create_future()
                 fut.add_done_callback(
                     lambda err: self.srv.bridge.deliver(afut, err))
@@ -546,6 +568,7 @@ class _Conn(asyncio.Protocol):
                 head = b"HTTP/1.1 204 No Content\r\n" + b"".join(
                     k + b": " + v + b"\r\n" for k, v in extra) + b"\r\n"
                 self._finish(head)
+                _note_reply(fut)
                 return
             group, sql = plane.kv_get(key, headers["kepoch"])
             if self._shed_expired(dl):

@@ -8,23 +8,27 @@ Port of raftsql_tpu/obs/.  Two planes, matching the engine's own split:
     fixed-shape [depth, P, G, NEV] int32 tensor on the node's device
     the fused runtime writes one slot per tick, drained to the host in
     whole-ring batches (one device-to-host copy per `depth` ticks).
-  * HOST plane (`spans.py`): a span tracer following each proposal
-    through its lifecycle (propose → WAL append → replicate → commit →
-    apply → ack) with monotonic timestamps, plus a timeline-event ring
+  * HOST plane (`spans.py`): a span tracer following each write
+    through its lifecycle (HTTP parse → propose → append → replicate →
+    commit → apply → ack → reply) with monotonic timestamps, folding
+    finished spans into a preallocated ring, plus a timeline-event ring
     for WAL fsyncs and anything else the host planes want on the trace.
 
 Exports (`export.py`): Chrome trace-event JSON loadable in Perfetto
-(`GET /trace`), raw event JSON (`GET /events`).  The chaos runner wires
-both planes into a flight recorder (`flight.py`): an invariant failure
-dumps the last N ticks of device events plus the host spans next to
-the failing seed.
+(`GET /trace`), raw event JSON (`GET /events`); the `--workers` serving
+plane's processes add their own trace segments
+(`export.TraceSegmentWriter`, written by runtime/ring.py).  The chaos
+runner wires both planes into a flight recorder (`flight.py`): an
+invariant failure dumps the last N ticks of device events plus the host
+spans next to the failing seed.
 
 TRACING is OFF by default: the engine's `tracer`/`ring` attributes are
-None until `enable_tracing()` is called, and every hook is gated on
-them.  The TELEMETRY plane (`prof.py`, per-phase tick wall-time
-percentiles) is ON by default.  Trace segments
-(`export.TraceSegmentWriter`) stay inert until the `--workers` serving
-plane is ported.
+None until `enable_tracing()` is called (`device_ring=False` turns on
+the spans alone, which add no device launch), and every hook is gated
+on them.  The TELEMETRY plane (`prof.py`, per-phase tick wall-time
+percentiles) is ON by default.  `timeline.py` puts a torch.profiler
+capture's device activities on the same clock as the tick phases and
+names the card's idle gaps by what the tick thread was doing.
 """
 from raftsql_tpu_torch.obs.device_ring import EVENT_FIELDS, DeviceEventRing
 from raftsql_tpu_torch.obs.export import (TraceSegmentWriter, chrome_trace,

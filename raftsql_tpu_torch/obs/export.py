@@ -42,7 +42,7 @@ import time
 from collections import deque
 from typing import List, Optional
 
-from raftsql_tpu_torch.obs.spans import PHASES
+from raftsql_tpu_torch.obs.spans import STAMPS
 
 _ALLOWED_PH = {"X", "B", "E", "i", "I", "C", "M"}
 
@@ -82,7 +82,7 @@ def chrome_trace(span_snapshot: Optional[dict] = None,
             events += _meta(1, "raftsql spans", tid=g,
                             tname=f"group {g}")[1:]
         ph = sp["phases"]
-        stamps = [(name, ph[name]) for name in PHASES if name in ph]
+        stamps = [(name, ph[name]) for name in STAMPS if name in ph]
         for (a, ta), (b, tb) in zip(stamps, stamps[1:]):
             events.append({
                 "name": f"{a}→{b}", "cat": "span", "ph": "X",

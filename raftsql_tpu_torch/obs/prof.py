@@ -8,7 +8,8 @@ full span tracer: monotonic-clock stamps around each phase of the host
 plane's tick —
 
     pop        proposal pop/stage (_build_prop_n + _stage_ranges)
-    dispatch   device dispatch + packed-info readback
+    dispatch   the enqueue of the device step
+    readback   the wait for the step and its packed-info readback
     wal_write  WAL entry/hardstate writes (the durable phase minus fsync)
     fsync      the per-peer fsync barrier
     publish    commit delivery to the apply plane
@@ -29,10 +30,9 @@ tick is identical whether the pipeline overlaps or not (pinned by
 tests/test_obs.py's attribution test).
 
 Default **on** (the per-tick cost is ~10 monotonic reads and ~8 ring
-writes — measured ≤2% on the durable bench rung, bench_logs):
-RAFTSQL_PROF=0 disables it entirely, RAFTSQL_PROF_SAMPLE=N records
-only every Nth tick (the knob for G≫1k deployments where scrape-side
-processing of a dense sample stream matters more than the stamps).
+writes, whatever the number of groups): RAFTSQL_PROF=0 disables it.
+`raw()` copies the rings as they stand (cheap enough inside a measured
+window); obs/timeline.py reads them against a device capture.
 """
 from __future__ import annotations
 
@@ -46,9 +46,9 @@ import numpy as np
 # Phases that partition the tick thread's wall time; ring_drain runs on
 # the serving plane's drain threads and is reported but excluded from
 # the tick-share denominators.
-PROF_PHASES = ("pop", "dispatch", "wal_write", "fsync", "publish",
-               "ring_drain")
-_TICK_PHASES = ("pop", "dispatch", "wal_write", "fsync", "publish")
+PROF_PHASES = ("pop", "dispatch", "readback", "wal_write", "fsync",
+               "publish", "ring_drain")
+TICK_PHASES = PROF_PHASES[:-1]
 
 
 class TickPhaseProfiler:
@@ -57,10 +57,9 @@ class TickPhaseProfiler:
     record() is safe from any thread (tick thread, publish workers,
     ring drains); everything is pre-allocated at construction."""
 
-    def __init__(self, cap: int = 4096, sample: int = 1):
+    def __init__(self, cap: int = 4096):
         n = len(PROF_PHASES)
         self.cap = cap
-        self.sample = max(1, sample)
         self.epoch = time.monotonic()
         self._i: Dict[str, int] = {p: k for k, p in enumerate(PROF_PHASES)}
         self._dur = np.zeros((n, cap), np.float64)      # seconds
@@ -73,21 +72,12 @@ class TickPhaseProfiler:
         self._mu = threading.Lock()
 
     @classmethod
-    def from_env(cls, num_groups: int = 0) -> Optional["TickPhaseProfiler"]:
-        """The default-on constructor the host plane uses.  RAFTSQL_PROF=0
-        turns the profiler off; RAFTSQL_PROF_SAMPLE=N samples 1-in-N
-        ticks; RAFTSQL_PROF_CAP sizes the per-phase rings."""
+    def from_env(cls) -> Optional["TickPhaseProfiler"]:
+        """The default-on constructor the host plane uses; RAFTSQL_PROF=0
+        turns the profiler off."""
         if os.environ.get("RAFTSQL_PROF", "1") == "0":
             return None
-        cap = int(os.environ.get("RAFTSQL_PROF_CAP", "4096"))
-        sample = int(os.environ.get("RAFTSQL_PROF_SAMPLE", "1") or 1)
-        return cls(cap=max(64, cap), sample=sample)
-
-    def sampled(self, tick_no: int) -> bool:
-        """Whether this tick's phases should be stamped (the 1-in-N
-        sampling gate — callers skip even the monotonic reads when
-        False)."""
-        return self.sample <= 1 or tick_no % self.sample == 0
+        return cls()
 
     def record(self, phase: str, tick_no: int, t_start: float,
                dur_s: float, tid: int = 0) -> None:
@@ -106,15 +96,15 @@ class TickPhaseProfiler:
 
     def snapshot(self) -> dict:
         """JSON-ready per-phase histograms over the ring window:
-        {phase: {p50_ms, p95_ms, p99_ms, max_ms, n, total_ms}} plus the
-        sampling factor.  Sorting happens OUTSIDE the lock (the scrape
-        must never stall the tick thread's record)."""
+        {phase: {p50_ms, p95_ms, p99_ms, max_ms, n, total_ms}}.  Sorting
+        happens OUTSIDE the lock (the scrape must never stall the tick
+        thread's record)."""
         with self._mu:
             durs = self._dur.copy()
             ticks = self._tick.copy()
             counts = list(self._count)
             totals = list(self._total)
-        out: dict = {"sample": self.sample}
+        out: dict = {}
         for p, k in self._i.items():
             if not counts[k]:
                 continue
@@ -138,10 +128,10 @@ class TickPhaseProfiler:
         the one-line "why did this rung move" summary the durable bench
         records (fsync-share vs dispatch-share vs publish-share)."""
         with self._mu:
-            totals = {p: self._total[self._i[p]] for p in _TICK_PHASES}
+            totals = {p: self._total[self._i[p]] for p in TICK_PHASES}
         denom = sum(totals.values())
         if denom <= 0:
-            return {f"{p}_share": 0.0 for p in _TICK_PHASES}
+            return {f"{p}_share": 0.0 for p in TICK_PHASES}
         return {f"{p}_share": round(v / denom, 4)
                 for p, v in totals.items()}
 
@@ -153,20 +143,27 @@ class TickPhaseProfiler:
             t = self._tick[k].copy()
         return sorted(set(int(x) for x in t[t >= 0]))
 
-    def events(self, last: int = 2048) -> List[dict]:
-        """The ring window as Perfetto-ready phase events (newest-last,
-        RAW monotonic start seconds — the caller rebases to its trace
-        epoch): {"phase", "tick", "t0", "dur", "tid"}."""
+    def raw(self) -> Dict[str, tuple]:
+        """Copies of the rings: {phase: (t0, dur, tick, tid)} arrays of
+        the recorded samples in ring order (RAW monotonic seconds)."""
         with self._mu:
             durs = self._dur.copy()
             t0s = self._t0.copy()
             ticks = self._tick.copy()
             tids = self._tid.copy()
-        evs: List[dict] = []
+        out = {}
         for p, k in self._i.items():
             m = ticks[k] >= 0
-            for t0, d, tk, td in zip(t0s[k][m], durs[k][m],
-                                     ticks[k][m], tids[k][m]):
+            out[p] = (t0s[k][m], durs[k][m], ticks[k][m], tids[k][m])
+        return out
+
+    def events(self, last: int = 2048) -> List[dict]:
+        """The ring window as Perfetto-ready phase events (newest-last,
+        RAW monotonic start seconds — the caller rebases to its trace
+        epoch): {"phase", "tick", "t0", "dur", "tid"}."""
+        evs: List[dict] = []
+        for p, (t0s, durs, ticks, tids) in self.raw().items():
+            for t0, d, tk, td in zip(t0s, durs, ticks, tids):
                 evs.append({"phase": p, "tick": int(tk),
                             "t0": float(t0), "dur": float(d),
                             "tid": int(td)})

@@ -324,12 +324,14 @@ class PodClusterNode(MeshClusterNode):
         return seqs
 
     def propose_many(self, group: int, payloads,
-                     deadline_step: Optional[int] = None) -> None:
+                     deadline_step: Optional[int] = None,
+                     t_parsed: Optional[float] = None) -> None:
         # `deadline_step` is FusedPipe.propose's overload-plane keyword;
         # the pod has no overload plane (server/main.py refuses
         # --overload-* with --pod), so it is always None here.  (The JAX
         # package's PodClusterNode lacks the keyword, and its --pod
-        # server's HTTP writes fail on it.)
+        # server's HTTP writes fail on it.)  `t_parsed` is dropped: pod
+        # proposals begin no span.
         self.pod_propose(group, payloads)
 
     def pod_send_ack(self, seqs) -> None:

@@ -170,7 +170,11 @@ class ReadTimeout(TimeoutError):
 
 class AckFuture:
     """The reference's buffered `chan error` (db.go:107): one result,
-    delivered once, awaited by one client."""
+    delivered once, awaited by one client.  `span` is (tracer, fold
+    number) of the request's finished span while tracing is on
+    (obs/spans.py), for the reply stamp."""
+
+    span = None
 
     def __init__(self):
         self._evt = threading.Event()
@@ -306,8 +310,8 @@ class RaftDB:
         if self.listener is not None:
             self.listener.put((group, query))
         tracer = self._node_tracer()
-        if tracer is not None:
-            tracer.note_ack(group, query)
+        span = tracer.note_ack(group, query) if tracer is not None \
+            else None
         # Per-group traffic accounting (utils/metrics.py GroupTraffic):
         # the ack leg — proposes/commits are stamped in the host plane.
         traffic = getattr(self.pipe.node, "traffic", None)
@@ -320,6 +324,9 @@ class RaftDB:
             cb = cbs.popleft()
             if not cbs:
                 del self._q2cb[(group, query)]
+        if span is not None:
+            # The HTTP plane stamps the span's reply through its future.
+            cb.span = (tracer, span)
         cb.set(err)
         self.latency.record(time.monotonic() - cb.created)
         if commit_ts is not None:
@@ -341,6 +348,7 @@ class RaftDB:
         for (group, index, query) in run:
             per_g[group].append((query, index))
         errs: Dict[int, list] = {}
+        t_a = time.monotonic()
         for group, items in per_g.items():
             sm = self._sms[group]
             batch_fn = getattr(sm, "apply_batch", None)
@@ -348,6 +356,10 @@ class RaftDB:
                 errs[group] = batch_fn(items)
             else:
                 errs[group] = [sm.apply(qy, ix) for (qy, ix) in items]
+        nm = getattr(self.pipe.node, "metrics", None)
+        if nm is not None:
+            # Only this thread writes the sum.
+            nm.t_apply_ms += (time.monotonic() - t_a) * 1e3
         if self.shm is not None:
             # Mirror the applied run into the worker-mapped snapshot
             # log BEFORE acks fire: a client whose PUT just acked may
@@ -527,7 +539,8 @@ class RaftDB:
 
     def propose(self, query: str, group: int = 0,
                 token: Optional[int] = None,
-                deadline_ms: Optional[float] = None) -> AckFuture:
+                deadline_ms: Optional[float] = None,
+                t_parsed: Optional[float] = None) -> AckFuture:
         """Submit a write; the future resolves after commit + local apply
         (the reference's blocking-PUT contract, httpapi.go:45-49).
 
@@ -544,7 +557,8 @@ class RaftDB:
         entry, so work already expired at staging time is shed before
         WAL/fsync cost is paid.  Raises `Overloaded` (HTTP 429) when an
         attached admission controller refuses the enqueue; no-op when
-        no overload plane is attached."""
+        no overload plane is attached.  `t_parsed` is the HTTP plane's
+        `parsed` stamp for the span tracer (obs/spans.py)."""
         fut = AckFuture()
         if is_select(query):
             fut.set(ValueError("expected non-SELECT"))
@@ -567,12 +581,13 @@ class RaftDB:
                 fut.set(RuntimeError("db is closed"))
                 return fut
             self._q2cb[(group, query)].append(fut)
+        kw = {}
+        if dstep is not None:
+            kw["deadline_step"] = dstep
+        if t_parsed is not None:
+            kw["t_parsed"] = t_parsed
         try:
-            if dstep is not None:
-                self.pipe.propose(group, query.encode("utf-8"), token,
-                                  deadline_step=dstep)
-            else:
-                self.pipe.propose(group, query.encode("utf-8"), token)
+            self.pipe.propose(group, query.encode("utf-8"), token, **kw)
         except Overloaded:
             # Refused at the admission edge: nothing was enqueued, so
             # the ack callback must not linger in _q2cb.

@@ -77,14 +77,17 @@ class FusedPipe:
 
     def propose(self, group: int, payload: bytes,
                 pid: Optional[int] = None,
-                deadline_step: Optional[int] = None) -> None:
+                deadline_step: Optional[int] = None,
+                t_parsed: Optional[float] = None) -> None:
         # `pid` (client retry token) is accepted for facade parity and
         # dropped: fused proposals are routed on the host and never
         # forward-retried, so payloads travel plain.  `deadline_step`
         # (overload plane, device-step units) rides to the hostplane so
-        # expired work is shed before staging.
+        # expired work is shed before staging; `t_parsed` to its span
+        # tracer.
         self.node.propose_many(group, [payload],
-                               deadline_step=deadline_step)
+                               deadline_step=deadline_step,
+                               t_parsed=t_parsed)
 
     @property
     def error(self) -> Optional[Exception]:

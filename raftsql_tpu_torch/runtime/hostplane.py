@@ -161,10 +161,10 @@ class ClusterHostPlane:
         # are pinned identical with RAFTSQL_PROF on and off).
         #   prof: per-phase tick wall-time rings -> /metrics
         #     phase_profile + Perfetto phase tracks in /trace
-        #     (RAFTSQL_PROF=0 off, RAFTSQL_PROF_SAMPLE=N 1-in-N ticks);
+        #     (RAFTSQL_PROF=0 off);
         #   traffic: [G] propose/commit/ack counters + EWMA rates ->
         #     /metrics group_traffic top-K hot-groups table.
-        self.prof = TickPhaseProfiler.from_env(G)
+        self.prof = TickPhaseProfiler.from_env()
         self.traffic = GroupTraffic(G)
         # Overlap-aware phase attribution: the tick that OWNS the
         # durable/publish work currently running (a stashed durable
@@ -589,18 +589,22 @@ class ClusterHostPlane:
         """Last known leader peer (0-based), -1 unknown."""
         return int(self._hints[group])
 
-    def enable_tracing(self, ring_depth: int = 64,
-                       keep: int = 4096) -> None:
-        """Turn on both observability planes (raftsql_tpu_torch/obs/):
-        the host span tracer and the event ring on the node's device,
-        whose drained history holds at most `keep` rows and the ring's
-        byte budget (obs/device_ring.py DEFAULT_BUDGET_BYTES).  Safe to
-        call before the tick loop starts; idempotent."""
+    def enable_tracing(self, ring_depth: int = 64, keep: int = 4096,
+                       device_ring: bool = True,
+                       spans: int = 4096) -> None:
+        """Turn on the observability planes (raftsql_tpu_torch/obs/):
+        the host span tracer, whose ring keeps the last `spans` finished
+        spans, and, with `device_ring`, the event ring on the node's
+        device, whose drained history holds at most `keep` rows and the
+        ring's byte budget (obs/device_ring.py DEFAULT_BUDGET_BYTES).
+        The device ring adds launches to every tick; the spans add none.
+        Idempotent; the spans alone may be turned on while the tick loop
+        runs."""
         from raftsql_tpu_torch.obs.device_ring import DeviceEventRing
         from raftsql_tpu_torch.obs.spans import SpanTracer
         if self.tracer is None:
-            self.tracer = SpanTracer()
-        if self.ring is None:
+            self.tracer = SpanTracer(max_done=spans)
+        if device_ring and self.ring is None:
             self.ring = DeviceEventRing(self.cfg.num_peers,
                                         self.cfg.num_groups,
                                         depth=ring_depth, keep=keep,
@@ -901,7 +905,8 @@ class ClusterHostPlane:
         return {"in_flight": inflight, "recent": recent}
 
     def propose_many(self, group: int, payloads,
-                     deadline_step: Optional[int] = None) -> None:
+                     deadline_step: Optional[int] = None,
+                     t_parsed: Optional[float] = None) -> None:
         """Queue payloads at the group's current leader peer (host-side
         routing — all peers share this process; the distributed
         runtime's forward-over-transport becomes a list move).
@@ -910,11 +915,13 @@ class ClusterHostPlane:
         only) rides each entry as a (payload, deadline) pair; staging
         strips it and sheds entries already past it BEFORE any WAL
         cost.  With no overload controller attached and no deadline,
-        this path is byte-identical to the pre-overload code."""
+        this path is byte-identical to the pre-overload code.
+        `t_parsed` is the HTTP plane's `parsed` stamp for the span
+        tracer (obs/spans.py)."""
         if self.tracer is not None:
             for d in payloads:
-                self.tracer.begin(group,
-                                  d.decode("utf-8", "replace"))
+                self.tracer.begin(group, d.decode("utf-8", "replace"),
+                                  t=t_parsed)
         ov = self.overload
         if deadline_step is not None:
             payloads = [(d, int(deadline_step)) for d in payloads]
@@ -1147,12 +1154,13 @@ class ClusterHostPlane:
                     with self._metrics_mu:
                         self.metrics.t_publish_ms += dur * 1e3
                     prof = self.prof
-                    if prof is not None and prof.sampled(ptick):
+                    if prof is not None:
                         # Per-shard publish workers tag their shard id
-                        # — the mesh runtime's N workers each get their
-                        # own Perfetto phase track.
+                        # + 1 (tid 0 is the tick thread) — the mesh
+                        # runtime's N workers each get their own
+                        # Perfetto phase track.
                         prof.record("publish", ptick, t0, dur,
-                                    tid=shard)
+                                    tid=shard + 1)
             except Exception as e:
                 self.error = e
                 for cq in self._commit_qs:
@@ -1265,15 +1273,19 @@ class ClusterHostPlane:
         """
         import time as _t
         prof = self.prof
-        prof_on = prof is not None and prof.sampled(self._tick_no)
+        prof_on = prof is not None
         t0 = _t.monotonic()
         if self._xfer_req:
             self._transfer_arm()     # latch visible to THIS dispatch
         # Snapshot _queued: _build_prop_n may re-route into the set.
         prop_n = self._build_prop_n(self._steps)
-        tb = _t.monotonic() if prof_on else t0
+        tb = _t.monotonic()
         if prof_on:
             prof.record("pop", self._tick_no, t0, tb - t0)
+        # The enqueue's own CPU time, read only with the span tracer on:
+        # wall less CPU is the time the tick thread was runnable but not
+        # running (the interpreter lock, or preempted).
+        cpu_b = _t.thread_time() if self.tracer is not None else None
         ti = self.timer_inc
         if ti is not None:
             # Skew accounting: how far this tick's timer advances
@@ -1290,6 +1302,9 @@ class ClusterHostPlane:
             self._ring_record(pinfo_dev if self._steps == 1
                               else pinfo_dev[-1])
         t1 = _t.monotonic()
+        self.metrics.t_launch_ms += (t1 - tb) * 1e3
+        if cpu_b is not None:
+            self.metrics.t_launch_cpu_ms += (_t.thread_time() - cpu_b) * 1e3
         if prof_on:
             prof.record("dispatch", self._tick_no, tb, t1 - tb)
         # Double-buffered dispatch: the PREVIOUS tick's stashed durable
@@ -1315,7 +1330,7 @@ class ClusterHostPlane:
                 self._publish(self._pending_pinfo)
                 pdur = _t.monotonic() - tp
                 self.metrics.t_publish_ms += pdur * 1e3
-                if prof is not None and prof.sampled(self._pending_tick):
+                if prof_on:
                     prof.record("publish", self._pending_tick, tp, pdur)
             self._pending_pinfo = None
         t2 = _t.monotonic()
@@ -1329,9 +1344,9 @@ class ClusterHostPlane:
         pinfo, dev_busy = self._readback(pinfo_dev, busy_dev)
         t3 = _t.monotonic()
         if prof_on:
-            # The readback is dispatch time too: the host blocks on the
-            # device completing this tick's program.
-            prof.record("dispatch", self._tick_no, t2b, t3 - t2b)
+            # The host blocks on the device completing this tick's
+            # program, then copies its packed info back.
+            prof.record("readback", self._tick_no, t2b, t3 - t2b)
 
         # Multi-step dispatch (RAFTSQL_FUSED_STEPS > 1): packed info
         # arrives stacked [S, P, G, C]; the host replays its durable
@@ -1479,7 +1494,7 @@ class ClusterHostPlane:
             pdur = _t.monotonic() - tp
             self.metrics.t_publish_ms += pdur * 1e3
             prof = self.prof
-            if prof is not None and prof.sampled(stick):
+            if prof is not None:
                 prof.record("publish", stick, tp, pdur)
 
     def _drain_pipeline(self) -> None:
@@ -1500,7 +1515,7 @@ class ClusterHostPlane:
         pinfo = step_infos[-1]
         prof = self.prof
         ptick = self._prof_tick
-        prof_on = prof is not None and prof.sampled(ptick)
+        prof_on = prof is not None
         td0 = _t.monotonic() if prof_on else 0.0
         self._fsync_span = None
         # Multi-step dispatches are epoch-framed (see _ensure_epoch_

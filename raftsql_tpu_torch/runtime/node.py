@@ -539,7 +539,8 @@ class RaftNode:
             self.transport.obs = self.tracer
 
     def propose(self, group: int, payload: bytes,
-                pid: Optional[int] = None) -> None:
+                pid: Optional[int] = None,
+                t_parsed: Optional[float] = None) -> None:
         """Enqueue a proposal; routed to the leader on the next tick.
 
         The payload is wrapped with a unique envelope id so that
@@ -548,12 +549,15 @@ class RaftNode:
         drawing a fresh one — the CLIENT-retry token (api/client.py
         X-Raft-Retry-Token): a PUT re-sent across a crash or leader
         failover re-proposes under the same id, and the publish-time
-        dedup collapses whichever copies commit to one apply."""
+        dedup collapses whichever copies commit to one apply.
+        `t_parsed` is the HTTP plane's `parsed` stamp for the span
+        tracer (obs/spans.py)."""
         if not 0 <= group < self.cfg.num_groups:
             raise ValueError(f"group {group} out of range "
                              f"[0, {self.cfg.num_groups})")
         if self.tracer is not None:
-            self.tracer.begin(group, payload.decode("utf-8", "replace"))
+            self.tracer.begin(group, payload.decode("utf-8", "replace"),
+                              t=t_parsed)
         with self._prop_lock:
             self._props[group].append(wrap(payload, pid))
             self._prop_len[group] += 1

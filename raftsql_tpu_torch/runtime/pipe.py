@@ -41,8 +41,9 @@ class RaftPipe:
         return pipe
 
     def propose(self, group: int, payload: bytes,
-                pid: Optional[int] = None) -> None:
-        self.node.propose(group, payload, pid)
+                pid: Optional[int] = None,
+                t_parsed: Optional[float] = None) -> None:
+        self.node.propose(group, payload, pid, t_parsed=t_parsed)
 
     @property
     def error(self) -> Optional[Exception]:

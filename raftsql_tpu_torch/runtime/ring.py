@@ -927,9 +927,8 @@ class RingServer:
                 prof = getattr(self._prof_node, "prof", None)
                 if prof is not None:
                     tick = int(getattr(self._prof_node, "_tick_no", 0))
-                    if prof.sampled(tick):
-                        prof.record("ring_drain", tick, t_b0,
-                                    last - t_b0, tid=worker)
+                    prof.record("ring_drain", tick, t_b0, last - t_b0,
+                                tid=worker)
             else:
                 delay = _spin_wait(last)
                 if delay:

@@ -129,6 +129,13 @@ class NodeMetrics:
     t_wal_ms: float = 0.0
     t_send_ms: float = 0.0
     t_publish_ms: float = 0.0
+    # The state machines' apply (RaftDB._apply_run, on the apply
+    # thread), and the fused tick's enqueue of its device step: wall
+    # time always, the tick thread's own CPU time only while the span
+    # tracer is on (obs/spans.py).
+    t_apply_ms: float = 0.0
+    t_launch_ms: float = 0.0
+    t_launch_cpu_ms: float = 0.0
     started_at: float = field(default_factory=time.monotonic)
 
     def note_transfer_stall(self, ticks: int) -> None:
@@ -215,6 +222,8 @@ class NodeMetrics:
                 "wal": round(self.t_wal_ms / t, 4),
                 "send": round(self.t_send_ms / t, 4),
                 "publish": round(self.t_publish_ms / t, 4),
+                "apply": round(self.t_apply_ms / t, 4),
+                "launch": round(self.t_launch_ms / t, 4),
             },
         }
 

@@ -5,8 +5,11 @@ conftest pins JAX, which that machine need not have):
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 Each kernel wrapper is held to its plain PyTorch version on the same
 CUDA tensors, exactly, and the fused tick on the card to the same ticks
-on the CPU.
+on the CPU; torch.profiler's device stamps, put on time.monotonic() by
+obs/timeline.py, fall inside the host's own stamps.
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -269,3 +272,32 @@ def test_node_path_k2_after_member_change(card, tmp_path):
     assert k1 >= 4 * 40 and k2 > 0 and k1 + k2 == 4 * 90, (k1, k2)
     assert got == _node_lockstep("cpu", str(tmp_path / "cpu"), cfg, 90,
                                  change_at=40)
+
+
+def test_profiler_stamps_land_on_the_monotonic_clock(card):
+    """A synchronised sleep kernel's device interval, put on
+    time.monotonic() by obs/timeline.py, lies between the host's stamps
+    taken before its launch and after its synchronize()."""
+    from torch._C._autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from raftsql_tpu_torch.obs.timeline import clock_pair, profiler_offset_ns
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    for _ in range(3):          # the profiler may drop a launch
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pairs = [clock_pair()]
+            t0 = time.monotonic_ns()
+            torch.cuda._sleep(20_000_000)
+            torch.cuda.synchronize()
+            t1 = time.monotonic_ns()
+            pairs.append(clock_pair())
+        acts = [e for e in prof.profiler.kineto_results.events()
+                if e.device_type() == DeviceType.CUDA
+                and e.duration_ns() > 0]
+        if acts:
+            break
+    assert len(acts) == 1, [e.name() for e in acts]
+    off = profiler_offset_ns(acts[0].start_ns(), pairs)
+    start, end = acts[0].start_ns() + off, acts[0].end_ns() + off
+    assert t0 <= start < end <= t1, (t0, start, end, t1, off)

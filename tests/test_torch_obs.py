@@ -7,10 +7,16 @@ package's rows tick for tick, with each side booted from its own seed
 Chrome-trace export (checked by both packages' validators), the flight
 recorder on a forced invariant failure, and GET /trace + GET /events on
 the port's `--fused --trace` server follow the JAX package's obs tests.
+The port's own additions are held here too: each PUT's span from the
+HTTP parse to the reply, the finished-span ring, the apply and launch
+sums, the `readback` tick phase, and the idle gaps of a device capture
+named by tick phase (obs/timeline.py; its clock conversion is held on
+the card by tests/test_torch_cuda.py).
 """
 import http.client
 import json
 import os
+import time
 
 import numpy as np
 import pytest
@@ -22,10 +28,12 @@ from raftsql_tpu.runtime.fused import FusedClusterNode as JNode
 from raftsql_tpu_torch.api.aio import AioSQLServer
 from raftsql_tpu_torch.api.http import SQLServer
 from raftsql_tpu_torch.config import RaftConfig as TConfig
-from raftsql_tpu_torch.obs import (EVENT_FIELDS, DeviceEventRing,
-                                   SpanTracer, TraceSegmentWriter,
-                                   chrome_trace, collect_segments,
-                                   validate_chrome_trace)
+from raftsql_tpu_torch.obs import (EVENT_FIELDS, PROF_PHASES,
+                                   DeviceEventRing, SpanTracer,
+                                   TraceSegmentWriter, chrome_trace,
+                                   collect_segments, validate_chrome_trace)
+from raftsql_tpu_torch.obs import timeline
+from raftsql_tpu_torch.obs.spans import STAMPS, stage_seconds
 from raftsql_tpu_torch.runtime.fused import FusedClusterNode as TNode
 from raftsql_tpu_torch.server import main as server_main
 from raftsql_tpu_torch.server.main import build_fused_node
@@ -393,3 +401,264 @@ def test_cli_trace_flag_reaches_the_node(monkeypatch):
     with pytest.raises(Stop):
         server_main.main(["--fused", "--trace", "--device", "cpu"])
     assert seen["trace"] is True and seen["device"] == "cpu"
+
+
+# -- request spans, apply and launch counters, the readback phase ------
+
+def _served(tmp_path, **kw):
+    """A one-group `--fused` server behind the asyncio HTTP plane."""
+    rdb = build_fused_node(groups=1, peers=3, tick=0.002,
+                           data_prefix=str(tmp_path / "raftsql"),
+                           commit_rule="pallas", device="cpu", **kw)
+    srv = AioSQLServer(0, rdb, host="127.0.0.1", timeout_s=30.0)
+    srv.start()
+    return rdb, srv
+
+
+def _puts(n):
+    return [b"CREATE TABLE main.s (v text)"] + [
+        f'INSERT INTO main.s (v) VALUES ("{i}")'.encode()
+        for i in range(n - 1)]
+
+
+def _poll(fn, limit_s=10.0):
+    t_end = time.monotonic() + limit_s
+    while True:
+        got = fn()
+        if got is not None or time.monotonic() > t_end:
+            return got
+        time.sleep(0.01)
+
+
+_ORDER = [STAMPS.index(s) for s in ("parsed", "propose", "append",
+                                    "commit", "apply", "ack", "reply")]
+
+
+@pytest.mark.parametrize("device_ring", [True, False])
+def test_put_spans_run_from_parse_to_reply(tmp_path, device_ring):
+    """Every PUT over HTTP finishes one span whose stamps never go back,
+    and whose four stages sum exactly to reply - parsed.  `--trace`
+    turns on both planes before the tick loop starts; the spans alone
+    may be turned on while it runs, and then no device ring is made."""
+    rdb, srv = _served(tmp_path, trace=device_ring)
+    try:
+        node = rdb.pipe.node
+        if not device_ring:
+            node.enable_tracing(device_ring=False, spans=64)
+        assert (node.ring is not None) == device_ring
+        puts = _puts(12)
+        for body in puts:
+            assert _req(srv, "PUT", body=body)[0] == 204
+
+        def finished():
+            t = node.tracer.finished()
+            done = len(t) == len(puts) and not np.isnan(t[:, _ORDER]).any()
+            return t if done else None
+
+        t = _poll(finished)
+        assert t is not None, node.tracer.finished()
+        assert (np.diff(t[:, _ORDER], axis=1) >= 0).all()
+        st = stage_seconds(t)
+        assert list(st) == ["queue", "commit", "apply", "reply"]
+        total = st["queue"] + st["commit"] + st["apply"] + st["reply"]
+        span = t[:, STAMPS.index("reply")] - t[:, STAMPS.index("parsed")]
+        assert len(total) == len(puts) and (total == span).all()
+        m = node.metrics
+        assert 0 < m.t_launch_cpu_ms and 0 < m.t_launch_ms
+    finally:
+        srv.stop()
+        rdb.close()
+
+
+def test_span_ring_keeps_the_newest_spans():
+    tr = SpanTracer(max_done=4)
+    folds = []
+    for i in range(10):
+        tr.begin(0, f"q{i}", t=float(i))
+        tr.note_append(0, i + 1, [f"q{i}"])
+        tr.note_commit(0, i + 1)
+        folds.append(tr.note_ack(0, f"q{i}"))
+    assert folds == list(range(10)) and tr.folded == 10
+    t = tr.finished()
+    assert t.shape == (4, len(STAMPS))
+    assert t[:, STAMPS.index("parsed")].tolist() == [6.0, 7.0, 8.0, 9.0]
+    assert [s["key"] for s in tr.snapshot()["spans"]] == [
+        "q6", "q7", "q8", "q9"]
+    tr.note_reply(folds[2], t=20.0)        # its row was overwritten
+    tr.note_reply(folds[9], t=21.0)
+    assert np.isnan(tr.finished()[:, STAMPS.index("reply")]).tolist() == [
+        True, True, True, False]
+    assert tr.finished()[3, STAMPS.index("reply")] == 21.0
+    assert tr.note_ack(0, "never-proposed") is None
+    # Past max_live the oldest live span spills into the ring unacked.
+    tr = SpanTracer(max_live=2)
+    for i in range(3):
+        tr.begin(0, f"l{i}")
+    tr.note_append(0, 1, ["l0", "l1", "l2"])
+    assert tr.folded == 1
+    assert np.isnan(tr.finished()[0, STAMPS.index("ack")])
+    assert tr.note_ack(0, "l0") is None and tr.note_ack(0, "l2") == 1
+
+
+def test_tracing_off_takes_no_span_or_cpu_read(tmp_path, monkeypatch):
+    reads = []
+    real = time.thread_time
+    monkeypatch.setattr(time, "thread_time",
+                        lambda: reads.append(1) or real())
+
+    def refuse(*a, **k):
+        raise AssertionError("a span hook ran with tracing off")
+
+    for hook in ("begin", "note_append", "note_replicate", "note_commit",
+                 "note_apply", "note_ack", "note_reply"):
+        monkeypatch.setattr(SpanTracer, hook, refuse)
+    rdb, srv = _served(tmp_path)
+    try:
+        node = rdb.pipe.node
+        assert node.tracer is None and node.ring is None
+        for body in _puts(6):
+            assert _req(srv, "PUT", body=body)[0] == 204
+        m = node.metrics
+        assert m.ticks > 0 and m.t_launch_ms > 0
+        assert m.t_launch_cpu_ms == 0.0 and reads == []
+    finally:
+        srv.stop()
+        rdb.close()
+
+
+def test_readback_is_a_phase_of_its_own(tmp_path):
+    assert PROF_PHASES.index("readback") == PROF_PHASES.index(
+        "dispatch") + 1
+    rdb, srv = _served(tmp_path)
+    try:
+        assert _req(srv, "PUT", body=_puts(1)[0])[0] == 204
+        status, data = _req(srv, "GET", "/metrics")
+        assert status == 200
+        pp = json.loads(data)["phase_profile"]
+        assert "sample" not in pp
+        assert pp["readback"]["n"] > 0
+        # One dispatch record a tick now, as one readback.
+        assert abs(pp["dispatch"]["n"] - pp["readback"]["n"]) <= 1
+    finally:
+        srv.stop()
+        rdb.close()
+
+
+def test_apply_time_grows_with_applied_entries(tmp_path):
+    rdb, srv = _served(tmp_path)
+    try:
+        m = rdb.pipe.node.metrics
+        puts = _puts(21)
+        assert _req(srv, "PUT", body=puts[0])[0] == 204
+        first = m.t_apply_ms
+        assert first > 0
+        for body in puts[1:]:
+            assert _req(srv, "PUT", body=body)[0] == 204
+        assert m.t_apply_ms > first
+        assert json.loads(_req(srv, "GET", "/metrics")[1])[
+            "phase_ms_per_tick"]["apply"] > 0
+    finally:
+        srv.stop()
+        rdb.close()
+
+
+def test_stage_seconds_keep_the_window_and_skip_the_capture():
+    """Hand-computed stages (binary fractions, so exact): a span counts
+    when its parse and reply lie in the window and clear of the
+    capture."""
+    nan = np.nan
+    #     parsed propose append repl commit apply ack reply
+    rows = np.array([
+        [1.0, 1.0, 1.5, 1.75, 2.0, 2.125, 2.25, 2.5],     # counted
+        [3.0, 3.0, 3.25, nan, 3.5, 3.625, 3.75, 4.0],     # counted
+        [5.0, 5.0, 5.25, 5.5, 5.75, 5.8, 6.0, 6.25],      # in the capture
+        [0.5, 0.5, 1.0, 1.0, 1.25, 1.3, 1.5, 1.75],       # before the open
+        [9.0, 9.0, 9.25, 9.5, 9.75, 9.8, 10.0, 10.5],     # after the close
+        [7.5, 7.5, 7.75, 8.0, 8.25, 8.3, 8.5, nan],       # no reply
+        [8.0, 8.0, nan, nan, nan, nan, nan, nan],         # still queued
+    ])
+    st = stage_seconds(rows, t_open=0.75, t_close=10.25,
+                       skip=(6.125, 7.0))
+    assert {k: v.tolist() for k, v in st.items()} == {
+        "queue": [0.5, 0.25], "commit": [0.5, 0.25],
+        "apply": [0.25, 0.25], "reply": [0.25, 0.25]}
+    assert all(len(v) == 5 for v in stage_seconds(rows).values())
+
+
+class _Activity:
+    """What summarize and the timeline read of a kineto device event."""
+
+    def __init__(self, s, e, name):
+        self.s, self.e, self.n = s, e, name
+
+    def name(self):
+        return self.n
+
+    def start_ns(self):
+        return self.s
+
+    def end_ns(self):
+        return self.e
+
+    def duration_ns(self):
+        return self.e - self.s
+
+
+def _phase_rings(records):
+    """TickPhaseProfiler.raw()'s shape from (phase, t0, dur, tick, tid)."""
+    raw = {}
+    for p in PROF_PHASES:
+        rs = [r for r in records if r[0] == p]
+        raw[p] = tuple(np.array([r[k] for r in rs]) for k in (1, 2, 3, 4))
+    return raw
+
+
+def test_idle_gaps_are_named_by_the_tick_phase():
+    """Profiler stamps 1 s behind time.monotonic(); three idle gaps, each
+    labelled by the tick-thread phase over most of it (a publish worker,
+    tid 1, does not count), timed and ordered as `summarize` does."""
+    from portbench.device import summarize
+    off = 10 ** 9
+    acts = [_Activity(0, 1000, "k_a"), _Activity(5000, 5500, "k_b"),
+            _Activity(5200, 6000, "k_c"), _Activity(20000, 21000, "k_d"),
+            _Activity(22000, 22500, "k_e")]
+
+    def mono(ns):
+        return (ns + off) * 1e-9
+
+    raw = _phase_rings([
+        ("dispatch", mono(500), 4000e-9, 7, 0),
+        ("readback", mono(4500), 1100e-9, 7, 0),
+        ("wal_write", mono(6000), 3000e-9, 7, 0),
+        ("fsync", mono(9000), 10000e-9, 7, 0),
+        ("publish", mono(20500), 2000e-9, 7, 1)])
+    phases = timeline.tick_phases(raw)
+    assert [p[2] for p in phases] == ["dispatch", "readback", "wal_write",
+                                      "fsync"]
+    events = [(a.start_ns(), a.end_ns(), a.name()) for a in acts]
+    gaps = timeline.idle_gaps(events, phases, off)
+    cap = {"events": acts, "busy_s": 2.8e-6, "window_s": 23e-6}
+    old = summarize(cap)
+    assert [g[1] for g in gaps] == [g[1] for g in old["idle_gaps"]]
+    assert (old["busy_s"], old["window_s"]) == (2.8e-6, 23e-6)
+    assert [g[0] for g in gaps] == [
+        "fsync tick 7: after k_c, before k_d",
+        "dispatch tick 7: after k_a, before k_b",
+        "between ticks after tick 7: after k_d, before k_e"]
+    split = timeline.idle_split(events, phases, off, mono(0), mono(23000))
+    want = {"dispatch": 3500e-9, "readback": 500e-9, "wal_write": 3000e-9,
+            "fsync": 10000e-9, timeline.BETWEEN: 2500e-9}
+    for p, v in split.items():
+        assert v == pytest.approx(want.get(p, 0.0), abs=1e-12), p
+    assert sum(split.values()) == pytest.approx(19500e-9, abs=1e-12)
+
+
+def test_profiler_clock_is_told_apart():
+    pairs = [(5_000, 1_700_000_000_000_000_000),
+             (9_000, 1_700_000_000_000_004_002)]
+    assert timeline.profiler_offset_ns(6_000, pairs) == 0
+    assert timeline.profiler_offset_ns(1_700_000_000_000_001_000, pairs) \
+        == (5_000 - 1_700_000_000_000_000_000
+            + 9_000 - 1_700_000_000_000_004_002) // 2
+    with pytest.raises(ValueError, match="neither"):
+        timeline.profiler_offset_ns(10 ** 17, pairs)
