@@ -45,8 +45,10 @@ exit, no result line) at the first phase that fails:
      groups while leadership moves on 64 others; every touched group
      must end on its expected config or leader and every other group on
      {0,1,2}; K2 must launch on every tick after enable_membership, and
-     on one tick with joint masks live its inputs are copied: K2 is held
-     against its plain version and timed on them (R = 40,000, P = 4);
+     on the first tick with joint masks live whose K2 call advances
+     some row's commit its inputs are copied (the dispatch run again
+     eagerly on copies: spy_fused_kernel), held against its plain
+     version and timed (R = 40,000, P = 4);
      G is cut from the bench headline's 100,000 to keep the whole run
      under its time limit (the phase's host plane costs about 1.5 s a
      tick and 73 s of set-up at G = 100,000; 37 s in all at 25,000);
@@ -116,8 +118,8 @@ exit, no result line) at the first phase that fails:
      the goodput and starvation floors met, the falsification pair
      caught and its control passed, and K1 launched once per device
      step (launches and dispatches zeroed just before, read just after);
-     the inputs of K1's first call with a leader row (R = 12, P = 3) are
-     copied, held to the plain version and timed;
+     the inputs of K1's first call that advances some row's commit (R
+     = 12, P = 3) are copied, held to the plain version and timed;
  14. the process plane, every server child a CUDA process: the --procs
      gauntlet at seed 0, 80 ticks, once (RUNS; every fault family fires,
      no unexpected exit, the verdict digest the reference's all-pass
@@ -195,7 +197,8 @@ exit, no result line) at the first phase that fails:
      (nvidia-smi lists one compute app; workers see no card), K1
      launches equal to the engine's device steps (zeroed
      before the engine boots, read after it closed), the inputs of K1's
-     first call with a leader row copied (R = 24, P = 3); then the load
+     first call that advances some row's commit copied (R = 24, P = 3);
+     then the load
      ladder: native/http_load.cc (built with g++; a failed build raises)
      at 192 connections, 3 s a rung, against phase 6's in-process aio
      server and 1 and 2 workers, each a fresh engine (req/s, p50/p99,
@@ -229,7 +232,8 @@ exit, no result line) at the first phase that fails:
      a fresh ReshardPlane.recover_from_db() rebuilding the same keymap,
      K1 launches equal to the engine's device steps (zeroed before the
      engine boots, read after it closed) and the inputs of K1's first
-     call with a leader row copied (R = 24, P = 3); (b) `python -m
+     call that advances some row's commit copied (R = 24, P = 3);
+     (b) `python -m
      raftsql_tpu_torch.server.main --fused --groups 8 --workers 2
      --reshard --trace` as a process: 64 keyed PUTs through the workers
      (ring op 7), a split through POST /reshard at a worker (op 6),
@@ -248,7 +252,18 @@ exit, no result line) at the first phase that fails:
      harness under asan, ubsan and tsan (native/sanitize.py, built with
      g++ where the script runs, the three at once and while (c) runs; a
      failed build or a report fails the phase);
- 24. the kernels line (JSON: K1 as phase 4 measured it, K2 on phase 5's
+ 24. the fused step's CUDA graph (runtime/fused.py): the graph against
+     the eager cluster_step_host chain on the card at the benchmark
+     cell's shape (G = 1, P = 3, E = 8, commit_rule="pallas") and at G =
+     10,000, 200 ticks each with seeded proposals and a skewed timer
+     window, packed info and busy bit equal every tick and every state
+     and inbox leaf every 20 ticks, one capture and a replay every tick
+     after the first, K1 once a tick on each side, and each side's
+     enqueue in ms a tick; then the fused server on one group under 16
+     client threads of acked PUTs, GET /metrics read every 0.2 s:
+     graph_captures 1 in every reading, graph_replays / ticks at least
+     0.99;
+ 25. the kernels line (JSON: K1 as phase 4 measured it, K2 on phase 5's
      joint masks, launches summed over the paths; K1's launches and time
      on phase 4's cluster_run path, R = 300,000; each kernel's
      node-path launches and time: K1 at R = 10,000 from phase 10, K2 at
@@ -263,7 +278,7 @@ The mesh and pod phases share one card among their shards: they measure
 whether the sharded program is right on the card and what it costs
 there, not scaling across cards.
 
-`--only 13,15` runs the build and the named phases (3-23) alone: a
+`--only 13,15` runs the build and the named phases (3-24) alone: a
 development run, with no result line.  It needs one card and writes
 under build/ of its checkout (and the chaos runs' data dirs under
 $TMPDIR, removed after each run).
@@ -788,6 +803,69 @@ def profile_ticks(cfg, st, ib, card, ticks=4):
     return st, ib
 
 
+@contextlib.contextmanager
+def spy_fused_kernel(name: str, captured: dict, want=None):
+    """While open, each fused dispatch made while `want(node)` holds
+    (default: always) and captured[name] is unset is run a second time,
+    eagerly (`_run`), on copies of its inputs taken before it, with the
+    wrapper `name` spied on: the fused runtime replays its step as a
+    CUDA graph, which calls no wrapper, and phase 24 holds the graph to
+    the eager chain bit for bit.  The wrapper's arguments are kept once
+    some row's plain answer lies above its `commit` argument, so that a
+    kernel that left commit as it was fails the check on them.  The
+    second step's launches are taken back out of pq.launches."""
+    from raftsql_tpu_torch.runtime.fused import FusedClusterNode
+    real, wrapper = FusedClusterNode._device_step, getattr(pq, name)
+    plain = pq.quorum_commit_index_plain \
+        if name == "pallas_quorum_commit_index" \
+        else pq.masked_quorum_commit_index_plain
+    dispatches = [0]
+
+    def step(self, prop_n, timer_inc=None):
+        dispatches[0] += 1
+        if name in captured or not (want is None or want(self)):
+            return real(self, prop_n, timer_inc)
+        st = type(self.states)(*[x.clone() for x in self.states])
+        ib = type(self.inboxes)(*[x.clone() for x in self.inboxes])
+        pn = torch.as_tensor(np.array(prop_n, copy=True),
+                             device=self.device)
+        ti = torch.ones((self.cfg.num_peers,), dtype=torch.int32,
+                        device=self.device) if timer_inc is None \
+            else torch.as_tensor(np.asarray(timer_inc, np.int32),
+                                 device=self.device)
+        out = real(self, prop_n, timer_inc)
+        calls = []
+
+        def spy(*args, **kw):
+            calls.append(([a.clone() for a in args],
+                          {k: v.clone() if torch.is_tensor(v) else v
+                           for k, v in kw.items()}))
+            return wrapper(*args, **kw)
+
+        before = dict(pq.launches)
+        setattr(pq, name, spy)
+        try:
+            self._run(st, ib, pn, ti)
+        finally:
+            setattr(pq, name, wrapper)
+            pq.launches.update(before)
+        for args, kw in calls:
+            up = int((plain(*args, **kw) > args[3]).sum())
+            if up:
+                captured[name] = (args, kw)
+                log(f"{name}: inputs kept from fused dispatch "
+                    f"{dispatches[0]}, {up} of {args[0].shape[0]} rows "
+                    f"advance commit")
+                break
+        return out
+
+    FusedClusterNode._device_step = step
+    try:
+        yield
+    finally:
+        FusedClusterNode._device_step = real
+
+
 def capture_tick(cfg, st, ib, name, captured):
     """One tick with the step's call of the wrapper `name` spied on: a
     copy of the tensors it was handed goes into captured[name]."""
@@ -1146,9 +1224,10 @@ def membership_node(card: str, dev="cuda", G=10_000, n=64) -> dict:
     slot 3 (add_learner 3, promote 3, remove 0, each change through
     joint consensus where it moves a vote) on `n` groups spread over the
     range, while leadership moves on `n` other groups.  K2 must launch
-    on every tick after enable_membership (and K1 on none); on one tick
-    with joint masks live its inputs are copied, for the kernel-vs-plain
-    check and timing on them."""
+    on every tick after enable_membership (and K1 on none); its inputs
+    are copied on the first tick with joint masks live whose K2 call
+    advances some row's commit, for the kernel-vs-plain check and
+    timing on them."""
     from raftsql_tpu_torch.chaos.scenarios import _drain_fused_q
     from raftsql_tpu_torch.membership import MembershipError
     from raftsql_tpu_torch.runtime.fused import FusedClusterNode
@@ -1161,16 +1240,8 @@ def membership_node(card: str, dev="cuda", G=10_000, n=64) -> dict:
     shutil.rmtree(d, ignore_errors=True)
     node = FusedClusterNode(cfg, d, device=dev)
     node.publish_peers = {0}
-    captured, real = {}, pq.pallas_masked_quorum_commit_index
-
-    def spy(*args, **kw):
-        mm = node.membership
-        if k2 not in captured and mm is not None and mm.joint_groups:
-            captured[k2] = ([a.clone() for a in args],
-                            {k: v.clone() if torch.is_tensor(v) else v
-                             for k, v in kw.items()})
-        return real(*args, **kw)
-
+    captured = {}
+    spying = contextlib.ExitStack()
     ticks = [0]
 
     def tick():
@@ -1184,7 +1255,8 @@ def membership_node(card: str, dev="cuda", G=10_000, n=64) -> dict:
         t0 = time.monotonic()
         node.enable_membership()
         t_enable = time.monotonic() - t0
-        pq.pallas_masked_quorum_commit_index = spy
+        spying.enter_context(spy_fused_kernel(
+            k2, captured, lambda n: bool(n.membership.joint_groups)))
         t0 = time.monotonic()
         while (node._hints < 0).any() and ticks[0] < 300:
             tick()
@@ -1227,7 +1299,7 @@ def membership_node(card: str, dev="cuda", G=10_000, n=64) -> dict:
                 break
             tick()
         t_ops, n_ops = time.monotonic() - t0, ticks[0] - m0
-        pq.pallas_masked_quorum_commit_index = real
+        spying.close()
         launches = dict(pq.launches)         # ... and ends here
         if not done:
             raise AssertionError(
@@ -1264,7 +1336,7 @@ def membership_node(card: str, dev="cuda", G=10_000, n=64) -> dict:
         return {"launches": launches, "captured": captured,
                 "ms_per_tick": t_ops / max(n_ops, 1) * 1e3}
     finally:
-        pq.pallas_masked_quorum_commit_index = real
+        spying.close()
         node.stop()
         shutil.rmtree(d, ignore_errors=True)
 
@@ -2269,36 +2341,30 @@ def overload(card: str, dev="cuda") -> int:
     under the cap and the goodput and starvation floors hold (the
     gauntlet's own checks), and K1 must launch once per device step:
     the launch count and the dispatch count are zeroed just before the
-    gauntlet and read just after.  The inputs of K1's first call with a
-    leader row (R = 12 rows, P = 3) are copied.  Returns K1's launches
-    and the copy."""
+    gauntlet and read just after.  The inputs of K1's first call that
+    advances some row's commit are copied (R = 12 rows, P = 3).
+    Returns K1's launches and the copy."""
     from raftsql_tpu_torch.chaos import run as crun
     from raftsql_tpu_torch.runtime.hostplane import ClusterHostPlane
     k1 = "pallas_quorum_commit_index"
     steps = [0]
     real = ClusterHostPlane._readback       # one call per device dispatch
-    real_k1, captured = getattr(pq, k1), {}
+    captured = {}
 
     def counted(*a, **kw):
         steps[0] += 1
         return real(*a, **kw)
 
-    def spy(*args, **kw):
-        if k1 not in captured and bool(args[5].any()):
-            captured[k1] = ([a.clone() for a in args], dict(kw))
-        return real_k1(*args, **kw)
-
     pq.reset_launches()                       # the overload path starts here
     ClusterHostPlane._readback = staticmethod(counted)
-    setattr(pq, k1, spy)
     try:
         t0 = time.monotonic()
-        ok, reports = crun.overload_gauntlet(0, runs=2, device=dev,
-                                             commit_rule="pallas")
+        with spy_fused_kernel(k1, captured):
+            ok, reports = crun.overload_gauntlet(0, runs=2, device=dev,
+                                                 commit_rule="pallas")
         wall = time.monotonic() - t0
     finally:
         ClusterHostPlane._readback = staticmethod(real)
-        setattr(pq, k1, real_k1)
     launches = pq.launches[k1]                # ... and ends here
     if not ok:
         raise AssertionError("the overload gauntlet failed (see CHAOS FAIL "
@@ -3902,33 +3968,23 @@ def workers_plane(card: str, dev="cuda", groups=8) -> dict:
         res["launches"] += got
         res["steps"] += steps
 
-    # (a) the checks, 2 workers.  The inputs of K1's first call with a
-    # leader row are copied (R = 24 rows, P = 3).
-    real_k1, captured = getattr(pq, k1), {}
-
-    def spy(*args, **kw):
-        if k1 not in captured and bool(args[5].any()):
-            captured[k1] = ([a.clone() for a in args], dict(kw))
-        return real_k1(*args, **kw)
-
+    # (a) the checks, 2 workers.  The inputs of K1's first call that
+    # advances some row's commit are copied (R = 24 rows, P = 3).
+    captured = {}
     pq.reset_launches()                     # the workers path starts here
-    setattr(pq, k1, spy)
-    try:
+    with spy_fused_kernel(k1, captured):
         eng = RingEngine(work, "checks", 2, groups, dev)
-    except BaseException:
-        setattr(pq, k1, real_k1)
-        raise
-    node = eng.rdb.pipe.node
-    try:
-        recipe(eng.port, groups, "workers")
-        only_engine_on_card(os.getpid(), [p.pid for p in eng.procs],
-                            "workers")
-        _, p50, p99 = put_load(eng.rdb, eng.port, groups, card, "workers")
-        res["put_p50"], res["put_p99"] = p50, p99
-        res["shm_hits"] = _shm_reads(eng.port, groups, "workers")
-    finally:
-        eng.close()
-        setattr(pq, k1, real_k1)
+        node = eng.rdb.pipe.node
+        try:
+            recipe(eng.port, groups, "workers")
+            only_engine_on_card(os.getpid(), [p.pid for p in eng.procs],
+                                "workers")
+            _, p50, p99 = put_load(eng.rdb, eng.port, groups, card,
+                                   "workers")
+            res["put_p50"], res["put_p99"] = p50, p99
+            res["shm_hits"] = _shm_reads(eng.port, groups, "workers")
+        finally:
+            eng.close()
     counted(node)                            # ... and ends here
     if k1 not in captured:
         raise AssertionError("the workers engine never launched K1 on a "
@@ -4443,21 +4499,16 @@ def reshard_engine(card: str, dev="cuda", groups=8,
     work = os.path.join(ROOT, "build", "chip_smoke_reshard")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    real_k1, captured = getattr(pq, k1), {}
-
-    def spy(*args, **kw):
-        if k1 not in captured and bool(args[5].any()):
-            captured[k1] = ([a.clone() for a in args], dict(kw))
-        return real_k1(*args, **kw)
-
+    captured = {}
+    spying = contextlib.ExitStack()
     pq.reset_launches()                     # the reshard path starts here
-    setattr(pq, k1, spy)
+    spying.enter_context(spy_fused_kernel(k1, captured))
     try:
         rdb = build_fused_node(groups=groups, peers=3,
                                data_prefix=os.path.join(work, "engine"),
                                commit_rule="pallas", device=dev)
     except BaseException:
-        setattr(pq, k1, real_k1)
+        spying.close()
         raise
     node = rdb.pipe.node
     res = {}
@@ -4516,7 +4567,7 @@ def reshard_engine(card: str, dev="cuda", groups=8,
         if pc is not None:
             pc.stop()
         expect(rdb.close(), None, "reshard engine close")
-        setattr(pq, k1, real_k1)
+        spying.close()
     res["launches"] = pq.launches[k1]       # ... and ends here
     res["steps"] = node._device_steps
     expect(res["launches"], res["steps"], "K1 launches = device steps, "
@@ -4759,6 +4810,133 @@ def reshard_plane(card: str, dev="cuda") -> dict:
             "captured": eng.pop("captured")}
 
 
+# ---- phase 24 --------------------------------------------------------------
+
+def _graph_against_eager(card, G, ticks, d) -> dict:
+    """A FusedClusterNode's device step (an eager warm-up tick, then one
+    capture and replays) beside the eager cluster_step_host chain on the
+    card from the same boot, with seeded proposals and a skewed timer
+    window: packed info and busy bit equal every tick, every state and
+    inbox leaf every 20 ticks and at the end.  Each side's enqueue (the
+    host clock around the call, no synchronize) and whole step (to its
+    readback) in ms, medians over the ticks after the capture."""
+    from raftsql_tpu_torch.runtime.fused import FusedClusterNode
+    cfg = RaftConfig(num_groups=G, num_peers=3, log_window=64,
+                     max_entries_per_msg=8, tick_interval_s=0.0,
+                     commit_rule="pallas")
+    node = FusedClusterNode(cfg, d, seed=0, device="cuda")
+    st = type(node.states)(*[x.clone() for x in node.states])
+    ib = type(node.inboxes)(*[x.clone() for x in node.inboxes])
+    ones = torch.ones((3,), dtype=torch.int32, device="cuda")
+    rng = np.random.default_rng(G)
+    times = {"graph": ([], []), "eager": ([], [])}
+    k1 = "pallas_quorum_commit_index"
+    base = pq.launches[k1]
+    try:
+        for t in range(ticks):
+            pn = rng.integers(0, 9, (3, G)).astype(np.int32)
+            skew = np.array([1, 2, 0], np.int32) if 40 <= t < 70 else None
+            t0 = time.perf_counter()
+            pd, bd = node._device_step(pn, skew)
+            t1 = time.perf_counter()
+            got, busy = node._readback(pd, bd)
+            t2 = time.perf_counter()
+            ti = ones if skew is None else torch.from_numpy(skew).cuda()
+            pnd = torch.from_numpy(pn).cuda()
+            t3 = time.perf_counter()
+            st, ib, want, wbusy = cluster.cluster_step_host(cfg, st, ib,
+                                                            pnd, ti)
+            t4 = time.perf_counter()
+            want = want.cpu().numpy()
+            wbusy = bool(wbusy)
+            t5 = time.perf_counter()
+            if t >= 2:
+                times["graph"][0].append(t1 - t0)
+                times["graph"][1].append(t2 - t0)
+                times["eager"][0].append(t4 - t3)
+                times["eager"][1].append(t5 - t3)
+            expect(np.array_equal(got, want) and busy == wbusy, True,
+                   f"graph step G={G} tick {t}: packed info and busy bit")
+            if t % 20 == 19 or t == ticks - 1:
+                for name, a, b in zip(st._fields + ib._fields,
+                                      node.states + node.inboxes, st + ib):
+                    expect(torch.equal(a, b), True,
+                           f"graph step G={G} tick {t}: {name}")
+        m = node.metrics
+        expect((m.graph_captures, m.graph_replays, m.eager_steps),
+               (1, ticks - 1, 1), f"graph step G={G}: captures, replays, "
+               "eager steps")
+        expect(pq.launches[k1] - base, 2 * ticks,
+               f"graph step G={G}: K1 once a tick on each side")
+    finally:
+        node.stop()
+    out = {k: {"enqueue_ms": statistics.median(v[0]) * 1e3,
+               "step_ms": statistics.median(v[1]) * 1e3}
+           for k, v in times.items()}
+    log(f"graph step G = {G}, P = 3, E = 8, pallas: {ticks} ticks equal "
+        f"to the eager chain; enqueue ms a tick graph "
+        f"{out['graph']['enqueue_ms']:.3f}, eager "
+        f"{out['eager']['enqueue_ms']:.3f}; to the readback graph "
+        f"{out['graph']['step_ms']:.3f}, eager "
+        f"{out['eager']['step_ms']:.3f} on {card}")
+    return out
+
+
+def graph_step(card: str, dev="cuda") -> dict:
+    """Phase 24: the fused runtime's CUDA graph of its step
+    (runtime/fused.py).  (a) The graph against the eager chain at the
+    benchmark cell's shape (G = 1) and at the durable bench's (G =
+    10,000), 200 ticks each, with the enqueue's ms a tick both ways;
+    (b) the fused server on one group (the cell's deployment) under 16
+    client threads of acked PUTs, GET /metrics read every 0.2 s:
+    `graph_captures` 1 in every reading, and graph_replays / ticks at
+    least 0.99 at the end."""
+    d = os.path.join(DATA, "graph")
+    shutil.rmtree(DATA, ignore_errors=True)
+    out = {}
+    for G in (1, 10_000):
+        os.makedirs(f"{d}-{G}")
+        out[G] = _graph_against_eager(card, G, 200, f"{d}-{G}")
+    shutil.rmtree(DATA, ignore_errors=True)
+    os.makedirs(DATA)
+    rdb, srv = _serve(1, dev)
+    seen, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            st, body = _req(srv.port, "GET", path="/metrics")
+            if st == 200:
+                seen.append(json.loads(body)["device_step"])
+            stop.wait(0.2)
+
+    th = threading.Thread(target=sample, daemon=True)
+    try:
+        recipe(srv.port, 1, "graph server")
+        th.start()
+        put_load(rdb, srv.port, 1, card, "graph server")
+        stop.set()
+        th.join()
+        m = rdb.pipe.node.metrics
+        caps = sorted({s["graph_captures"] for s in seen})
+        share = m.graph_replays / max(m.ticks, 1)
+    finally:
+        stop.set()
+        srv.stop()
+        err = rdb.close()
+    expect(err, None, "graph server close")
+    expect(caps, [1], "graph server: graph_captures in every reading")
+    if len(seen) < 5 or share < 0.99:
+        raise AssertionError(f"graph server: {len(seen)} readings, "
+                             f"graph_replays / ticks {share:.4f}")
+    log(f"graph server: {m.ticks} ticks, {m.graph_replays} replays "
+        f"(share {share:.4f}), {m.graph_restages} restages, "
+        f"{m.eager_steps} eager steps, graph_captures 1 in all "
+        f"{len(seen)} readings of GET /metrics on {card}")
+    shutil.rmtree(DATA, ignore_errors=True)
+    out["served_share"] = share
+    return out
+
+
 # ---- main ------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -4768,7 +4946,7 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="smoke run on one CUDA card")
     ap.add_argument("--only", default="",
-                    help="comma separated phases (3-23) to run after the "
+                    help="comma separated phases (3-24) to run after the "
                          "build; no result line is printed")
     # One rank of phase 20's distributed pod step (a child process).
     ap.add_argument("--pod-rank", type=int, default=None,
@@ -4799,6 +4977,7 @@ def main(argv=None) -> int:
         return not only or phase in only
 
     card = environment()
+    kern = {}               # K1 and K2 on the fused paths (phases 4, 5)
     node_kern = {}          # K1 and K2 on the node path (phases 10, 12)
     build_s = pq.build()
     log(f"build: csrc/quorum.cu in {build_s:.1f} s")
@@ -4809,7 +4988,7 @@ def main(argv=None) -> int:
         done("kernels")
     if want(4):
         tick = fused_tick(card)
-        kern = main_path_kernels(card, tick.pop("captured"))
+        kern.update(main_path_kernels(card, tick.pop("captured")))
         runp = run_path(card)
         # K1 on cluster_run's tensors: R = 300,000, P = 3.
         run_kern = main_path_kernels(card, runp.pop("captured"),
@@ -4907,6 +5086,9 @@ def main(argv=None) -> int:
         # K1 on the reshard engine's fused steps: R = 24 rows, P = 3.
         reshard_kern = main_path_kernels(card, rsh.pop("captured"))
         done("reshard plane")
+    if want(24):
+        graph = graph_step(card)
+        done("graph step")
     if only:
         log(f"development run of phases {sorted(only)}: no result line")
         return 0
@@ -4969,6 +5151,11 @@ def main(argv=None) -> int:
         f"commits/s native plog + NativeKV "
         f"{durable['commits_per_s']['native']:.0f}, Python plog + "
         f"KVStateMachine {durable['commits_per_s']['python']:.0f} on {card}")
+    log("graph step enqueue ms a tick, graph / eager: "
+        + "; ".join(f"G = {G} {graph[G]['graph']['enqueue_ms']:.3f} / "
+                    f"{graph[G]['eager']['enqueue_ms']:.3f}"
+                    for G in (1, 10_000))
+        + f"; served replay share {graph['served_share']:.4f} on {card}")
     lad = wk["ladder"]
     log(f"workers ladder (192 connections; req/s, p50/p99 ms): "
         + "; ".join(f"{k} {v['req_s']:.1f}, {v['p50_ms']:.2f}/"

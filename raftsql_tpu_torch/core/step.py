@@ -37,6 +37,20 @@ from raftsql_tpu_torch.ops.quorum import (masked_quorum_commit_index,
                                           quorum_match_index, vote_count)
 
 
+# The [P] witness masks on each device, made once: a step recorded into
+# a CUDA graph (runtime/fused.py) may copy nothing from the host.
+_WITNESS_ROWS: dict = {}
+
+
+def _witness_row_on(cfg: RaftConfig, dev) -> torch.Tensor:
+    key = (cfg.num_peers, tuple(cfg.witnesses), str(dev))
+    row = _WITNESS_ROWS.get(key)
+    if row is None:
+        row = _WITNESS_ROWS[key] = torch.as_tensor(witness_row(cfg),
+                                                   device=dev)
+    return row
+
+
 def _first_true(mask: torch.Tensor) -> torch.Tensor:
     """jnp.argmax over a bool last axis: the first True index, 0 if none."""
     n = mask.shape[-1]
@@ -91,7 +105,7 @@ def peer_step(cfg: RaftConfig, state: PeerState, inbox: Inbox,
                                    cfg.election_quorum)
 
     if cfg.witnesses:
-        wrow = torch.as_tensor(witness_row(cfg), device=dev)
+        wrow = _witness_row_on(cfg, dev)
         self_witness = wrow[sid.long()]                          # ~[.., G]
     else:
         self_witness = False

@@ -12,7 +12,8 @@ and like the JAX kernels they take any peer count P.  Each wrapper
 takes its plain PyTorch version (`*_plain`, beside it) for tensors on
 the CPU and only then; a CUDA tensor is checked (device, dtype, shape,
 contiguity: one pass) and launches the kernel or raises.  `launches`
-counts kernel launches per wrapper.
+counts kernel launches per wrapper; a launch recorded into a CUDA graph
+(`counting_capture`) is counted on each replay of the graph instead.
 
 The kernels are compiled at first use with `nvcc` into build/kernels/
 (a shared library with a plain C interface, loaded with ctypes), keyed
@@ -25,7 +26,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
+from contextlib import contextmanager
 from typing import Optional
 
 import torch
@@ -44,6 +47,8 @@ launches = {"pallas_quorum_commit_index": 0,
             "pallas_masked_quorum_commit_index": 0}
 _lib: Optional[ctypes.CDLL] = None
 _log_path: Optional[str] = None
+# Per thread: the counts of the graph capture in progress, or None.
+_capturing = threading.local()
 
 # The kernels' inputs in their C order, with the dtype each must have.
 _NAMES = ("match", "log_term", "log_len", "commit", "term", "is_leader",
@@ -54,6 +59,30 @@ _DTYPES = (I32, I32, I32, I32, I32, torch.bool, torch.bool, torch.bool)
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+@contextmanager
+def counting_capture():
+    """Count the launches this thread records into a CUDA graph apart
+    from `launches` (a capture runs no kernel): yields those counts,
+    which `count_replay` adds to `launches` on each replay."""
+    counts = dict.fromkeys(launches, 0)
+    _capturing.counts = counts
+    try:
+        yield counts
+    finally:
+        _capturing.counts = None
+
+
+def count_replay(counts: dict) -> None:
+    """One replay of a graph whose capture recorded `counts`."""
+    for k, n in counts.items():
+        launches[k] += n
+
+
+def _count(name: str) -> None:
+    counts = getattr(_capturing, "counts", None)
+    (launches if counts is None else counts)[name] += 1
 
 
 def _nvcc() -> str:
@@ -195,7 +224,7 @@ def pallas_quorum_commit_index(match, log_term, log_len, commit, term,
         torch._C._cuda_getCurrentRawStream(match.get_device()))
     if rc:
         _raise_on(rc, "K1 quorum_commit")
-    launches["pallas_quorum_commit_index"] += 1
+    _count("pallas_quorum_commit_index")
     return out
 
 
@@ -245,5 +274,5 @@ def pallas_masked_quorum_commit_index(match, log_term, log_len, commit,
         torch._C._cuda_getCurrentRawStream(match.get_device()))
     if rc:
         _raise_on(rc, "K2 masked quorum_commit")
-    launches["pallas_masked_quorum_commit_index"] += 1
+    _count("pallas_masked_quorum_commit_index")
     return out

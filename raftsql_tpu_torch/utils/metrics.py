@@ -136,6 +136,15 @@ class NodeMetrics:
     t_apply_ms: float = 0.0
     t_launch_ms: float = 0.0
     t_launch_cpu_ms: float = 0.0
+    # The fused runtime's device step (runtime/fused.py): CUDA graphs
+    # captured of it, ticks that replayed one, replays that first copied
+    # a rebound state or inbox into the graph's buffers, and steps
+    # enqueued op by op (every tick on the CPU; the warm-up tick before
+    # a capture on a card).  graph_replays / ticks is the graph's share.
+    graph_captures: int = 0
+    graph_replays: int = 0
+    graph_restages: int = 0
+    eager_steps: int = 0
     started_at: float = field(default_factory=time.monotonic)
 
     def note_transfer_stall(self, ticks: int) -> None:
@@ -224,6 +233,12 @@ class NodeMetrics:
                 "publish": round(self.t_publish_ms / t, 4),
                 "apply": round(self.t_apply_ms / t, 4),
                 "launch": round(self.t_launch_ms / t, 4),
+            },
+            "device_step": {
+                "graph_captures": self.graph_captures,
+                "graph_replays": self.graph_replays,
+                "graph_restages": self.graph_restages,
+                "eager_steps": self.eager_steps,
             },
         }
 

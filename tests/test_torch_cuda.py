@@ -8,6 +8,9 @@ CUDA tensors, exactly, and the fused tick on the card to the same ticks
 on the CPU; torch.profiler's device stamps, put on time.monotonic() by
 obs/timeline.py, fall inside the host's own stamps.
 """
+import os
+import subprocess
+import sys
 import time
 
 import numpy as np
@@ -301,3 +304,179 @@ def test_profiler_stamps_land_on_the_monotonic_clock(card):
     off = profiler_offset_ns(acts[0].start_ns(), pairs)
     start, end = acts[0].start_ns() + off, acts[0].end_ns() + off
     assert t0 <= start < end <= t1, (t0, start, end, t1, off)
+
+
+# -- the fused runtime's CUDA graph (runtime/fused.py) ------------------
+
+K1_NAME = "pallas_quorum_commit_index"
+K2_NAME = "pallas_masked_quorum_commit_index"
+
+
+def _graph_vs_eager(card, path, cfg, steps, ticks=200):
+    """Drive a FusedClusterNode's device step (graph replays after one
+    eager tick) and the eager cluster_step_host chain on the same card
+    from one boot, with seeded proposals, a skewed timer window, a
+    membership and a transfer patch and a chaos inbox rewrite applied to
+    both; every tick's packed info, busy bit, states and inboxes must be
+    equal.  Returns the node's metrics, its graph's signature key and
+    the signatures the step's entry point was called with."""
+    from raftsql_tpu_torch.analysis.tripwire import SignatureTripwire
+    from raftsql_tpu_torch.core.state import (set_group_config_stacked,
+                                              set_transfer_target_stacked)
+    from raftsql_tpu_torch.runtime.fused import FusedClusterNode
+    from raftsql_tpu_torch.transport.faults import drop_messages
+    node = FusedClusterNode(cfg, path, seed=5, device=card)
+    node._steps = steps
+    st = type(node.states)(*[x.clone() for x in node.states])
+    ib = type(node.inboxes)(*[x.clone() for x in node.inboxes])
+    rng = np.random.default_rng(cfg.num_groups * 10 + steps)
+    P, G = cfg.num_peers, cfg.num_groups
+    ones = torch.ones((P,), dtype=torch.int32, device=card)
+    tw = SignatureTripwire()
+    try:
+        for t in range(ticks):
+            shape = (steps, P, G) if steps > 1 else (P, G)
+            pn = rng.integers(0, cfg.max_entries_per_msg + 1,
+                              shape).astype(np.int32)
+            skew = np.array([1, 2, 0], np.int32)[:P] \
+                if 40 <= t < 70 else None
+            if t == 90:
+                vrow, jrow = np.array([1, 1, 0]), np.array([1, 1, 1])
+                node._set_group_config(2, G - 1, vrow, jrow, False)
+                st = set_group_config_stacked(st, 2, G - 1, vrow, jrow,
+                                              False)
+            if t == 100:
+                node._set_transfer_target(0, 0, 1)
+                st = set_transfer_target_stacked(st, 0, 0, 1)
+            if t == 120:
+                mask = rng.random(tuple(ib.v_type.shape)) < 0.5
+                node.inboxes = drop_messages(node.inboxes, mask)
+                ib = drop_messages(ib, mask)
+            pd, bd = node._device_step(pn, skew)
+            got, busy = node._readback(pd, bd)
+            ti = ones if skew is None else torch.from_numpy(skew).to(card)
+            if steps > 1:
+                st, ib, want, wbusy = cluster.cluster_multistep_host(
+                    cfg, st, ib, steps, torch.from_numpy(pn).to(card), ti)
+            else:
+                st, ib, want, wbusy = cluster.cluster_step_host(
+                    cfg, st, ib, torch.from_numpy(pn).to(card), ti)
+            assert np.array_equal(got, want.cpu().numpy()), t
+            assert busy == bool(wbusy), t
+            for name, a, b in zip(st._fields + ib._fields,
+                                  node.states + node.inboxes, st + ib):
+                assert torch.equal(a, b), (t, name)
+        assert node.states is node._graph.states
+        assert node.inboxes is node._graph.inboxes
+        entry = "cluster_multistep_host" if steps > 1 else "cluster_step_host"
+        return node.metrics, node._graph.key, tw.signatures(entry)
+    finally:
+        tw.disarm()
+        node.stop()
+
+
+@pytest.mark.parametrize("G,rule,steps,membership", [
+    (1, "pallas", 1, False), (512, "pallas", 1, False),
+    (512, "point", 1, False), (1, "pallas", 2, False),
+    (512, "pallas", 2, False), (512, "pallas", 1, True)])
+def test_graph_step_equals_eager_chain(card, tmp_path, G, rule, steps,
+                                       membership):
+    """The replayed graph against the eager chain, leaf by leaf, at the
+    benchmark cell's shape (G = 1, P = 3, E = 8, pallas) and at G = 512,
+    under both commit rules, one and two steps a dispatch, and the
+    masked rule (K2): one capture, every tick after the first a replay,
+    the one inbox rewrite a restage, and the quorum kernel counted once
+    a step on each side; the eager steps and the capture called the
+    entry point with one signature, the graph's key."""
+    cfg = RaftConfig(num_groups=G, num_peers=3, log_window=64,
+                     max_entries_per_msg=8, election_ticks=10,
+                     heartbeat_ticks=1, tick_interval_s=0.0,
+                     commit_rule=rule, dynamic_membership=membership)
+    pq.reset_launches()
+    m, key, seen = _graph_vs_eager(card, str(tmp_path), cfg, steps)
+    assert seen == {key}
+    assert (m.graph_captures, m.graph_replays, m.graph_restages,
+            m.eager_steps) == (1, 199, 1, 1)
+    want = {"pallas_quorum_commit_index": 0,
+            "pallas_masked_quorum_commit_index": 0}
+    if rule == "pallas":
+        want[K2_NAME if membership else K1_NAME] = 2 * 200 * steps
+    assert pq.launches == want
+
+
+def test_profiler_sees_kernels_of_a_graph_captured_before_it(card,
+                                                             tmp_path):
+    """The benchmark starts torch.profiler after the node captured its
+    graph: the replays' kernels, K1 among them, must still be recorded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raftsql_tpu_torch.runtime.fused import FusedClusterNode
+    cfg = RaftConfig(num_groups=1, num_peers=3, log_window=64,
+                     max_entries_per_msg=8, tick_interval_s=0.0,
+                     commit_rule="pallas")
+    node = FusedClusterNode(cfg, str(tmp_path), seed=5, device=card)
+    try:
+        for _ in range(5):
+            node.tick()
+        assert node.metrics.graph_captures == 1
+        k0 = pq.launches[K1_NAME]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                node.tick()
+            torch.cuda.synchronize()
+        k1 = pq.launches[K1_NAME] - k0
+        names = [e.name() for e in prof.profiler.kineto_results.events()
+                 if e.duration_ns() > 0]
+        seen = sum(1 for n in names if "quorum_commit" in n)
+        assert k1 == 20 and seen > 0, (k1, seen, len(names))
+    finally:
+        node.stop()
+
+
+# A served node ticking its graph in its own thread under load, and four
+# torch.profiler sessions started and stopped beside it in the main
+# thread, as the benchmark's traced run does.
+_PROFILE_BESIDE_TICKS = r"""
+import tempfile, threading, time
+from torch.profiler import ProfilerActivity, profile
+from raftsql_tpu_torch.config import RaftConfig
+from raftsql_tpu_torch.runtime.fused import FusedClusterNode
+cfg = RaftConfig(num_groups=1, num_peers=3, log_window=64,
+                 max_entries_per_msg=8, tick_interval_s=0.0,
+                 commit_rule="pallas")
+node = FusedClusterNode(cfg, tempfile.mkdtemp(), seed=1, device="cuda")
+node.start(interval_s=0.002)
+until = time.monotonic() + 60
+while (node._hints < 0).any() and time.monotonic() < until:
+    time.sleep(0.05)
+stop = threading.Event()
+def load():
+    while not stop.is_set():
+        node.propose_many(0, [b"x" * 64] * 8)
+        time.sleep(0.001)
+threading.Thread(target=load, daemon=True).start()
+seen = 0
+for _ in range(4):
+    n0 = node.metrics.ticks
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        while node.metrics.ticks - n0 < 20:
+            time.sleep(0.002)
+    seen += sum(1 for e in prof.profiler.kineto_results.events()
+                if "quorum_commit" in e.name())
+stop.set()
+node.stop()
+print("seen", seen, "captures", node.metrics.graph_captures)
+"""
+
+
+def test_profiler_stops_beside_a_ticking_graph(card):
+    """A profiler stop while another thread launches the graph must not
+    hang (it did with CUDAGraph.replay, which drops the interpreter
+    lock that the stop holds), and each session records K1."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    got = subprocess.run([sys.executable, "-c", _PROFILE_BESIDE_TICKS],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=300)
+    assert got.returncode == 0, got.stderr[-3000:]
+    words = got.stdout.split()
+    assert words[-1] == "1" and int(words[1]) >= 4, got.stdout
