@@ -1,0 +1,9 @@
+"""95th percentile of the client's latency of every acknowledged
+one-field UPDATE sent in the window (the load generator's send and
+receive times)."""
+from portbench.metrics._common import latencies_ms, p95
+from portbench.reference.check import OP_UPDATE
+
+
+def read(snap: dict):
+    return p95(latencies_ms(snap, (OP_UPDATE,), 204))

@@ -13,8 +13,11 @@ HTTP/1.1 state machine for every connection, proposals go straight to
 the consensus consumer resolves AckFutures from its own thread, the
 bridge coalesces every ack that lands between two loop iterations into
 a single `call_soon_threadsafe` wakeup (one loop wakeup per commit
-batch, not per request).  Reads (which may block on SQLite or a
-ReadIndex round) run in a small executor so the loop never stalls.
+batch, not per request).  A read takes its read point on the loop
+thread, parks on the engine's apply (RaftDB.park) through the same
+bridge, and only its SQLite query (or a ReadIndex round that must wait
+for its confirmation) runs in a small executor, so the loop never
+stalls and no executor thread waits for the apply.
 
 Semantics parity with api/http.py, pinned by the parametrized fixture
 in tests/test_api_http.py (every test runs against both planes):
@@ -88,6 +91,15 @@ def _note_reply(fut) -> None:
     span = getattr(fut, "span", None)
     if span is not None:
         span[0].note_reply(span[1])
+
+
+def _note_read_reply(span) -> None:
+    """Fold a read's stamps, the reply's now, into its tracer (`span`
+    is what `_Conn._read` returned, None with tracing off)."""
+    if span is not None:
+        tracer, group, stamps = span
+        stamps.append(time.monotonic())
+        tracer.note_read(group, stamps)
 
 
 def _session_extra(rdb, group: int) -> tuple:
@@ -573,13 +585,7 @@ class _Conn(asyncio.Protocol):
             group, sql = plane.kv_get(key, headers["kepoch"])
             if self._shed_expired(dl):
                 return
-            rows = await self.srv.loop.run_in_executor(
-                self.srv._read_pool, lambda: rdb.query(
-                    sql, group, timeout=self.srv.timeout_s,
-                    mode=headers["mode"],
-                    watermark=headers["session"],
-                    deadline_ms=dl, brownout=headers["brownout"],
-                    info=served))
+            rows, span = await self._read(sql, group, headers, served)
         except WrongEpoch as e:
             payload = (_json.dumps(
                 {"error": str(e), "keymap": plane.keymap.to_doc()},
@@ -633,6 +639,7 @@ class _Conn(asyncio.Protocol):
         else:
             self._finish(_resp(200, b"OK", val.encode("utf-8"),
                                extra=extra))
+        _note_read_reply(span)
 
     async def _do_kv_ring(self, plane, method: bytes, key: str,
                           headers: dict, body: bytes,
@@ -704,15 +711,7 @@ class _Conn(asyncio.Protocol):
             return
         served: dict = {}
         try:
-            # Reads block (SQLite, and linear/session reads wait out a
-            # quorum round or a watermark) — off the loop thread.
-            rows = await self.srv.loop.run_in_executor(
-                self.srv._read_pool, lambda: rdb.query(
-                    query, group, timeout=self.srv.timeout_s,
-                    mode=headers["mode"],
-                    watermark=headers["session"],
-                    deadline_ms=dl, brownout=headers["brownout"],
-                    info=served))
+            rows, span = await self._read(query, group, headers, served)
         except Overloaded as e:
             # Admission refusal or brownout without opt-in: 429 +
             # jittered Retry-After — never a silent downgrade.
@@ -740,6 +739,57 @@ class _Conn(asyncio.Protocol):
                               served["served"].encode()),)
         self._finish(_resp(200, b"OK", rows.encode("utf-8"),
                            extra=extra))
+        _note_read_reply(span)
+
+    async def _read(self, query: str, group: int, headers: dict,
+                    served: dict):
+        """A GET's answer and its span's stamps (None with tracing
+        off), or the read's typed refusal raised.  Against a RaftDB the
+        read point is taken here on the loop (`read_point(block=False)`),
+        the wait for the apply is parked on the engine's waiters and
+        resolved through the ack bridge, and only the SQLite query runs
+        in the read pool; a ReadIndex round that must wait for its
+        confirmation (runtime/node.py `read_join`) runs there first.
+        Any other engine (a ring worker's RingClient, a replica) answers
+        the whole query in the pool, as it blocks."""
+        srv = self.srv
+        rdb, loop, pool = srv.rdb, srv.loop, srv._read_pool
+        kw = {"timeout": srv.timeout_s, "mode": headers["mode"],
+              "watermark": headers["session"],
+              "deadline_ms": headers["deadline"],
+              "brownout": headers["brownout"], "info": served}
+        if not isinstance(rdb, RaftDB):
+            rows = await loop.run_in_executor(
+                pool, lambda: rdb.query(query, group, **kw))
+            return rows, None
+        tracer = getattr(rdb.pipe.node, "tracer", None)
+        stamps = None if tracer is None else [time.monotonic()]
+        p = rdb.read_point(query, group, block=False, **kw)
+        target = p.target
+        if p.round is not None:
+            target = await loop.run_in_executor(pool, p.round)
+        if stamps is not None:
+            stamps.append(time.monotonic())
+        released = None
+        if rdb.watermark(group) < target:
+            afut = loop.create_future()
+            w = rdb.park(group, target,
+                         lambda: srv.bridge.deliver(afut, None))
+            if w is not None:
+                try:
+                    await asyncio.wait_for(
+                        afut, max(p.deadline - time.monotonic(), 0.0))
+                except asyncio.TimeoutError:
+                    rdb.unpark(group, w)
+                released = w.t1
+            rdb.settle_read(group, target, p.phase)
+        rows = await loop.run_in_executor(pool, rdb.local_query, query,
+                                          group)
+        if stamps is None:
+            return rows, None
+        stamps += [stamps[1] if released is None else released,
+                   time.monotonic()]
+        return rows, (tracer, group, stamps)
 
 
 class AioSQLServer:

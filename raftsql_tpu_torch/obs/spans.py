@@ -19,6 +19,20 @@ commit = commit - append, apply = ack - commit, reply = reply - ack, so
 they sum to reply - parsed.  `parsed` and `reply` are taken only by an
 HTTP plane that passes them (`begin(..., t=)`, `note_reply`).
 
+A read has a span of its own, stamped by api/aio.py alone (READ_STAMPS):
+
+    parsed     the HTTP plane decoded the GET
+    point      its read point was taken (runtime/db.py read_point)
+    applied    the apply released it (RaftDB.park; = point when the
+               apply was there already)
+    queried    its SQLite query returned
+    reply      the event loop wrote the response
+
+Its stages (READ_STAGES) point, wait, query and reply sum to reply -
+parsed likewise.  The HTTP plane holds a read's stamps itself and folds
+them with one `note_read` call into a ring of their own, of the same
+cap and layout as the finished writes'.
+
 Stamps come from the planes that own each transition (api/aio.py,
 runtime/db.py, runtime/hostplane.py, runtime/node.py); the tracer only
 correlates them.  Correlation is two-stage, mirroring the engine's own
@@ -57,6 +71,10 @@ _COL = {s: k for k, s in enumerate(STAMPS)}
 STAGES = (("queue", "parsed", "append"), ("commit", "append", "commit"),
           ("apply", "commit", "ack"), ("reply", "ack", "reply"))
 _STAGE_COLS = [_COL["parsed"]] + [_COL[b] for _, _, b in STAGES]
+READ_STAMPS = ("parsed", "point", "applied", "queried", "reply")
+READ_STAGES = (("point", "parsed", "point"), ("wait", "point", "applied"),
+               ("query", "applied", "queried"),
+               ("reply", "queried", "reply"))
 _KEY_BYTES = 128
 
 # Bounded watermark walk per note_replicate/note_commit call: commit can
@@ -102,6 +120,10 @@ class SpanTracer:
         self._key = np.zeros(self.cap, f"S{_KEY_BYTES}")
         self._seq = np.full(self.cap, -1, np.int64)
         self.folded = 0
+        # The finished reads' ring, row n % cap holding read number n.
+        self._rt = np.full((self.cap, len(READ_STAMPS)), np.nan)
+        self._rgroup = np.zeros(self.cap, np.int64)
+        self.reads_folded = 0
 
     # -- lifecycle hooks ------------------------------------------------
 
@@ -210,6 +232,17 @@ class SpanTracer:
             if self._seq[j] == n:
                 self._t[j, _COL["reply"]] = now
 
+    def note_read(self, group: int, stamps) -> int:
+        """Fold one answered read: its READ_STAMPS, in order.  Returns
+        its read number."""
+        with self._mu:
+            n = self.reads_folded
+            j = n % self.cap
+            self._rt[j] = stamps
+            self._rgroup[j] = group
+            self.reads_folded = n + 1
+            return n
+
     def _finish_locked(self, sp: Span) -> int:
         q = self._by_key.get((sp.group, sp.key))
         if q is not None:
@@ -232,10 +265,13 @@ class SpanTracer:
         self.folded = n + 1
         return n
 
-    def _rows_locked(self, last: int) -> np.ndarray:
-        """Ring rows of the newest `last` folded spans, oldest first."""
-        take = min(self.folded, self.cap, last)
-        return np.arange(self.folded - take, self.folded) % self.cap
+    def _rows_locked(self, last: int, folded: Optional[int] = None
+                     ) -> np.ndarray:
+        """Ring rows of the newest `last` folded spans (of `folded`
+        folded, by default the writes'), oldest first."""
+        folded = self.folded if folded is None else folded
+        take = min(folded, self.cap, last)
+        return np.arange(folded - take, folded) % self.cap
 
     # -- generic timeline events ---------------------------------------
 
@@ -254,6 +290,12 @@ class SpanTracer:
         first), one column per STAMPS entry, NaN where none was taken."""
         with self._mu:
             return self._t[self._rows_locked(self.cap)]
+
+    def finished_reads(self) -> np.ndarray:
+        """A copy of the read ring's stamps, as `finished()` gives the
+        writes', one column per READ_STAMPS entry."""
+        with self._mu:
+            return self._rt[self._rows_locked(self.cap, self.reads_folded)]
 
     def snapshot(self, max_spans: int = 4096) -> dict:
         """JSON-ready view: the newest folded and still-live spans
@@ -287,10 +329,21 @@ def stage_seconds(stamps: np.ndarray, t_open: float = -np.inf,
     `finished()` gives them) that carry all five of the stages' stamps,
     whose `parsed` and `reply` both lie in [t_open, t_close], and which
     do not overlap the interval `skip` = (start, end), if given."""
-    s = stamps[:, _STAGE_COLS]
+    return _stage_seconds(stamps[:, _STAGE_COLS], STAGES, t_open,
+                          t_close, skip)
+
+
+def read_stage_seconds(stamps: np.ndarray, t_open: float = -np.inf,
+                       t_close: float = np.inf, skip=None) -> dict:
+    """`stage_seconds` of the reads' READ_STAGES, over the rows of
+    `finished_reads()`."""
+    return _stage_seconds(stamps, READ_STAGES, t_open, t_close, skip)
+
+
+def _stage_seconds(s: np.ndarray, stages, t_open, t_close, skip) -> dict:
     ok = ~np.isnan(s).any(axis=1)
     ok &= (s[:, 0] >= t_open) & (s[:, -1] <= t_close)
     if skip is not None:
         ok &= (s[:, -1] < skip[0]) | (s[:, 0] > skip[1])
     d = np.diff(s[ok], axis=1)
-    return {name: d[:, k] for k, (name, _, _) in enumerate(STAGES)}
+    return {name: d[:, k] for k, (name, _, _) in enumerate(stages)}

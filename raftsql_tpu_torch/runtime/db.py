@@ -33,7 +33,7 @@ import queue
 import threading
 import time
 from collections import defaultdict, deque
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 from raftsql_tpu_torch.models.base import StateMachine
 from raftsql_tpu_torch.models.sqlite_sm import is_select
@@ -168,6 +168,32 @@ class ReadTimeout(TimeoutError):
         self.phase = phase
 
 
+class ReadPoint(NamedTuple):
+    """Where a read is served (`RaftDB.read_point`): once its group's
+    local apply reaches `target` (0: at once), by `deadline`
+    (time.monotonic()); `phase` names that wait in its ReadTimeout.
+    `round`, set only by a non-blocking `read_point`, is a ReadIndex
+    round that must still wait for its confirmation: a call that blocks
+    and returns the target."""
+    target: int
+    phase: str
+    deadline: float
+    round: Optional[Callable[[], int]] = None
+
+
+class _Waiter:
+    """A read parked on a group's applied index (`RaftDB.park`): `wake()`
+    runs once when the apply reaches `target`, or on a failure or
+    close; `t0` is when it parked and `t1` when the apply released it."""
+    __slots__ = ("target", "wake", "t0", "t1")
+
+    def __init__(self, target: int, wake: Callable[[], None], t0: float):
+        self.target = target
+        self.wake = wake
+        self.t0 = t0
+        self.t1: Optional[float] = None
+
+
 class AckFuture:
     """The reference's buffered `chan error` (db.go:107): one result,
     delivered once, awaited by one client.  `span` is (tracer, fold
@@ -290,6 +316,15 @@ class RaftDB:
         # apply consumer — commit + publish, before apply): the
         # histogram /metrics exports as propose_commit_p50/p95/p99_ms.
         self.latency_commit = LatencyTimer()
+        # Reads parked on the apply (`park`), per group: released by
+        # every path that moves the group's applied index (`_apply_run`,
+        # replay included, and `_install_snapshot`), and all woken by a
+        # failure or close.  The apply thread tests a group's list
+        # without the lock; only a group with a waiter takes it.
+        self._waiters: List[List[_Waiter]] = [[] for _ in
+                                              range(num_groups)]
+        self._wmu = threading.Lock()
+        self._n_parked = 0              # raftlint: guarded-by=_wmu
 
         # Synchronous replay consumption (db.go:40): apply until the
         # sentinel so reads see the replayed state before we return.
@@ -348,6 +383,7 @@ class RaftDB:
         for (group, index, query) in run:
             per_g[group].append((query, index))
         errs: Dict[int, list] = {}
+        waiters = self._waiters
         t_a = time.monotonic()
         for group, items in per_g.items():
             sm = self._sms[group]
@@ -356,6 +392,8 @@ class RaftDB:
                 errs[group] = batch_fn(items)
             else:
                 errs[group] = [sm.apply(qy, ix) for (qy, ix) in items]
+            if waiters[group]:
+                self._release(group)
         nm = getattr(self.pipe.node, "metrics", None)
         if nm is not None:
             # Only this thread writes the sum.
@@ -447,6 +485,7 @@ class RaftDB:
                 self._failed = err
             for cb in pending:
                 cb.set(err)
+            self._wake_all()
 
     # ------------------------------------------------------------------
 
@@ -473,6 +512,8 @@ class RaftDB:
     def _install_snapshot(self, group: int, index: int,
                           blob: bytes) -> None:
         self._sms[group].install(blob, index)
+        if self._waiters[group]:
+            self._release(group)
         if self.shm is not None:
             # A state transfer skipped the delta stream: workers must
             # rebuild their replica from the installed image, so the
@@ -626,19 +667,105 @@ class RaftDB:
         and monotonic reads from ANY replica."""
         return int(self._sms[group].applied_index())
 
+    # -- reads parked on the apply ---------------------------------------
+
+    def park(self, group: int, target: int,
+             wake: Callable[[], None]) -> Optional[_Waiter]:
+        """Register `wake()` to run once `group`'s local apply reaches
+        `target`: the waiter, or None (nothing registered, `wake` never
+        runs) when the apply is there already or the db failed or
+        closed.  `wake` runs on the thread that moves the applied index
+        and must not block.  Settle the read with `settle_read` after
+        `wake`, or after `unpark` at its deadline."""
+        w = _Waiter(target, wake, time.monotonic())
+        with self._wmu:
+            if self._failed is not None or self._closed:
+                return None
+            ws = self._waiters[group]
+            ws.append(w)
+            # Checked after the append: an apply that ran before it saw
+            # no waiter, so its index must be read here.
+            if self._sms[group].applied_index() >= target:
+                ws.pop()
+                return None
+            self._n_parked += 1
+            m = getattr(self.pipe.node, "metrics", None)
+            if m is not None:
+                m.reads_parked += 1
+                m.read_waiters_max = max(m.read_waiters_max,
+                                         self._n_parked)
+        return w
+
+    def unpark(self, group: int, w: _Waiter) -> None:
+        """Take a waiter whose deadline passed off its group, counted as
+        a timeout; nothing if the apply (or a failure or close) released
+        it first."""
+        now = time.monotonic()
+        with self._wmu:
+            ws = self._waiters[group]
+            if w not in ws:
+                return
+            ws.remove(w)
+            self._n_parked -= 1
+            m = getattr(self.pipe.node, "metrics", None)
+            if m is not None:
+                m.read_wait_timeouts += 1
+                m.t_read_wait_ms += (now - w.t0) * 1e3
+
+    def _release(self, group: int) -> None:
+        """Wake `group`'s waiters whose target the apply has reached."""
+        applied = self._sms[group].applied_index()
+        now = time.monotonic()
+        with self._wmu:
+            ws = self._waiters[group]
+            done = [w for w in ws if w.target <= applied]
+            if not done:
+                return
+            self._waiters[group] = [w for w in ws if w.target > applied]
+            self._n_parked -= len(done)
+            m = getattr(self.pipe.node, "metrics", None)
+            if m is not None:
+                m.read_wakes += len(done)
+                m.t_read_wait_ms += sum(now - w.t0 for w in done) * 1e3
+        for w in done:
+            w.t1 = now
+            w.wake()
+
+    def _wake_all(self) -> None:
+        """A failure or close: wake every parked read (each then raises
+        in `settle_read`)."""
+        with self._wmu:
+            done = [w for ws in self._waiters for w in ws]
+            for ws in self._waiters:
+                ws.clear()
+            self._n_parked = 0
+        for w in done:
+            w.wake()
+
+    def settle_read(self, group: int, target: int, phase: str) -> None:
+        """After a read's wait: return if the apply reached `target`,
+        else raise the failure that stopped the apply, or ReadTimeout."""
+        sm = self._sms[group]
+        if sm.applied_index() >= target:
+            return
+        if self._failed is not None:
+            raise self._failed
+        raise ReadTimeout(
+            group, phase, f"apply (at {sm.applied_index()}) did not "
+            f"reach read point {target} in time")
+
     def _wait_applied(self, group: int, target: int, deadline: float,
                       tick: float, phase: str) -> None:
-        """Block until the local apply reaches `target` (bounded)."""
-        while self._sms[group].applied_index() < target:
-            if self._failed is not None:
-                raise self._failed
-            now = time.monotonic()
-            if now > deadline:
-                raise ReadTimeout(
-                    group, phase,
-                    f"apply (at {self._sms[group].applied_index()}) "
-                    f"did not reach read point {target} in time")
-            time.sleep(min(tick, max(deadline - now, 0.0005)))
+        """Block until the local apply reaches `target` (bounded):
+        parked on the group's waiters, woken by the apply, no poll."""
+        if self._sms[group].applied_index() >= target:
+            return
+        evt = threading.Event()
+        w = self.park(group, target, evt.set)
+        if w is not None \
+                and not evt.wait(max(deadline - time.monotonic(), 0.0)):
+            self.unpark(group, w)
+        self.settle_read(group, target, phase)
 
     def query(self, query: str, group: int = 0,
               linear: bool = False, timeout: float = 10.0,
@@ -667,7 +794,32 @@ class RaftDB:
 
         Bounded: every wait raises typed, retryable ReadTimeout (503)
         within `timeout`; leadership lost mid-round surfaces
-        NotLeaderError on the next poll, never an unbounded spin."""
+        NotLeaderError on the next poll, never an unbounded spin.
+        The read point (`read_point`) and the wait for the apply
+        (`_wait_applied`) are the two halves; api/aio.py takes them
+        apart so that no thread is held while the apply catches up."""
+        p = self.read_point(query, group, linear=linear, timeout=timeout,
+                            mode=mode, watermark=watermark,
+                            deadline_ms=deadline_ms, brownout=brownout,
+                            info=info)
+        self._wait_applied(group, p.target, p.deadline, 0.0, p.phase)
+        return self.local_query(query, group)
+
+    def local_query(self, query: str, group: int = 0) -> str:
+        """The SQLite answer at whatever `group` has applied: the last
+        step of every read, once its read point is reached."""
+        return self._sms[group].query(query)
+
+    def read_point(self, query: str, group: int = 0,
+                   linear: bool = False, timeout: float = 10.0,
+                   mode: Optional[str] = None, watermark: int = 0,
+                   deadline_ms: Optional[float] = None,
+                   brownout: bool = False, info: Optional[dict] = None,
+                   block: bool = True) -> ReadPoint:
+        """The first half of `query` (same arguments): check the read,
+        take its read point and return where it must be served.  With
+        `block=False` it never waits: a ReadIndex round that has to
+        wait for its confirmation comes back as `ReadPoint.round`."""
         if not is_select(query):
             raise ValueError("expected SELECT")
         if self.witness_self:
@@ -694,31 +846,33 @@ class RaftDB:
         if mode == "local":
             if m is not None:
                 m.reads_local += 1
-        elif mode == "session":
+            return ReadPoint(0, "local", deadline)
+        if mode == "session":
             if m is not None:
                 m.reads_session += 1
-            if watermark > 0:
-                self._wait_applied(group, watermark, deadline, tick,
-                                   "session")
-        elif mode == "follower":
+            return ReadPoint(max(watermark, 0), "session", deadline)
+        if mode == "follower":
             if m is not None:
                 m.reads_follower += 1
             wm_fn = getattr(node, "commit_watermark", None)
             target = wm_fn(group) if wm_fn is not None \
                 else max(watermark, 0)
-            self._wait_applied(group, target, deadline, tick, "follower")
-        elif mode == "linear":
-            self._linear_wait(node, group, deadline, tick,
-                              brownout=brownout, info=info)
-        else:
-            raise ValueError(f"unknown read mode {mode!r}")
-        return self._sms[group].query(query)
+            return ReadPoint(target, "follower", deadline)
+        if mode == "linear":
+            return self._linear_wait(node, group, deadline, tick,
+                                     brownout=brownout, info=info,
+                                     block=block)
+        raise ValueError(f"unknown read mode {mode!r}")
 
     def _linear_wait(self, node, group: int, deadline: float,
                      tick: float, brownout: bool = False,
-                     info: Optional[dict] = None) -> None:
+                     info: Optional[dict] = None,
+                     block: bool = True) -> ReadPoint:
         """The linearizable read protocol: lease fast path, then the
-        ReadIndex round, each wait bounded by `deadline`.
+        ReadIndex round, each wait bounded by `deadline`.  Returns the
+        read point: the commit index the local apply must reach before
+        the read is served (`_wait_applied`).  With `block=False` a
+        round that must wait is handed back as `ReadPoint.round`.
 
         Brownout ladder (raftsql_tpu/overload/): when an attached
         governor reports sustained queue pressure, the ReadIndex
@@ -736,9 +890,7 @@ class RaftDB:
             if target is not None:
                 if m is not None:
                     m.reads_lease += 1
-                self._wait_applied(group, target, deadline, tick,
-                                   "lease_apply")
-                return
+                return ReadPoint(target, "lease_apply", deadline)
             # Lease unavailable (expired / not leader / precondition
             # pending): degrade to the full quorum round.
             if m is not None:
@@ -751,45 +903,64 @@ class RaftDB:
                 # has applied, skipping the quorum round entirely.
                 if info is not None:
                     info["served"] = "session"
-                return
+                return ReadPoint(0, "session", deadline)
         if m is not None:
             m.reads_read_index += 1
         join_fn = getattr(node, "read_join", None)
         if join_fn is not None:
-            # Batched ReadIndex (runtime/node.py): join the group's
-            # shared per-tick round and sleep on its event — N
-            # concurrent readers cost one quorum round per tick, and
-            # nobody poll-spins at tick cadence.
-            while True:
-                b = join_fn(group)
-                if b is None:
-                    raise NotLeaderError(group,
-                                         node.leader_of(group) + 1)
-                # A spurious wake on a still-pending batch must keep
-                # waiting on the SAME batch — re-joining would bump its
-                # count again and double-count this reader in
-                # reads_read_index_batched and the batch-size histogram.
-                while not b.status:
-                    if time.monotonic() > deadline:
-                        raise ReadTimeout(
-                            group, "confirm",
-                            "leadership not re-confirmed "
-                            "(no quorum reachable?)")
-                    b.evt.wait(max(deadline - time.monotonic(), 0.0))
-                if b.status == "ok":
-                    self._wait_applied(group, b.target, deadline,
-                                       tick, "apply")
-                    return
+            def rnd():
+                return self._join_round(node, join_fn, group, deadline)
+        else:
+            got = node.read_index(group)
+            if got is None:
+                raise NotLeaderError(group, node.leader_of(group) + 1)
+            if got != () and node.read_ready(group, got[1]):
+                return ReadPoint(got[0], "apply", deadline)
+
+            def rnd():
+                return self._index_round(node, group, deadline, tick, got)
+        if not block:
+            return ReadPoint(0, "apply", deadline, rnd)
+        return ReadPoint(rnd(), "apply", deadline)
+
+    def _join_round(self, node, join_fn, group: int,
+                    deadline: float) -> int:
+        """Batched ReadIndex (runtime/node.py): join the group's shared
+        per-tick round and sleep on its event — N concurrent readers
+        cost one quorum round per tick, and nobody poll-spins at tick
+        cadence.  Returns the confirmed read index."""
+        while True:
+            b = join_fn(group)
+            if b is None:
+                raise NotLeaderError(group, node.leader_of(group) + 1)
+            # A spurious wake on a still-pending batch must keep
+            # waiting on the SAME batch — re-joining would bump its
+            # count again and double-count this reader in
+            # reads_read_index_batched and the batch-size histogram.
+            while not b.status:
                 if time.monotonic() > deadline:
                     raise ReadTimeout(
                         group, "confirm",
                         "leadership not re-confirmed "
                         "(no quorum reachable?)")
-                # "not_leader": re-join — once the role cache reflects
-                # the loss, join returns None and the typed redirect
-                # surfaces.
+                b.evt.wait(max(deadline - time.monotonic(), 0.0))
+            if b.status == "ok":
+                return b.target
+            if time.monotonic() > deadline:
+                raise ReadTimeout(
+                    group, "confirm",
+                    "leadership not re-confirmed "
+                    "(no quorum reachable?)")
+            # "not_leader": re-join — once the role cache reflects
+            # the loss, join returns None and the typed redirect
+            # surfaces.
+
+    def _index_round(self, node, group: int, deadline: float,
+                     tick: float, got) -> int:
+        """The unbatched ReadIndex round, from its first answer `got`
+        (`node.read_index`): wait out a leader's missing current-term
+        commit and the round's confirmation.  Returns the read index."""
         while True:
-            got = node.read_index(group)
             if got is None:
                 raise NotLeaderError(group, node.leader_of(group) + 1)
             if got != ():
@@ -800,6 +971,7 @@ class RaftDB:
                 raise ReadTimeout(group, "read_index",
                                   "no current-term commit yet")
             time.sleep(tick)
+            got = node.read_index(group)
         target, reg = got
         while not node.read_ready(group, reg):
             # Leadership lost mid-round: surface the typed redirect on
@@ -814,7 +986,7 @@ class RaftDB:
                     "leadership not re-confirmed "
                     "(no quorum reachable?)")
             time.sleep(tick)
-        self._wait_applied(group, target, deadline, tick, "apply")
+        return target
 
     def metrics(self) -> dict:
         def ms(v):
@@ -1108,6 +1280,9 @@ class RaftDB:
             self.replica_plane = None
         err = self.pipe.close()
         self._reader.join(timeout=10)
+        # Reads still parked can no longer be served: wake them to
+        # their ReadTimeout now rather than at their deadlines.
+        self._wake_all()
         for sm in self._sms.values():
             sm.close()
         return err

@@ -243,9 +243,9 @@ class PodRaftDB(RaftDB):
         self._pod_check(group)
         return super().propose(query, group, *a, **kw)
 
-    def query(self, query, group: int = 0, *a, **kw):
+    def read_point(self, query, group: int = 0, *a, **kw):
         self._pod_check(group)
-        return super().query(query, group, *a, **kw)
+        return super().read_point(query, group, *a, **kw)
 
     def member_change(self, group: int, op: str, peer: int) -> dict:
         self._pod_check(group)

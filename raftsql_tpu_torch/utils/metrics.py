@@ -73,6 +73,15 @@ class NodeMetrics:
     reads_shm_fallbacks: int = 0
     reads_read_index_batched: int = 0
     read_batch_hist: Dict[str, int] = field(default_factory=dict)
+    # Reads parked on the apply (runtime/db.py RaftDB.park): reads that
+    # waited for the local apply to reach their read point, those the
+    # apply released, the sum of their waits (released or timed out),
+    # the most parked at once, and those whose deadline came first.
+    reads_parked: int = 0
+    read_wakes: int = 0
+    t_read_wait_ms: float = 0.0
+    read_waiters_max: int = 0
+    read_wait_timeouts: int = 0
     # Fault counters (chaos/ harness + storage fsio shim): injected
     # message-plane faults and storage faults survived by this node.
     # Zero outside chaos runs; exported so a chaos'd deployment's
@@ -195,6 +204,11 @@ class NodeMetrics:
                 "shm_fallbacks": self.reads_shm_fallbacks,
                 "read_index_batched": self.reads_read_index_batched,
                 "batch_hist": dict(self.read_batch_hist),
+                "reads_parked": self.reads_parked,
+                "read_wakes": self.read_wakes,
+                "t_read_wait_ms": round(self.t_read_wait_ms, 3),
+                "read_waiters_max": self.read_waiters_max,
+                "read_wait_timeouts": self.read_wait_timeouts,
             },
             "faults": {
                 "dropped_msgs": self.faults_dropped_msgs,

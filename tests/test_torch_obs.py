@@ -16,6 +16,7 @@ the card by tests/test_torch_cuda.py).
 import http.client
 import json
 import os
+import threading
 import time
 
 import numpy as np
@@ -33,7 +34,8 @@ from raftsql_tpu_torch.obs import (EVENT_FIELDS, PROF_PHASES,
                                    TraceSegmentWriter, chrome_trace,
                                    collect_segments, validate_chrome_trace)
 from raftsql_tpu_torch.obs import timeline
-from raftsql_tpu_torch.obs.spans import STAMPS, stage_seconds
+from raftsql_tpu_torch.obs.spans import (READ_STAMPS, STAMPS,
+                                         read_stage_seconds, stage_seconds)
 from raftsql_tpu_torch.runtime.fused import FusedClusterNode as TNode
 from raftsql_tpu_torch.server import main as server_main
 from raftsql_tpu_torch.server.main import build_fused_node
@@ -583,6 +585,130 @@ def test_stage_seconds_keep_the_window_and_skip_the_capture():
         "queue": [0.5, 0.25], "commit": [0.5, 0.25],
         "apply": [0.25, 0.25], "reply": [0.25, 0.25]}
     assert all(len(v) == 5 for v in stage_seconds(rows).values())
+
+
+# -- read spans and the read counters -----------------------------------
+
+def _get_linear(srv, body, path="/"):
+    conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=30)
+    try:
+        conn.request("GET", path, body=body,
+                     headers={"X-Consistency": "linear"})
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
+
+
+def _held_read(rdb, srv):
+    """One linear GET that must park: the apply is held back until a
+    write has committed past it, then released.  Returns the GET's
+    status."""
+    gate = threading.Event()
+    sm = rdb._sms[0]
+    real = sm.apply_batch
+
+    def held(items):
+        gate.wait()
+        return real(items)
+    sm.apply_batch = held
+    node = rdb.pipe.node
+    put = threading.Thread(target=_req, args=(
+        srv, "PUT", "/", b'INSERT INTO main.s (v) VALUES ("held")'))
+    put.start()
+    out = []
+    try:
+        assert _poll(lambda: node.commit_watermark(0) > rdb.watermark(0)
+                     or None)
+        get = threading.Thread(target=lambda: out.append(
+            _get_linear(srv, b"SELECT * FROM main.s")))
+        get.start()
+        assert _poll(lambda: rdb._n_parked or None)
+    finally:
+        gate.set()
+    get.join(30)
+    put.join(30)
+    sm.apply_batch = real
+    return out[0][0]
+
+
+def test_read_spans_run_from_parse_to_reply(tmp_path):
+    """Every linear GET folds one read span whose stamps never go back
+    and whose four stages sum exactly to reply - parsed; a GET that
+    parked spends its time in `wait`."""
+    rdb, srv = _served(tmp_path)
+    try:
+        node = rdb.pipe.node
+        node.enable_tracing(device_ring=False, spans=64)
+        for body in _puts(4):
+            assert _req(srv, "PUT", body=body)[0] == 204
+        for _ in range(6):
+            assert _get_linear(srv, b"SELECT * FROM main.s")[0] == 200
+        assert _held_read(rdb, srv) == 200
+        t = node.tracer.finished_reads()
+        assert t.shape == (7, len(READ_STAMPS))
+        assert not np.isnan(t).any() and (np.diff(t, axis=1) >= 0).all()
+        st = read_stage_seconds(t)
+        assert list(st) == ["point", "wait", "query", "reply"]
+        total = st["point"] + st["wait"] + st["query"] + st["reply"]
+        assert (total == t[:, -1] - t[:, 0]).all()
+        assert st["wait"][-1] > 0 and (st["wait"][:-1] == 0).all()
+        assert node.tracer.folded == 4 + 1     # the writes' ring apart
+    finally:
+        srv.stop()
+        rdb.close()
+
+
+def test_read_span_ring_keeps_its_cap():
+    tr = SpanTracer(max_done=4)
+    nums = [tr.note_read(i % 2, [float(i + k) for k in range(5)])
+            for i in range(10)]
+    assert nums == list(range(10)) and tr.reads_folded == 10
+    t = tr.finished_reads()
+    assert t.shape == (4, len(READ_STAMPS))
+    assert t[:, 0].tolist() == [6.0, 7.0, 8.0, 9.0]
+    assert tr.folded == 0 and tr.finished().shape == (0, len(STAMPS))
+    assert all(len(v) == 4 for v in read_stage_seconds(t).values())
+
+
+def test_tracing_off_a_get_stamps_nothing(tmp_path, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("a read span was stamped with tracing off")
+
+    monkeypatch.setattr(SpanTracer, "note_read", refuse)
+    rdb, srv = _served(tmp_path)
+    try:
+        assert rdb.pipe.node.tracer is None
+        for body in _puts(3):
+            assert _req(srv, "PUT", body=body)[0] == 204
+        for _ in range(4):
+            assert _get_linear(srv, b"SELECT * FROM main.s")[0] == 200
+        assert _held_read(rdb, srv) == 200
+        assert _req(srv, "GET", body=b"SELECT * FROM main.s")[0] == 200
+    finally:
+        srv.stop()
+        rdb.close()
+
+
+def test_read_counters_on_get_metrics(tmp_path):
+    rdb, srv = _served(tmp_path)
+    try:
+        for body in _puts(3):
+            assert _req(srv, "PUT", body=body)[0] == 204
+        assert _held_read(rdb, srv) == 200
+        for _ in range(3):
+            assert _get_linear(srv, b"SELECT * FROM main.s")[0] == 200
+        status, body = _req(srv, "GET", "/metrics")
+        assert status == 200
+        reads = json.loads(body)["reads"]
+        assert reads["reads_parked"] >= 1 and reads["read_wakes"] >= 1
+        assert reads["read_wakes"] <= reads["reads_parked"]
+        assert reads["t_read_wait_ms"] > 0
+        assert reads["read_waiters_max"] >= 1
+        assert reads["read_wait_timeouts"] == 0
+    finally:
+        srv.stop()
+        rdb.close()
 
 
 class _Activity:
