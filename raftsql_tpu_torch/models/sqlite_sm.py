@@ -12,12 +12,19 @@ Mirrors the reference's raftdb SQL handling (reference db.go):
 
 SQLite is C reached through CPython's `sqlite3` binding — the same
 library the reference reaches through cgo (db.go:6), per SURVEY.md §2b V5.
+A state machine on a file also holds a write connection of
+native/sqlite_apply.cc, through which every apply goes (`apply_runs`):
+one native call, which gives up the interpreter lock once, applies a
+whole run of commits to every group it touches, where the binding would
+give the lock up and take it back around each prepare and step.
 """
 from __future__ import annotations
 
+import ctypes
 import os
 import sqlite3
 import threading
+from itertools import accumulate
 from typing import Optional
 
 
@@ -36,6 +43,124 @@ def _cell(v) -> str:
     if isinstance(v, float):
         return repr(v)
     return str(v)
+
+
+# CPython's sqlite3 exception class by primary result code
+# (Modules/_sqlite/util.c get_exception_class); DatabaseError otherwise.
+_CLASSES = {
+    2: sqlite3.InternalError, 12: sqlite3.InternalError,
+    7: MemoryError, 11: sqlite3.DatabaseError, 18: sqlite3.DataError,
+    19: sqlite3.IntegrityError, 20: sqlite3.IntegrityError,
+    21: sqlite3.InterfaceError, 25: sqlite3.InterfaceError,
+    **{c: sqlite3.OperationalError
+       for c in (1, 3, 4, 5, 6, 8, 9, 10, 13, 14, 15, 16, 17)}}
+# The binding's own refusals, as native/sqlite_apply.cc codes them.
+_REFUSALS = {
+    -1: (sqlite3.ProgrammingError,
+         "You can only execute one statement at a time."),
+    -2: (sqlite3.ProgrammingError, "the query contains a null character"),
+    -3: (sqlite3.DataError, "query string is too large")}
+_PRIMARY = ("OK ERROR INTERNAL PERM ABORT BUSY LOCKED NOMEM READONLY "
+            "INTERRUPT IOERR CORRUPT NOTFOUND FULL CANTOPEN PROTOCOL EMPTY "
+            "SCHEMA TOOBIG CONSTRAINT MISMATCH MISUSE NOLFS AUTH FORMAT "
+            "RANGE NOTADB NOTICE WARNING ROW DONE").split()
+# sqlite_errorname by extended code: the module's SQLITE_<primary>[_...]
+# constants (its authorizer codes share the numbers, not the names).
+_NAMES = {v: k for k, v in vars(sqlite3).items()
+          if k.startswith("SQLITE_") and isinstance(v, int)
+          and k[7:].split("_")[0] in _PRIMARY}
+
+
+def _error(code: int, msg: str) -> Exception:
+    """The exception CPython's sqlite3 raises for native code `code` and
+    SQLite's message `msg` (util.c _pysqlite_seterror)."""
+    if code < 0:
+        cls, text = _REFUSALS[code]
+        return cls(text)
+    e = _CLASSES.get(code & 0xFF, sqlite3.DatabaseError)(msg)
+    e.sqlite_errorcode = code
+    e.sqlite_errorname = _NAMES.get(code, "unknown")
+    return e
+
+
+class _WriteConn:
+    """The native write connection of one database file
+    (native/sqlite_apply.cc `sa_open`), closed on close() or when
+    dropped."""
+    __slots__ = ("lib", "h")
+
+    def __init__(self, lib, path: str, resume: bool):
+        self.lib = lib
+        self.h = lib.sa_open(path.encode(), int(resume))
+        if not self.h:
+            raise sqlite3.OperationalError("unable to open database file")
+
+    def close(self) -> None:
+        h, self.h = self.h, None
+        if h:
+            self.lib.sa_close(h)
+
+    __del__ = close
+
+
+def apply_runs(batches) -> tuple:
+    """Apply `[(sm, [(command, index), ...]), ...]`, file-backed state
+    machines in ascending group order, in one native call: each batch
+    with `apply_batch`'s semantics, entry for entry.  Takes every batch's
+    state-machine lock, in the given order (readers hold one at a time,
+    so the order cannot deadlock), for the call.  A state machine whose
+    native connection is gone (closed) applies through its Python
+    connection.  Returns (one apply_batch result per batch, the
+    nanoseconds spent inside the native call)."""
+    locks = [sm._lock for sm, _ in batches]
+    for lk in locks:
+        lk.acquire()
+    try:
+        out = [None] * len(batches)
+        nat = []
+        for k, (sm, items) in enumerate(batches):
+            if sm._native is None:
+                out[k] = sm._apply_py(items)
+            elif items:
+                nat.append(k)
+            else:
+                out[k] = []
+        if not nat:
+            return out, 0
+        sms = [batches[k][0] for k in nat]
+        runs = [batches[k][1] for k in nat]
+        cmds = [c.encode() for items in runs for c, _i in items]
+        n, ng = len(cmds), len(nat)
+        lens = [len(b) for b in cmds]
+        i64 = ctypes.c_int64
+        starts = (i64 * (ng + 1))(*accumulate(map(len, runs), initial=0))
+        offs = (i64 * n)(*accumulate(lens[:-1], lambda a, x: a + x + 1,
+                                     initial=0))
+        rc = (ctypes.c_int32 * n)()
+        moff, mlen = (i64 * n)(), (i64 * n)()
+        applied = (i64 * ng)()
+        msgs = ctypes.c_void_p()
+        lib = sms[0]._native.lib
+        ns = lib.sa_apply_run(
+            (ctypes.c_void_p * ng)(*(sm._native.h for sm in sms)), ng,
+            starts, (i64 * ng)(*(sm._applied for sm in sms)),
+            b"\0".join(cmds) + b"\0", offs, (i64 * n)(*lens),
+            (i64 * n)(*(i for items in runs for _c, i in items)),
+            rc, moff, mlen, ctypes.byref(msgs), applied)
+        for k, sm in enumerate(sms):
+            sm._applied = applied[k]
+    finally:
+        for lk in locks:
+            lk.release()
+    text = msgs.value          # every message, or None without an error
+    errs = [_error(c, ctypes.string_at(text + moff[i], mlen[i]).decode(
+        "utf-8", "replace") if text else "") if c else None
+        for i, c in enumerate(rc)]
+    if text:
+        lib.sa_free(text)
+    for j, k in enumerate(nat):
+        out[k] = errs[starts[j]:starts[j + 1]]
+    return out, ns
 
 
 class SQLiteStateMachine:
@@ -68,6 +193,21 @@ class SQLiteStateMachine:
                 "SELECT v FROM _raft_meta WHERE k='applied_index'"
             ).fetchone()
             self._applied = int(row[0]) if row else 0
+        self._native: Optional[_WriteConn] = None
+        self._open_native()
+
+    def _open_native(self) -> None:
+        """The native write connection, for a file; a `:memory:`
+        database is private to its Python connection and keeps it."""
+        if self.path != ":memory:":
+            from raftsql_tpu_torch.native.build import load_sqlite_apply
+            self._native = _WriteConn(load_sqlite_apply(), self.path,
+                                      self.resume)
+
+    def _close_native(self) -> None:
+        if self._native is not None:
+            self._native.close()
+            self._native = None
 
     def _connect(self) -> sqlite3.Connection:
         """Open self.path configured for this state machine: manual
@@ -115,71 +255,81 @@ class SQLiteStateMachine:
         The exactly-once check lives under the SAME lock install()
         takes: a snapshot install racing the applier thread bumps
         _applied before this runs, so a stale queued entry can never
-        re-apply over the installed image."""
+        re-apply over the installed image.
+
+        A file goes through its native connection (`apply_runs`); the
+        Python connection applies a `:memory:` database."""
+        if self._native is not None:
+            return apply_runs([(self, items)])[0][0]
         with self._lock:
-            errs: list = []
-            attempted: list = []     # False = skipped as already applied
-            last = 0
+            return self._apply_py(items)
+
+    def _apply_py(self, items) -> list:
+        """apply_batch through the Python connection; caller holds the
+        lock."""
+        errs: list = []
+        attempted: list = []     # False = skipped as already applied
+        last = 0
+        try:
+            self._conn.execute("BEGIN")
+        except sqlite3.Error:       # already in a transaction
+            pass
+        for command, index in items:
+            if self.resume and index and index <= self._applied:
+                errs.append(None)
+                attempted.append(False)
+                continue
+            attempted.append(True)
             try:
-                self._conn.execute("BEGIN")
-            except sqlite3.Error:       # already in a transaction
-                pass
-            for command, index in items:
-                if self.resume and index and index <= self._applied:
-                    errs.append(None)
-                    attempted.append(False)
-                    continue
-                attempted.append(True)
-                try:
-                    self._conn.execute("SAVEPOINT _apply")
-                    self._conn.execute(command)
-                    self._conn.execute("RELEASE _apply")
-                    errs.append(None)
-                except sqlite3.Error as e:
-                    # A failed command still consumes its entry (the
-                    # error is its outcome, reference db.go:55-80): undo
-                    # only ITS effects, keep the batch.
-                    try:
-                        self._conn.execute("ROLLBACK TO _apply")
-                        self._conn.execute("RELEASE _apply")
-                    except sqlite3.Error:
-                        pass
-                    errs.append(e)
-                if index:
-                    last = max(last, index)
-            meta = ("INSERT INTO _raft_meta (k, v) VALUES "
-                    "('applied_index', ?) ON CONFLICT(k) DO UPDATE "
-                    "SET v=excluded.v")
-            try:
-                if self.resume and last:
-                    self._conn.execute(meta, (last,))
-                self._conn.commit()
-                if last:
-                    self._applied = last
+                self._conn.execute("SAVEPOINT _apply")
+                self._conn.execute(command)
+                self._conn.execute("RELEASE _apply")
+                errs.append(None)
             except sqlite3.Error as e:
-                # Commit failure (disk full): nothing of the batch
-                # landed.  Report it on every entry attempted in THIS
-                # transaction (skipped duplicates keep their None — they
-                # are durable from an earlier boot), then try to advance
-                # the durable floor alone so the entries stay consumed
-                # ("the error is their outcome") — the applied floor may
-                # only move when it is durable, because WAL compaction
-                # and snapshot labeling trust it (models/base.py).
+                # A failed command still consumes its entry (the
+                # error is its outcome, reference db.go:55-80): undo
+                # only ITS effects, keep the batch.
                 try:
-                    self._conn.rollback()
+                    self._conn.execute("ROLLBACK TO _apply")
+                    self._conn.execute("RELEASE _apply")
                 except sqlite3.Error:
                     pass
-                errs = [err if (err is not None or not att) else e
-                        for err, att in zip(errs, attempted)]
-                if last:
-                    try:
-                        if self.resume:
-                            self._conn.execute(meta, (last,))
-                            self._conn.commit()
-                        self._applied = last
-                    except sqlite3.Error:
-                        pass            # floor stays; log re-delivers
-            return errs
+                errs.append(e)
+            if index:
+                last = max(last, index)
+        meta = ("INSERT INTO _raft_meta (k, v) VALUES "
+                "('applied_index', ?) ON CONFLICT(k) DO UPDATE "
+                "SET v=excluded.v")
+        try:
+            if self.resume and last:
+                self._conn.execute(meta, (last,))
+            self._conn.commit()
+            if last:
+                self._applied = last
+        except sqlite3.Error as e:
+            # Commit failure (disk full): nothing of the batch
+            # landed.  Report it on every entry attempted in THIS
+            # transaction (skipped duplicates keep their None — they
+            # are durable from an earlier boot), then try to advance
+            # the durable floor alone so the entries stay consumed
+            # ("the error is their outcome") — the applied floor may
+            # only move when it is durable, because WAL compaction
+            # and snapshot labeling trust it (models/base.py).
+            try:
+                self._conn.rollback()
+            except sqlite3.Error:
+                pass
+            errs = [err if (err is not None or not att) else e
+                    for err, att in zip(errs, attempted)]
+            if last:
+                try:
+                    if self.resume:
+                        self._conn.execute(meta, (last,))
+                        self._conn.commit()
+                    self._applied = last
+                except sqlite3.Error:
+                    pass            # floor stays; log re-delivers
+        return errs
 
     def _image(self) -> bytes:
         """Serialize in DELETE journal mode: a WAL-mode image cannot be
@@ -196,12 +346,15 @@ class SQLiteStateMachine:
             return self._vacuum_image()
         wal = self.has_durable_snapshot
         if wal:
+            # SQLite leaves WAL mode only on the file's one connection.
+            self._close_native()
             self._conn.execute("PRAGMA journal_mode=DELETE")
         try:
             return self._conn.serialize()
         finally:
             if wal:
                 self._conn.execute("PRAGMA journal_mode=WAL")
+                self._open_native()
 
     def _empty(self) -> bool:
         """A database of 0 pages: a new file or `:memory:` database
@@ -265,6 +418,7 @@ class SQLiteStateMachine:
                     f.write(blob)
                     f.flush()
                     os.fsync(f.fileno())
+                self._close_native()
                 self._conn.close()
                 try:
                     os.replace(tmp, self.path)
@@ -275,6 +429,7 @@ class SQLiteStateMachine:
                             pass
                 finally:
                     self._conn = self._connect()
+                    self._open_native()
             elif hasattr(self._conn, "deserialize"):
                 self._conn.deserialize(blob)
             else:
@@ -328,4 +483,5 @@ class SQLiteStateMachine:
 
     def close(self) -> None:
         with self._lock:
+            self._close_native()
             self._conn.close()

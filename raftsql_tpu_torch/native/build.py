@@ -25,6 +25,13 @@ JAX package's switch), under which the loaders below return None.
 The library is loaded with ctypes' default RTLD_LOCAL, so its C symbols
 never clash with another library exporting the same names in the same
 process (the JAX package's own build of wal.cc, in the parity tests).
+
+native/sqlite_apply.cc (the SQLite state machine's run apply) is built the
+same way into build/native/libsqlite_apply_<digest>.so by
+`load_sqlite_apply`, which binds it to the libsqlite3 that the
+interpreter's own sqlite3 module loaded.  It has no Python fallback for a
+file-backed state machine and ignores RAFTSQL_TPU_NATIVE: a failed build
+or load raises.
 """
 from __future__ import annotations
 
@@ -48,15 +55,17 @@ _libs: dict = {}        # (source, build dir) -> the loaded CDLL
 def build(source: Optional[str] = None,
           build_dir: Optional[str] = None) -> str:
     """Compile `source` (default native/wal.cc) into `build_dir` (default
-    build/native/) unless this source's build is there already; returns
-    the library's path.  Raises RuntimeError with the compiler's output
-    when g++ is missing or fails."""
+    build/native/) as lib<source stem>_<digest>.so unless this source's
+    build is there already; returns the library's path.  Raises
+    RuntimeError with the compiler's output when g++ is missing or
+    fails."""
     source = SOURCE if source is None else source
     build_dir = BUILD_DIR if build_dir is None else build_dir
     with open(source, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(GXX_FLAGS).encode()
                                 ).hexdigest()[:16]
-    so = os.path.join(build_dir, f"libwal_{digest}.so")
+    stem = os.path.splitext(os.path.basename(source))[0]
+    so = os.path.join(build_dir, f"lib{stem}_{digest}.so")
     if os.path.exists(so):
         return so
     os.makedirs(build_dir, exist_ok=True)
@@ -199,6 +208,60 @@ def load_native_wal():
     """ctypes handle to the WAL fast path; None under
     RAFTSQL_TPU_NATIVE=0."""
     return _load()
+
+
+SQLITE_APPLY_SOURCE = os.path.join(_DIR, "sqlite_apply.cc")
+
+
+def _sqlite_library() -> str:
+    """The path of the SQLite library the interpreter's sqlite3 module
+    runs on: the libsqlite3 mapped into this process, or the `_sqlite3`
+    extension itself where it carries SQLite inside.  One SQLite in the
+    process keeps one record of the file locks it holds."""
+    import _sqlite3
+    with open("/proc/self/maps") as f:
+        for line in f:
+            path = line.split()[-1]
+            if os.path.basename(path).startswith("libsqlite3"):
+                return path
+    return _sqlite3.__file__
+
+
+def load_sqlite_apply():
+    """ctypes handle to native/sqlite_apply.cc (built first if needed),
+    its SQLite entry points bound.  Raises when the build, the load or
+    the binding fails."""
+    key = (SQLITE_APPLY_SOURCE, BUILD_DIR)
+    with _lock:
+        lib = _libs.get(key)
+        if lib is None:
+            so = build(SQLITE_APPLY_SOURCE, BUILD_DIR)
+            c = ctypes
+            i64p = c.POINTER(c.c_int64)
+            try:
+                lib = ctypes.CDLL(so)
+                lib.sa_init.restype = c.c_int
+                lib.sa_init.argtypes = [c.c_char_p]
+                lib.sa_open.restype = c.c_void_p
+                lib.sa_open.argtypes = [c.c_char_p, c.c_int]
+                lib.sa_close.restype = None
+                lib.sa_close.argtypes = [c.c_void_p]
+                lib.sa_apply_run.restype = c.c_int64
+                lib.sa_apply_run.argtypes = [
+                    c.POINTER(c.c_void_p), c.c_int32, i64p, i64p,
+                    c.c_char_p, i64p, i64p, i64p, c.POINTER(c.c_int32),
+                    i64p, i64p, c.POINTER(c.c_void_p), i64p]
+                lib.sa_free.restype = None
+                lib.sa_free.argtypes = [c.c_void_p]
+            except (OSError, AttributeError) as e:
+                raise RuntimeError(f"native SQLite apply: cannot load "
+                                   f"{so}: {e}") from e
+            sqlite = _sqlite_library()
+            if lib.sa_init(sqlite.encode()) != 0:
+                raise RuntimeError(f"native SQLite apply: cannot bind the "
+                                   f"SQLite entry points of {sqlite}")
+            _libs[key] = lib
+        return lib
 
 
 HTTP_LOAD_SOURCE = os.path.join(_DIR, "http_load.cc")

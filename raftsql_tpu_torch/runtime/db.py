@@ -36,7 +36,8 @@ from collections import defaultdict, deque
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 from raftsql_tpu_torch.models.base import StateMachine
-from raftsql_tpu_torch.models.sqlite_sm import is_select
+from raftsql_tpu_torch.models.sqlite_sm import (SQLiteStateMachine,
+                                                apply_runs, is_select)
 from raftsql_tpu_torch.overload import (Overloaded, deadline_steps,
                                   zero_metrics_doc)
 from raftsql_tpu_torch.runtime.envelope import unwrap
@@ -139,6 +140,15 @@ def _expand_commit_item(item, node=None, dups=None):
     if len(item) == 3 and isinstance(item[2], str):
         return [item]
     raise TypeError(f"unrecognized commit_q item shape: {item!r:.120}")
+
+
+def _runs_native(sm) -> bool:
+    """Whether `sm` applies through the run's one native call: a SQLite
+    state machine on a file whose apply_batch is its class's own (a
+    wrapper put on the instance, as fault injection does, must see its
+    entries)."""
+    return isinstance(sm, SQLiteStateMachine) \
+        and sm._native is not None and "apply_batch" not in vars(sm)
 
 
 class NotLeaderError(Exception):
@@ -372,32 +382,51 @@ class RaftDB:
     def _apply_run(self, run) -> None:
         """Apply a drained run of commits with GROUP COMMIT: entries are
         batched per state machine and applied in one durable transaction
-        each (models apply_batch; per-item fallback otherwise), then
-        acks/listeners fire in original commit order.  In resume mode
-        the state machine itself skips entries at or below its durable
-        applied index (atomically under its own lock, racing snapshot
-        installs safely) and returns None — so skipped-but-committed
-        entries still resolve their acks."""
+        each, then acks/listeners fire in original commit order.  The
+        file-backed SQLite groups of the run go through one native call
+        (models/sqlite_sm.py apply_runs); the others (`:memory:`,
+        witness, KV, or a state machine whose apply_batch was wrapped)
+        apply one state machine at a time (apply_batch; per-item
+        fallback otherwise).  In resume mode the state machine itself
+        skips entries at or below its durable applied index (atomically
+        under its own lock, racing snapshot installs safely) and returns
+        None — so skipped-but-committed entries still resolve their
+        acks."""
         commit_ts = time.monotonic()    # commit observation point
         per_g: Dict[int, list] = defaultdict(list)
         for (group, index, query) in run:
             per_g[group].append((query, index))
         errs: Dict[int, list] = {}
         waiters = self._waiters
+        sms = self._sms
         t_a = time.monotonic()
+        native = sorted(g for g in per_g if _runs_native(sms[g]))
+        ns = 0
+        if native:
+            got, ns = apply_runs([(sms[g], per_g[g]) for g in native])
+            errs.update(zip(native, got))
         for group, items in per_g.items():
-            sm = self._sms[group]
+            if group in errs:
+                continue
+            sm = sms[group]
             batch_fn = getattr(sm, "apply_batch", None)
             if batch_fn is not None:
                 errs[group] = batch_fn(items)
             else:
                 errs[group] = [sm.apply(qy, ix) for (qy, ix) in items]
+        for group in per_g:
             if waiters[group]:
                 self._release(group)
         nm = getattr(self.pipe.node, "metrics", None)
         if nm is not None:
-            # Only this thread writes the sum.
+            # Only this thread writes these.
             nm.t_apply_ms += (time.monotonic() - t_a) * 1e3
+            n_native = sum(len(per_g[g]) for g in native)
+            if native:
+                nm.apply_native_runs += 1
+                nm.apply_native_entries += n_native
+                nm.t_apply_sqlite_ms += ns * 1e-6
+            nm.apply_py_entries += len(run) - n_native
         if self.shm is not None:
             # Mirror the applied run into the worker-mapped snapshot
             # log BEFORE acks fire: a client whose PUT just acked may

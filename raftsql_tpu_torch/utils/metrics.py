@@ -145,6 +145,17 @@ class NodeMetrics:
     t_apply_ms: float = 0.0
     t_launch_ms: float = 0.0
     t_launch_cpu_ms: float = 0.0
+    # The apply's split (RaftDB._apply_run): native calls that applied a
+    # run to its file-backed SQLite groups (models/sqlite_sm.py
+    # apply_runs) and the entries they applied, entries applied one
+    # state machine at a time from Python (`:memory:`, witness, KV), and
+    # the wall time inside the native calls on SQLite's side of the
+    # interpreter lock (measured in C); t_apply_ms less it is the
+    # Python around them and the waits for the lock.
+    apply_native_runs: int = 0
+    apply_native_entries: int = 0
+    apply_py_entries: int = 0
+    t_apply_sqlite_ms: float = 0.0
     # The fused runtime's device step (runtime/fused.py): CUDA graphs
     # captured of it, ticks that replayed one, replays that first copied
     # a rebound state or inbox into the graph's buffers, and steps
@@ -247,6 +258,13 @@ class NodeMetrics:
                 "publish": round(self.t_publish_ms / t, 4),
                 "apply": round(self.t_apply_ms / t, 4),
                 "launch": round(self.t_launch_ms / t, 4),
+            },
+            "apply": {
+                "native_runs": self.apply_native_runs,
+                "native_entries": self.apply_native_entries,
+                "py_entries": self.apply_py_entries,
+                "t_apply_ms": round(self.t_apply_ms, 3),
+                "t_apply_sqlite_ms": round(self.t_apply_sqlite_ms, 3),
             },
             "device_step": {
                 "graph_captures": self.graph_captures,
